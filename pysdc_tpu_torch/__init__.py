@@ -1,0 +1,48 @@
+"""pysdc_tpu_torch: the PyTorch/CUDA port of pysdc_tpu.
+
+A second package beside ``pysdc_tpu``, with its layout (``core/``, ``ops/``,
+``models/``, ``sweepers/``, ``convergence/``, ``hooks/``, ``parallel/``,
+``utils/``), its ``description``-dict frontend and its stats ``Entry``
+schema, so one script runs against either package by swapping the import.
+It imports torch, numpy and scipy, never JAX and nothing of ``pysdc_tpu``.
+The hot stencil of the 2D periodic heat equation is a hand-written CUDA
+kernel for Hopper (``csrc/cross_stencil.cu``), built at first use.
+
+Entry points run on the CUDA card unless the caller asks for the CPU::
+
+    import torch
+    from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    description = dict(
+        problem_class=HeatND,
+        problem_params=dict(nvars=64, nu=0.1, freq=2, bc='periodic', device='cuda'),
+        sweeper_class=GenericImplicit,
+        sweeper_params=dict(num_nodes=3, QI='LU'),
+        level_params=dict(dt=0.1, restol=1e-10),
+        step_params=dict(maxiter=20),
+    )
+    controller = ControllerNonMPI(1, {'logger_level': 30}, description)
+    prob = controller.MS[0].levels[0].prob
+    uend, stats = controller.run(prob.u_exact(0.0), 0.0, 1.0)
+"""
+
+from pysdc_tpu_torch.core.precision import configure_default_matmul_precision
+
+# numerics policy: no TF32 in matmuls or convolutions (core/precision.py)
+configure_default_matmul_precision()
+
+from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
+from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit  # noqa: E402
+from pysdc_tpu_torch.utils.stats import filter_stats, get_list_of_types, get_sorted, sort_stats  # noqa: E402
+
+__version__ = '0.1.0'
+
+__all__ = [
+    'ControllerNonMPI',
+    'GenericImplicit',
+    'filter_stats',
+    'sort_stats',
+    'get_sorted',
+    'get_list_of_types',
+]

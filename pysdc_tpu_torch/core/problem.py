@@ -1,0 +1,107 @@
+"""Problem protocol: the model layer's contract with sweepers and levels.
+
+The counterpart of ``pysdc_tpu/core/problem.py`` (reference
+``pySDC/core/problem.py:43-215``).  A problem is a host object holding its
+configuration plus constant tensors on its ``device``; its methods are eager
+functions of ``(u, t)`` on tensors.
+
+Key protocol (names follow the reference):
+  - ``eval_f(u, t)``                      RHS evaluation -> tensor / IMEX / Comp2
+  - ``solve_system(rhs, factor, u0, t)``  solve ``(I - factor*A) u = rhs``
+  - ``u_exact(t)``                        exact/reference solution when known
+  - ``u_init``                            zero state of the right shape/dtype
+
+The batched variants take the collocation nodes as a leading axis of ``u``
+(``(M, *shape)``).  The base versions loop over that axis; problems whose
+operators take leading batch axes (``HeatND``) override them with one call.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from pysdc_tpu_torch.core.device import resolve_device
+from pysdc_tpu_torch.core.errors import ParameterError
+from pysdc_tpu_torch.core.state import IMEX, Comp2, map_components
+
+
+class WorkCounter:
+    """Host-side work counter (reference ``pySDC/core/problem.py:16-41``).
+
+    The port runs eagerly, so a problem ticks its counters on every call:
+    they count the work actually done (predictor evaluations included)."""
+
+    def __init__(self):
+        self.niter = 0
+
+    def __call__(self, n=1):
+        self.niter += n
+
+    def decrement(self, n=1):
+        self.niter -= n
+
+    def __str__(self):
+        return str(self.niter)
+
+
+class Problem:
+    """Base class for all problems."""
+
+    #: 'single' | 'imex' | 'comp2' — shape of the RHS
+    f_kind = 'single'
+
+    def __init__(self, shape, dtype=None, device='cuda'):
+        self.shape = tuple(shape)
+        self.dtype = torch.float64 if dtype is None else dtype
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ParameterError(f'dtype must be torch.float32 or torch.float64, got {dtype!r}')
+        self.device = resolve_device(device)
+        self.work_counters: dict[str, WorkCounter] = {}
+        self.params: dict[str, Any] = {}
+
+    # -- parameter registration (reference RegisterParams, core/common.py:25)
+    def _register(self, **kwargs):
+        for key, value in kwargs.items():
+            setattr(self, key, value)
+            self.params[key] = value
+
+    # ------------------------------------------------------------------
+    @property
+    def u_init(self):
+        return torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+
+    @property
+    def f_init(self):
+        z = self.u_init
+        if self.f_kind == 'imex':
+            return IMEX(z, z.clone())
+        if self.f_kind == 'comp2':
+            return Comp2(z, z.clone())
+        return z
+
+    # -- protocol ------------------------------------------------------
+    def eval_f(self, u, t):
+        raise NotImplementedError('problem has to implement eval_f(u, t)')
+
+    def solve_system(self, rhs, factor, u0, t):
+        raise NotImplementedError('problem has to implement solve_system(rhs, factor, u0, t)')
+
+    def u_exact(self, t):
+        raise NotImplementedError(f'{type(self).__name__} does not implement u_exact(t)')
+
+    # -- batched-over-nodes variants -------------------------------------
+    def eval_f_batched(self, u, t):
+        """u: (M, *shape), t: (M,) -> RHS with a leading node axis."""
+        parts = [self.eval_f(u[m], float(t[m])) for m in range(u.shape[0])]
+        return map_components(lambda *xs: torch.stack(xs), *parts)
+
+    def solve_system_batched(self, rhs, factor, u0, t):
+        """rhs/u0: (M, *shape), factor/t: (M,) -> (M, *shape)."""
+        return torch.stack(
+            [self.solve_system(rhs[m], float(factor[m]), u0[m], float(t[m])) for m in range(rhs.shape[0])]
+        )
+
+    def __repr__(self):
+        return f'{type(self).__name__}(shape={self.shape}, dtype={self.dtype}, device={self.device})'

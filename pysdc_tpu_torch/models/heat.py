@@ -1,0 +1,120 @@
+"""N-dimensional heat equation, finite differences.
+
+The counterpart of ``pysdc_tpu/models/heat.py:HeatND`` (reference
+``heatNd_unforced``, ``pySDC/implementations/problem_classes/HeatEquation_ND_FD.py``):
+the Laplacian is a separable stencil operator with FFT (periodic) or
+eigen-product (Dirichlet/Neumann) direct shifted solves.  On the card a 2D
+periodic Laplacian applies through kernel K1.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from pysdc_tpu_torch.core.problem import Problem, WorkCounter
+from pysdc_tpu_torch.ops.fd import get_1d_grid
+from pysdc_tpu_torch.ops.linop import SeparableFDOperator
+
+
+class HeatND(Problem):
+    """u_t = nu * Laplace(u); params follow the reference problem class,
+    plus ``device`` (default ``'cuda'``)."""
+
+    def __init__(
+        self,
+        nvars=512,
+        nu=0.1,
+        freq=2,
+        stencil_type='center',
+        order=2,
+        lintol=1e-12,
+        liniter=10000,
+        solver_type='direct',
+        bc='periodic',
+        sigma=6e-2,
+        backend='eigen',
+        dtype=None,
+        device='cuda',
+    ):
+        if backend != 'eigen':
+            raise NotImplementedError(
+                f"HeatND(backend={backend!r}) is not ported yet (ROADMAP queue 1, item 8: sparse lane)"
+            )
+        if solver_type != 'direct':
+            raise NotImplementedError(
+                f"HeatND(solver_type={solver_type!r}) is not ported yet (ROADMAP queue 1, item 9: iterative solves)"
+            )
+        nvars = (nvars,) if isinstance(nvars, int) else tuple(nvars)
+        freq = (freq,) * len(nvars) if isinstance(freq, int) else tuple(freq)
+        if len(nvars) > 1 and len(set(nvars)) > 1:
+            raise ValueError('need identical nvars for each dimension')
+        super().__init__(shape=nvars, dtype=dtype, device=device)
+
+        dx, xvals = get_1d_grid(nvars[0], bc)
+        per_dim = [
+            dict(size=n, dx=dx, derivative=2, order=order, stencil_type=stencil_type, bc=bc)
+            for n in nvars
+        ]
+        self.A = SeparableFDOperator(per_dim, scale=nu)
+        self._register(
+            nvars=nvars, nu=nu, freq=freq, order=order, stencil_type=stencil_type,
+            lintol=lintol, liniter=liniter, solver_type=solver_type, bc=bc, sigma=sigma, dx=dx,
+            backend=backend,
+        )
+        self.xvals = xvals
+        self.work_counters['rhs'] = WorkCounter()
+
+    @property
+    def ndim(self):
+        return len(self.nvars)
+
+    @property
+    def grids(self):
+        """ND meshgrid tuple (matches reference generic_ND_FD.grids)."""
+        x = torch.as_tensor(self.xvals, dtype=self.dtype, device=self.device)
+        if self.ndim == 1:
+            return x
+        return torch.meshgrid(*([x] * self.ndim), indexing='ij')
+
+    def eval_f(self, u, t):
+        self.work_counters['rhs']()
+        return self.A.apply(u)
+
+    def eval_f_batched(self, u, t):
+        """One apply over the leading node axis (one K1 launch on the card)."""
+        self.work_counters['rhs'](u.shape[0] - 1)
+        return self.eval_f(u, t)
+
+    def solve_system(self, rhs, factor, u0, t):
+        return self.A.solve_shifted(rhs, factor)
+
+    def solve_system_batched(self, rhs, factor, u0, t):
+        """One transform pair for all nodes; ``factor`` holds one shift per node."""
+        shifts = torch.as_tensor(np.asarray(factor, dtype=float), dtype=rhs.dtype, device=rhs.device)
+        return self.A.solve_shifted(rhs, shifts.reshape((-1,) + (1,) * self.ndim))
+
+    def _sin_product(self):
+        if self.ndim == 1:
+            return torch.sin(float(np.pi * self.freq[0]) * self.grids)
+        out = torch.ones(self.shape, dtype=self.dtype, device=self.device)
+        for d, g in enumerate(self.grids):
+            out = out * torch.sin(float(np.pi * self.freq[d]) * g)
+        return out
+
+    def _rho(self):
+        """Discrete decay rate of the FD Laplacian on the initial mode
+        (reference HeatEquation_ND_FD.py:105-123, 2nd-order only)."""
+        dx = self.dx
+        return float(sum((2.0 - 2.0 * np.cos(np.pi * f * dx)) / dx**2 for f in self.freq))
+
+    def u_exact(self, t, u_init=None, t_init=None):
+        decay = math.exp(-t * self.nu * self._rho())
+        if self.ndim == 1 and self.freq[0] == -1:
+            x = self.grids
+            out = torch.exp(-0.5 * ((x - 0.5) / self.sigma) ** 2) * decay
+        else:
+            out = self._sin_product() * decay
+        return out.to(self.dtype)

@@ -1,0 +1,49 @@
+"""Carry fields and level states between the JAX package and the port.
+
+``to_torch`` / ``state_to_torch`` take numpy arrays (or anything
+``numpy.asarray`` reads, such as arrays of the JAX package) to the port's
+tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
+back.  RHS containers are matched by their field names, so the JAX
+package's ``IMEX``/``Comp2`` become the port's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pysdc_tpu_torch.core.state import IMEX, Comp2, LevelState
+
+_CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2}
+
+
+def to_torch(x, device, dtype=None) -> torch.Tensor:
+    """A field (e.g. an initial value ``u0``) as a tensor on ``device``."""
+    arr = np.asarray(x)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _rhs(f, conv):
+    fields = getattr(f, '_fields', None)
+    if fields is None:
+        return conv(f)
+    if fields not in _CONTAINERS:
+        raise TypeError(f'no RHS container of the port has the fields {fields}')
+    return _CONTAINERS[fields](*(conv(part) for part in f))
+
+
+def state_to_torch(state, device, dtype=None) -> LevelState:
+    """A level state ``(u, f, tau)`` as the port's :class:`LevelState`."""
+    u, f, tau = state
+    conv = lambda x: to_torch(x, device, dtype)  # noqa: E731
+    return LevelState(u=conv(u), f=_rhs(f, conv), tau=conv(tau))
+
+
+def state_to_numpy(state) -> LevelState:
+    """A level state with every field as a numpy array."""
+    u, f, tau = state
+    return LevelState(u=to_numpy(u), f=_rhs(f, to_numpy), tau=to_numpy(tau))
