@@ -8,7 +8,8 @@ toolkit (``nvcc`` for ``sm_90a``)::
 It imports nothing of JAX or ``pysdc_tpu``.  Phases, in order; any failure
 raises and the script exits nonzero without printing the final line:
 
-1. build   — compile every kernel of the port from ``pysdc_tpu_torch/csrc``.
+1. build   — compile every kernel of the port from ``pysdc_tpu_torch/csrc``,
+   one ``nvcc`` per source, all at once.
 2. kernels — K1 (``cross_stencil_2d``) against its plain version on the card,
    float32 and float64, several tap tables and shapes.
 3. main    — ``ControllerNonMPI`` on HeatND 2048^2 periodic, float32, M=4
@@ -19,6 +20,21 @@ raises and the script exits nonzero without printing the final line:
    card against the port's CPU run of the same description.
 5. times   — K1, its plain version, a library yardstick and the main-path
    sweep, with CUDA events.
+6. sparse kernels — K2 (``dia_spmv``) and K3 (``bsr_spmm``) against their
+   plain versions on the card, float32 and float64, on the sparse lane's
+   matrices and batch shapes.
+7. sparse main — ``ControllerNonMPI`` on VarCoeffDiffusion2D 1024^2, float32,
+   Dirichlet-0, M=4 RADAU-RIGHT, QI='LU', dt=1e-3, 4 steps of 8 sweeps (the
+   PCG lane); the K2 launch count must equal the operator's SpMV count;
+   ``uend`` against the same run through the plain rolls.
+8. block-sparse path — the M node values of a short 256^2 run applied
+   through ``SparseOperator.apply_bsr`` (K3), against the nodes' RHS.
+9. sparse parity — float64 on the card against the port's CPU run:
+   VarCoeffDiffusion2D 128^2 (equal ``niter``, ``uend`` to 1e-11) and
+   HeatND(backend='sparse') 256^2 periodic (against ``u_exact`` and the
+   eigen backend; PCG with its exact preconditioner takes <= 2 iterations).
+10. sparse times — K2 and K3 with their plain versions and library
+   yardsticks, one sparse sweep at 1024^2 and its parts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +48,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -43,6 +61,13 @@ N_MAIN, M_MAIN, DT, N_STEPS, SWEEPS = 2048, 4, 0.01, 4, 8
 UEND_EXACT_BOUND = 5e-4  # |uend - u_exact(0.04)|
 UEND_PLAIN_BOUND = 5e-4  # |uend - uend through the plain apply|: the two round differently
 PARITY_UEND_TOL = 1e-11  # fp64, card against CPU
+
+# the sparse lane: bench.py's sweep_big configuration (bench.py:343-377)
+N_SPARSE, DT_SPARSE = 1024, 1e-3
+# float32 roundoff: this script measured 3.0e-6 on an H100 80GB HBM3 at 700 W; the bound leaves 10x room
+SPARSE_PLAIN_BOUND = 3e-5  # |uend - uend through the plain rolls|
+SPARSE_EIGEN_TOL = 1e-11  # fp64 HeatND 256^2: sparse backend (PCG) against the eigen backend
+SPARSE_EXACT_TOL = 1e-6  # fp64 HeatND 256^2: |uend - u_exact(0.04)|, the time-discretization error
 
 
 def _card():
@@ -78,6 +103,49 @@ def _run(description, plain=False):
     return ctrl, prob, uend, [v for _, v in get_sorted(stats, type='niter')]
 
 
+def _coeff(X, Y):
+    """The sparse lane's diffusivity: 0.1 (1 + 0.5 sin 2 pi x cos 2 pi y) (bench.py:271)."""
+    return 0.1 * (1.0 + 0.5 * np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y))
+
+
+def _sparse_description(n, dtype, device, restol, maxiter, dt=DT_SPARSE):
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion2D
+
+    return dict(
+        problem_class=VarCoeffDiffusion2D,
+        problem_params=dict(nvars=(n, n), coeff_fn=_coeff, dtype=dtype, device=device),
+        sweeper_class=GenericImplicit,
+        sweeper_params=dict(num_nodes=M_MAIN, quad_type='RADAU-RIGHT', QI='LU'),
+        level_params=dict(dt=dt, restol=restol),
+        step_params=dict(maxiter=maxiter),
+    )
+
+
+def _sparse_run(description, n_steps=N_STEPS, plain=False, trace=None):
+    """Run the sparse description from u0 = sin(pi x) sin(pi y); ``trace``
+    (a list) receives each PCG solve's iteration count."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, description)
+    prob = ctrl.MS[0].levels[0].prob
+    if plain:
+        prob.A.disable_pallas_dia()
+    prob.A.pcg_trace = trace
+    X, Y = prob.grids
+    u0 = torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    dt = description['level_params']['dt']
+    uend, stats = ctrl.run(u0, 0.0, n_steps * dt)
+    return ctrl, prob, uend, [v for _, v in get_sorted(stats, type='niter')]
+
+
+def _row_scale(abs_rows, u):
+    """sum|coefficients in a row| (max over rows) times max|u|."""
+    return float(abs_rows.max()) * float(u.abs().max())
+
+
 def _stencil_tolerance(terms, dtype):
     """Worst-case rounding gap between two sums of the same n products taken
     in different orders, relative to sum|c| * max|u|: 2 n eps."""
@@ -106,6 +174,31 @@ def _event_ms(fn, reps, warmup=3, host=False):
     torch.cuda.synchronize()
     device_ms = start.elapsed_time(end) / reps
     return (device_ms, host_ms) if host else device_ms
+
+
+def _graph_ms(fn, reps):
+    """Mean ms per call of ``fn(i)`` with the host out of the way: ``reps``
+    calls captured in one CUDA graph, replayed and timed with CUDA events."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_build(card):
@@ -294,6 +387,384 @@ def phase_times(ctrl, card):
     return k1
 
 
+def _periodic_var_coeff_matrix(n, seed=3):
+    """The periodic variable-coefficient 2D 5-point matrix of
+    tests/test_sparse.py:615-627, with wrap diagonals at +-(n-1) and +-(n^2-n)."""
+    from pysdc_tpu_torch.ops.sparse import CSR
+
+    lap1 = CSR.diags([np.ones(n), -2.0 * np.ones(n), np.ones(n)], [-1, 0, 1], (n, n))
+    lap1 = CSR.from_dense(lap1.to_dense() + np.eye(n, k=n - 1) + np.eye(n, k=-(n - 1)))
+    eye = CSR.eye(n)
+    A2 = lap1.kron(eye) + eye.kron(lap1)
+    scale = 1.0 + 0.5 * np.random.default_rng(seed).standard_normal(n * n)
+    return CSR.diags([scale], [0], (n * n, n * n)).matmul(A2)
+
+
+def _k2_matrices():
+    """name -> DIA on the card: the sparse lane's matrices."""
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion2D
+    from pysdc_tpu_torch.ops.sparse import DIA
+    from pysdc_tpu_torch.ops.sparse_op import variable_diffusion_matrix
+
+    n1 = 4099
+    a = 1.0 + 0.5 * np.sin(2 * np.pi * np.arange(n1 + 1) / n1)
+    return {
+        'varcoeff1024': VarCoeffDiffusion2D(nvars=(N_SPARSE, N_SPARSE), coeff_fn=_coeff, device='cuda').A.dia,
+        'heat256periodic': HeatND(nvars=(256, 256), nu=0.1, bc='periodic', backend='sparse', device='cuda').A.dia,
+        'varcoeff24periodic': DIA.from_csr(_periodic_var_coeff_matrix(24), device='cuda'),
+        'periodic1d4099': DIA.from_csr(variable_diffusion_matrix(a, 1.0 / n1, bc='periodic'), device='cuda'),
+    }
+
+
+def _k3_matrices():
+    """name -> (BSR on the card, B): bench.py's design point, the 256^2
+    stencil through apply_bsr's blocking, a random 128x128 CSR at br=8."""
+    from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion2D
+    from pysdc_tpu_torch.ops.sparse import BSR, CSR
+
+    rng = np.random.default_rng(1)
+    br, ndof = 256, 256 * 256
+    nb, kb = ndof // br, 3
+    blocks = rng.standard_normal((nb, kb, br, br)) / br
+    segs = np.clip(np.arange(nb)[:, None] + np.arange(kb)[None, :] - 1, 0, nb - 1) * br
+    design = BSR(blocks, segs, (ndof, ndof), br, br, device='cuda')
+    stencil = VarCoeffDiffusion2D(nvars=(256, 256), coeff_fn=_coeff, device='cuda').A
+    stencil = BSR.from_csr(stencil.A, 256, 256, device='cuda')
+    k = int(128 * 128 * 0.1)
+    rand = CSR.from_coo(rng.integers(0, 128, k), rng.integers(0, 128, k), rng.normal(size=k), (128, 128))
+    return {'design256': (design, 4), 'stencil256': (stencil, 4), 'random128br8': (BSR.from_csr(rand, 8, 8, device='cuda'), 5)}
+
+
+def phase_sparse_kernels():
+    """K2 and K3 against their plain versions on the card, float32 and
+    float64.  Returns the largest absolute errors at the main path's shapes
+    (K2: the 1024^2 matrix on one vector; K3: the design point), float32."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
+    from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+    from pysdc_tpu_torch.ops.sparse import DIA
+
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    errs = {}
+    for name, dia in _k2_matrices().items():
+        n, k = dia.shape[0], len(dia.offsets)
+        flat = DIA(dia.data, dia.offsets, dia.shape, device='cuda')  # the flat-roll form of the plain version
+        rows = dia.data.abs().sum(dim=0)
+        for dtype in (torch.float32, torch.float64):
+            tol = 2 * k * torch.finfo(dtype).eps
+            worst = 0.0
+            for batch in ((), (4,), (3, 5)):
+                u = torch.randn(batch + (n,), generator=gen, device='cuda', dtype=dtype)
+                got = dia_spmv(dia, u)
+                torch.cuda.synchronize()
+                scale = _row_scale(rows, u)
+                for plain in [flat.spmv(u)] + ([dia.spmv(u)] if dia.grid else []):
+                    err = (got - plain).abs().max().item()
+                    if not (got.shape == u.shape and got.dtype == dtype and math.isfinite(err) and err <= tol * scale):
+                        raise AssertionError(f'K2 {name} {dtype} {batch}: max abs err {err:.3e} > {tol * scale:.3e}')
+                    worst = max(worst, err / scale)
+                    if name == 'varcoeff1024' and dtype == torch.float32 and batch == ():
+                        errs['dia_spmv'] = max(errs.get('dia_spmv', 0.0), err)
+            print(f'kernels: K2 {name:18s} k={k} {"grid" if dia.grid else "flat"} {str(dtype):13s} '
+                  f'max rel err {worst:.3e} <= tol {tol:.3e} over batches (), (4,), (3, 5)')
+    for name, (bsr, B) in _k3_matrices().items():
+        nb, kb, br, bc = bsr.blocks.shape
+        rows = bsr.blocks.abs().sum(dim=(1, 3)).reshape(-1)
+        for dtype in (torch.float32, torch.float64):
+            tol = 2 * kb * bc * torch.finfo(dtype).eps
+            u = torch.randn((bsr.shape[1], B), generator=gen, device='cuda', dtype=dtype)
+            got = bsr_spmm(bsr, u)
+            torch.cuda.synchronize()
+            want = bsr.spmv(u)
+            err = (got - want).abs().max().item()
+            scale = _row_scale(rows, u)
+            if not (got.shape == want.shape and math.isfinite(err) and err <= tol * scale):
+                raise AssertionError(f'K3 {name} {dtype}: max abs err {err:.3e} > {tol * scale:.3e}')
+            if name == 'design256' and dtype == torch.float32:
+                errs['bsr_spmm'] = err
+            print(f'kernels: K3 {name:13s} (nb, kb, br, bc)={(nb, kb, br, bc)} B={B} {str(dtype):13s} '
+                  f'max rel err {err / scale:.3e} <= tol {tol:.3e}')
+    return errs
+
+
+def phase_sparse_main(card):
+    """The sparse lane's main path.  Returns the controller and the K2 launch count."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+
+    desc = _sparse_description(N_SPARSE, torch.float32, 'cuda', restol=-1.0, maxiter=SWEEPS)
+    trace = []
+    dia_spmv.launches = 0
+    start = time.perf_counter()
+    ctrl, prob, uend, niter = _sparse_run(desc, trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dia_spmv.launches
+    # per step: f(u0) and one batched f over the M spread nodes, then M per sweep
+    floor = sum(2 + M_MAIN * k for k in niter)
+    if len(niter) != N_STEPS or launches != prob.A.spmv_count or launches < floor:
+        raise AssertionError(f'sparse main: niter {niter}, K2 launches {launches}, operator SpMVs '
+                             f'{prob.A.spmv_count}, at least {floor} expected')
+    if prob.A.solver_kind != 'pcg' or len(trace) != M_MAIN * sum(niter):
+        raise AssertionError(f'sparse main: solver {prob.A.solver_kind}, {len(trace)} PCG solves')
+    if uend.shape != (N_SPARSE, N_SPARSE) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError('sparse main: uend is not a finite float32 field of the grid shape')
+
+    dia_spmv.launches = 0
+    trace_plain = []
+    _, _, uend_plain, niter_plain = _sparse_run(desc, plain=True, trace=trace_plain)
+    diff = (uend - uend_plain).abs().max().item()
+    if dia_spmv.launches != 0 or niter_plain != niter or diff > SPARSE_PLAIN_BOUND:
+        raise AssertionError(f'sparse main vs plain rolls: diff {diff:.3e}, niter {niter_plain}, '
+                             f'K2 launches {dia_spmv.launches}')
+    print(f'sparse main: VarCoeffDiffusion2D {N_SPARSE}^2 fp32 M={M_MAIN} LU dt={DT_SPARSE}, {N_STEPS} steps, '
+          f'niter {niter}, solver {prob.A.solver_kind}, K2 launches {launches} (= operator SpMVs; '
+          f'sum(2 + {M_MAIN}*niter) = {floor} of them are eval_f), wall {wall:.3f} s incl. first calls, '
+          f'max|uend| {uend.abs().max().item():.6f}, |uend - uend_plain_rolls| {diff:.3e} <= {SPARSE_PLAIN_BOUND} '
+          f'[{card}]')
+    print(f'sparse main: PCG iterations per solve, in order: {trace}')
+    print(f'sparse main: through the plain rolls: {trace_plain}')
+    return ctrl, launches
+
+
+def phase_bsr_path(card):
+    """A short sparse run at 256^2, then its M node values through
+    ``apply_bsr`` (K3), held against the nodes' RHS (K2's eval_f).  Returns
+    the K3 launch count of the apply."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
+
+    ctrl, prob, _, _ = _sparse_run(_sparse_description(256, torch.float32, 'cuda', restol=-1.0, maxiter=2),
+                                   n_steps=1)
+    lvl = ctrl.MS[0].levels[0]
+    n = prob.A.n
+    U = lvl.u[1:].reshape(M_MAIN, n).T.contiguous()
+    bsr_spmm.launches = 0
+    Y = prob.A.apply_bsr(U)
+    torch.cuda.synchronize()
+    launches = bsr_spmm.launches
+    want = lvl.f[1:].reshape(M_MAIN, n).T
+    bsr = prob.A._bsr
+    nb, kb, br, bc = bsr.blocks.shape
+    tol = 2 * kb * bc * torch.finfo(torch.float32).eps * _row_scale(bsr.blocks.abs().sum(dim=(1, 3)), U)
+    err = (Y - want).abs().max().item()
+    if launches < 1 or Y.shape != (n, M_MAIN) or not err <= tol:
+        raise AssertionError(f'block-sparse path: K3 launches {launches}, max|apply_bsr - f| {err:.3e} > {tol:.3e}')
+    print(f'block-sparse path: VarCoeffDiffusion2D 256^2 fp32, the {M_MAIN} node values of a 1-step run through '
+          f'apply_bsr (br={br}, kb={kb}): K3 launches {launches}, max|apply_bsr(U) - f| {err:.3e} <= {tol:.3e} [{card}]')
+    return launches
+
+
+def phase_sparse_parity():
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+
+    def varcoeff(device):
+        _, _, u, it = _sparse_run(_sparse_description(128, torch.float64, device, restol=1e-10, maxiter=50))
+        return u.cpu(), it
+
+    (u_card, it_card), (u_cpu, it_cpu) = varcoeff('cuda'), varcoeff('cpu')
+    diff = (u_card - u_cpu).abs().max().item()
+    if it_card != it_cpu or diff > PARITY_UEND_TOL:
+        raise AssertionError(f'sparse parity: niter card {it_card} cpu {it_cpu}, uend diff {diff:.3e}')
+    print(f'sparse parity: VarCoeffDiffusion2D 128^2 fp64 restol 1e-10, niter {it_card} on card and CPU, '
+          f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+    def heat(backend, device):
+        desc = _heat_description(256, torch.float64, device, restol=1e-10, maxiter=50)
+        desc['problem_params']['backend'] = backend
+        ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+        prob = ctrl.MS[0].levels[0].prob
+        if backend == 'sparse':
+            prob.A.pcg_trace = []
+        uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, N_STEPS * DT)
+        return uend.cpu(), [v for _, v in get_sorted(stats, type='niter')], prob
+
+    (u_sp, it_sp, p_sp), (u_cpu, it_cpu, _), (u_ei, it_ei, _) = (
+        heat('sparse', 'cuda'), heat('sparse', 'cpu'), heat('eigen', 'cuda'))
+    err_exact = (u_sp - p_sp.u_exact(N_STEPS * DT).cpu()).abs().max().item()
+    d_eigen = (u_sp - u_ei).abs().max().item()
+    d_cpu = (u_sp - u_cpu).abs().max().item()
+    max_pcg = max(p_sp.A.pcg_trace)
+    if not (it_sp == it_cpu == it_ei and p_sp.A.solver_kind == 'pcg' and max_pcg <= 2 and d_eigen <= SPARSE_EIGEN_TOL
+            and d_cpu <= PARITY_UEND_TOL and err_exact <= SPARSE_EXACT_TOL):
+        raise AssertionError(f'sparse heat parity: niter {it_sp} / cpu {it_cpu} / eigen {it_ei}, PCG iterations '
+                             f'<= {max_pcg}, |sparse - eigen| {d_eigen:.3e}, |card - cpu| {d_cpu:.3e}, '
+                             f'|uend - u_exact| {err_exact:.3e}')
+    print(f'sparse parity: HeatND(backend=sparse) 256^2 periodic fp64 restol 1e-10, niter {it_sp} (= CPU = eigen), '
+          f'PCG iterations per solve <= {max_pcg}, |sparse - eigen| {d_eigen:.3e} <= {SPARSE_EIGEN_TOL}, '
+          f'|card - CPU| {d_cpu:.3e} <= {PARITY_UEND_TOL}, |uend - u_exact| {err_exact:.3e} <= {SPARSE_EXACT_TOL}')
+
+
+def _bound(nbytes, flops):
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(bytes_s, ops_s), ('bytes' if bytes_s >= ops_s else 'operations')
+
+
+def _time_dia(dia, csr, B, card):
+    """K2, its plain version and a cuSPARSE CSR SpMV/SpMM yardstick at
+    ``(B, n)``, float32, inputs (vectors, diagonals, CSR values) rotated past
+    the 50 MB L2 cache."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+    from pysdc_tpu_torch.ops.sparse import DIA
+
+    n, k = dia.shape[0], len(dia.offsets)
+    shape = (n,) if B == 1 else (B, n)
+    nbytes = (k + 2 * B) * n * 4
+    nbuf = max(2, math.ceil(3 * L2_BYTES / nbytes))
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    us = [torch.randn(shape, generator=gen, device='cuda') for _ in range(nbuf)]
+    dias = [DIA(dia.data.clone(), dia.offsets, dia.shape, grid=dia.grid, device='cuda') for _ in range(nbuf)]
+    reps = 4 * nbuf
+    ms, host_ms = _event_ms(lambda i: dia_spmv(dias[i % nbuf], us[i % nbuf]), reps, host=True)
+    graph_ms = _graph_ms(lambda i: dia_spmv(dias[i % nbuf], us[i % nbuf]), reps)
+    plain_ms = _event_ms(lambda i: dias[i % nbuf].spmv(us[i % nbuf]), reps)
+
+    # yardstick: cuSPARSE CSR SpMV (B=1) or SpMM (B columns) of the same matrix; the port never calls it
+    crow = torch.as_tensor(csr.indptr, device='cuda')
+    col = torch.as_tensor(csr.indices.astype(np.int64), device='cuda')
+    mats = [torch.sparse_csr_tensor(crow, col, torch.as_tensor(csr.data, dtype=torch.float32, device='cuda'),
+                                    csr.shape) for _ in range(nbuf)]
+    cols = [u.reshape(-1, n).T.contiguous() for u in us]
+    library_ms = _event_ms(lambda i: mats[i % nbuf] @ (cols[i % nbuf][:, 0] if B == 1 else cols[i % nbuf]), reps)
+    lib = mats[0] @ cols[0]
+    lib_err = (lib.T.reshape(shape) - dia_spmv(dias[0], us[0])).abs().max().item()
+    bound_ms, bound_by = _bound(nbytes, 2 * csr.nnz * B)
+    print(f'times: K2 {shape} fp32 k={k}: {ms:.4f} ms ({host_ms:.4f} ms to enqueue on the host; '
+          f'{graph_ms:.4f} ms replayed from a CUDA graph), plain {plain_ms:.4f} ms, cuSPARSE CSR yardstick '
+          f'{library_ms:.4f} ms (its max abs diff to K2 {lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by}, '
+          f'{nbytes / ms / 1e6:.1f} GB/s [{card}]')
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _library_bsr(bsr):
+    """The matrix as a torch BSR tensor (duplicate block columns summed), float32."""
+    import torch
+
+    nb, kb, br, bc = bsr.blocks.shape
+    ncb = bsr.shape[1] // bc
+    key = (torch.arange(nb, device='cuda')[:, None] * ncb + bsr.seg_starts.long() // bc).reshape(-1)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    vals = torch.zeros((uniq.numel(), br, bc), device='cuda').index_add_(
+        0, inv, bsr.blocks.reshape(-1, br, bc).float())
+    crow = torch.zeros(nb + 1, dtype=torch.int64, device='cuda')
+    crow[1:] = torch.cumsum(torch.bincount(uniq // ncb, minlength=nb), 0)
+    return torch.sparse_bsr_tensor(crow, uniq % ncb, vals, bsr.shape)
+
+
+def _time_bsr(name, bsr, B, card):
+    """K3, its plain version and a torch BSR SpMM yardstick (TF32 off) at
+    (N, B), float32."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
+
+    nb, kb, br, bc = bsr.blocks.shape
+    nbytes = (nb * kb * br * bc + (bsr.shape[0] + bsr.shape[1]) * B) * 4
+    nbuf = max(2, math.ceil(3 * L2_BYTES / nbytes))
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    us = [torch.randn((bsr.shape[1], B), generator=gen, device='cuda') for _ in range(nbuf)]
+    reps = 4 * nbuf + 10
+    ms, host_ms = _event_ms(lambda i: bsr_spmm(bsr, us[i % nbuf]), reps, host=True)
+    graph_ms = _graph_ms(lambda i: bsr_spmm(bsr, us[i % nbuf]), reps)
+    plain_ms = _event_ms(lambda i: bsr.spmv(us[i % nbuf]), reps)
+    try:
+        A = _library_bsr(bsr)
+        lib_name = 'torch BSR SpMM'
+        lib_fn = lambda i: A @ us[i % nbuf]  # noqa: E731
+        lib_err = (lib_fn(0) - bsr_spmm(bsr, us[0])).abs().max().item()
+    except (RuntimeError, NotImplementedError) as exc:  # the yardstick refuses these shapes
+        print(f'times: K3 {name}: torch BSR SpMM refused ({type(exc).__name__}: {str(exc)[:120]}); '
+              'yardstick is an einsum over the gathered segments')
+        blocks = bsr.blocks_for(us[0])
+        idx = bsr.seg_starts.long()[..., None] + torch.arange(bc, device='cuda')
+        lib_name = 'einsum over gathered segments'
+        lib_fn = lambda i: torch.einsum('nkrc,nkcb->nrb', blocks, us[i % nbuf][idx]).reshape(-1, B)  # noqa: E731
+        lib_err = (lib_fn(0) - bsr_spmm(bsr, us[0])).abs().max().item()
+    library_ms = _event_ms(lib_fn, reps)
+    bound_ms, bound_by = _bound(nbytes, 2 * nb * kb * br * bc * B)
+    print(f'times: K3 {name} (nb, kb, br, bc)={(nb, kb, br, bc)} B={B} fp32: {ms:.4f} ms ({host_ms:.4f} ms to '
+          f'enqueue; {graph_ms:.4f} ms from a CUDA graph), plain {plain_ms:.4f} ms, '
+          f'{lib_name} yardstick {library_ms:.4f} ms (its max abs diff to K3 {lib_err:.3e}), bound {bound_ms:.4f} ms '
+          f'by {bound_by}, {nbytes / ms / 1e6:.1f} GB/s [{card}]')
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_sparse_times(ctrl, card):
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+
+    lvl = ctrl.MS[0].levels[0]
+    A = lvl.prob.A
+    k2 = _time_dia(A.dia, A.A, 1, card)
+    _time_dia(A.dia, A.A, M_MAIN, card)
+    k3 = None
+    for name, (bsr, B) in _k3_matrices().items():
+        if name != 'random128br8':
+            t = _time_bsr(name, bsr, B, card)
+            k3 = t if name == 'design256' else k3
+
+    # one main-path sweep (update_nodes + residual) and its parts: CUDA events
+    # around every eval_f and every solve_system the sweeps make
+    prob = lvl.prob
+    spans = {'eval_f': [], 'solve': []}
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[kind].append((start, end))
+            return out
+        return wrapper
+
+    def sweep(i):
+        lvl.update_nodes()
+        lvl.compute_residual()
+
+    n_sweeps = 5
+    sweep(0)
+    prob.eval_f, prob.solve_system = timed('eval_f', prob.eval_f), timed('solve', prob.solve_system)
+    spans['eval_f'].clear(), spans['solve'].clear()
+    A.pcg_trace = []
+    before = dia_spmv.launches
+    sweep_ms, sweep_host_ms = _event_ms(sweep, n_sweeps, warmup=0, host=True)
+    per_sweep = (dia_spmv.launches - before) / n_sweeps
+    iters = list(A.pcg_trace)
+    del prob.eval_f, prob.solve_system
+    part_ms = {kind: sum(s.elapsed_time(e) for s, e in pairs) / n_sweeps for kind, pairs in spans.items()}
+    integral_ms = _event_ms(lambda i: lvl.integrate(), 20)
+    residual_ms = _event_ms(lambda i: lvl.compute_residual(), 20)
+    A.disable_pallas_dia()
+    sweep_plain_ms = _event_ms(sweep, n_sweeps, warmup=1)
+    A.enable_pallas_dia()
+    # a cold solve (zero start), as bench.py counts its PCG depth (bench.py:376)
+    rhs = lvl.state.u[1].clone()
+    cold = []
+    cold_ms = _event_ms(lambda i: cold.append(A.solve_shifted_info(rhs, 0.3 * lvl.params.dt)[1]), 3, warmup=1)
+    A.pcg_trace = None
+    nnz_per_sweep = M_MAIN * A.A.nnz
+    rest_ms = sweep_ms - part_ms['eval_f'] - part_ms['solve'] - integral_ms - residual_ms
+    print(f'times: sparse sweep {N_SPARSE}^2 fp32 {sweep_ms:.4f} ms on the card, {sweep_host_ms:.4f} ms on the host '
+          f'clock ({per_sweep:.1f} K2 launches/sweep, {nnz_per_sweep / sweep_ms / 1e6:.3f} Gnnz/s of eval_f); '
+          f'through the plain rolls {sweep_plain_ms:.4f} ms [{card}]')
+    print(f'times: sparse sweep parts: {M_MAIN} x eval_f (K2) {part_ms["eval_f"]:.4f} ms, {M_MAIN} x PCG solve '
+          f'{part_ms["solve"]:.4f} ms (iterations per solve over the {n_sweeps} sweeps {iters}, one host read per '
+          f'iteration plus one), integral {integral_ms:.4f} ms, residual {residual_ms:.4f} ms, rest (Gauss-Seidel '
+          f'right-hand sides, stacking) {rest_ms:.4f} ms; a cold PCG solve (x0 = 0, factor 0.3 dt) {cold_ms:.4f} ms '
+          f'in {cold[-1]} iterations, {cold[-1] + 1} host reads [{card}]')
+    return k2, k3
+
+
 def main():
     import torch
 
@@ -307,11 +778,22 @@ def main():
     ctrl, launches = phase_main(card)
     phase_parity()
     k1 = phase_times(ctrl, card)
+    sparse_errs = phase_sparse_kernels()
+    sparse_ctrl, k2_launches = phase_sparse_main(card)
+    k3_launches = phase_bsr_path(card)
+    phase_sparse_parity()
+    k2, k3 = phase_sparse_times(sparse_ctrl, card)
 
-    kernels = [dict(
-        name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
-        replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=launches, max_abs_err=main_err, **k1,
-    )]
+    kernels = [
+        dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
+             replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=launches, max_abs_err=main_err, **k1),
+        dict(name='dia_spmv', route='cuda', source='pysdc_tpu_torch/csrc/dia_spmv.cu',
+             replaces='pysdc_tpu/ops/pallas/dia.py:144', launches=k2_launches,
+             max_abs_err=sparse_errs['dia_spmv'], **k2),
+        dict(name='bsr_spmm', route='cuda', source='pysdc_tpu_torch/csrc/bsr_spmm.cu',
+             replaces='pysdc_tpu/ops/pallas/spmv.py:29', launches=k3_launches,
+             max_abs_err=sparse_errs['bsr_spmm'], **k3),
+    ]
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

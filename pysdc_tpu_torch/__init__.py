@@ -5,8 +5,10 @@ A second package beside ``pysdc_tpu``, with its layout (``core/``, ``ops/``,
 ``utils/``), its ``description``-dict frontend and its stats ``Entry``
 schema, so one script runs against either package by swapping the import.
 It imports torch, numpy and scipy, never JAX and nothing of ``pysdc_tpu``.
-The hot stencil of the 2D periodic heat equation is a hand-written CUDA
-kernel for Hopper (``csrc/cross_stencil.cu``), built at first use.
+Every TPU kernel of the JAX package is a hand-written CUDA kernel for Hopper
+under ``csrc/``, built at first use: the periodic cross stencil of the 2D
+heat equation (``cross_stencil.cu``), the DIA SpMV of the sparse lane
+(``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.errors import ParameterError, UnlockError
@@ -54,6 +55,13 @@ class Level:
         self.extra_status_vars: dict = {}
         self.status = _fresh_status()
         self.tag = None
+
+        # amortized shifted-solve factorizations: the QDelta diagonal and dt
+        # are known here, so operators can factor once per run (the
+        # reference's dt-keyed splu cache, generic_ND_FD.py:208-240)
+        QI = getattr(self.sweep, 'QI', None)
+        if QI is not None and self.params.dt is not None:
+            self.prob.prepare_node_solvers(float(self.params.dt), np.diag(np.asarray(QI))[1:])
 
     # -- properties mirroring the reference's level surface ------------
     @property

@@ -18,8 +18,10 @@ operators take leading batch axes (``HeatND``) override them with one call.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any
 
+import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import resolve_device
@@ -80,6 +82,30 @@ class Problem:
         if self.f_kind == 'comp2':
             return Comp2(z, z.clone())
         return z
+
+    #: True once prepare_node_solvers installed per-node factorizations;
+    #: sweepers then pass the collocation-node index to solve_system as
+    #: ``node=`` so the prepared factors are selected
+    accepts_node_index = False
+
+    def prepare_node_solvers(self, dt: float, qd_diag) -> None:
+        """Amortize shifted-solve factorizations across a run.
+
+        Called at level setup with the step size and the QDelta diagonal:
+        the per-node shifts ``dt*q_mm`` are then known, so operators with
+        expensive structured factorizations (block cyclic reduction) can
+        factor once and serve every sweep by substitution — the role of the
+        reference's dt-keyed splu cache (``generic_ND_FD.py:208-240``).
+        No-op unless ``self.A`` supports it.
+        """
+        A = getattr(self, 'A', None)
+        if A is None or not hasattr(A, 'prepare_node_shifts'):
+            return
+        if 'node' not in inspect.signature(self.solve_system).parameters:
+            return  # this problem's solve path cannot route the node index
+        shifts = [float(dt) * float(q) for q in np.atleast_1d(qd_diag)]
+        if A.prepare_node_shifts(shifts):
+            self.accepts_node_index = True
 
     # -- protocol ------------------------------------------------------
     def eval_f(self, u, t):

@@ -4,7 +4,10 @@ The counterpart of ``pysdc_tpu/models/heat.py:HeatND`` (reference
 ``heatNd_unforced``, ``pySDC/implementations/problem_classes/HeatEquation_ND_FD.py``):
 the Laplacian is a separable stencil operator with FFT (periodic) or
 eigen-product (Dirichlet/Neumann) direct shifted solves.  On the card a 2D
-periodic Laplacian applies through kernel K1.
+periodic Laplacian applies through kernel K1.  ``backend='sparse'`` assembles
+the Laplacian as a CSR matrix instead (:mod:`pysdc_tpu_torch.ops.sparse_op`):
+its apply is the DIA SpMV (kernel K2 on the card), its solves are structured
+factorizations or PCG with the eigen operator as the exact preconditioner.
 """
 
 from __future__ import annotations
@@ -39,10 +42,8 @@ class HeatND(Problem):
         dtype=None,
         device='cuda',
     ):
-        if backend != 'eigen':
-            raise NotImplementedError(
-                f"HeatND(backend={backend!r}) is not ported yet (ROADMAP queue 1, item 8: sparse lane)"
-            )
+        if backend not in ('eigen', 'sparse'):
+            raise ValueError(f"unknown backend {backend!r}: 'eigen' or 'sparse'")
         if solver_type != 'direct':
             raise NotImplementedError(
                 f"HeatND(solver_type={solver_type!r}) is not ported yet (ROADMAP queue 1, item 9: iterative solves)"
@@ -58,7 +59,17 @@ class HeatND(Problem):
             dict(size=n, dx=dx, derivative=2, order=order, stencil_type=stencil_type, bc=bc)
             for n in nvars
         ]
-        self.A = SeparableFDOperator(per_dim, scale=nu)
+        if backend == 'sparse':
+            # assembled CSR + structured factorization; the separable eigen
+            # twin rides along as the exact spectral preconditioner, so
+            # large 2D grids take the PCG lane (one iteration: the surrogate
+            # is the operator)
+            from pysdc_tpu_torch.ops.sparse_op import SparseFDOperator
+
+            self.A = SparseFDOperator(per_dim, scale=nu, precond=SeparableFDOperator(per_dim, scale=nu),
+                                      device=self.device)
+        else:
+            self.A = SeparableFDOperator(per_dim, scale=nu)
         self._register(
             nvars=nvars, nu=nu, freq=freq, order=order, stencil_type=stencil_type,
             lintol=lintol, liniter=liniter, solver_type=solver_type, bc=bc, sigma=sigma, dx=dx,
@@ -88,11 +99,16 @@ class HeatND(Problem):
         self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
-    def solve_system(self, rhs, factor, u0, t):
+    def solve_system(self, rhs, factor, u0, t, node=None):
+        if node is not None and self.backend == 'sparse':
+            return self.A.solve_shifted(rhs, factor, node=node)
         return self.A.solve_shifted(rhs, factor)
 
     def solve_system_batched(self, rhs, factor, u0, t):
-        """One transform pair for all nodes; ``factor`` holds one shift per node."""
+        """One transform pair for all nodes; ``factor`` holds one shift per
+        node.  The sparse backend solves node by node."""
+        if self.backend == 'sparse':
+            return super().solve_system_batched(rhs, factor, u0, t)
         shifts = torch.as_tensor(np.asarray(factor, dtype=float), dtype=rhs.dtype, device=rhs.device)
         return self.A.solve_shifted(rhs, shifts.reshape((-1,) + (1,) * self.ndim))
 

@@ -18,12 +18,14 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 
 #: every kernel library of the port: name -> source file under csrc/
-SOURCES = {'cross_stencil': 'cross_stencil.cu'}
+SOURCES = {'cross_stencil': 'cross_stencil.cu', 'dia_spmv': 'dia_spmv.cu', 'bsr_spmm': 'bsr_spmm.cu'}
 
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -78,6 +80,14 @@ def build(names=None) -> dict[str, dict]:
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
     return out
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current CUDA stream, for a launch
+    (the direct binding where the CUDA build of torch has it: it skips
+    making a ``torch.cuda.Stream`` object per launch)."""
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -72,6 +72,9 @@ class GenericImplicit(Sweeper):
             alpha = float(QI[m + 1, m + 1])
             if alpha == 0.0:
                 u_list[m + 1] = rhs
+            elif prob.accepts_node_index:
+                # the node index selects the prepared factorization
+                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], float(ts[m]), node=m)
             else:
                 u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], float(ts[m]))
             f_list[m + 1] = prob.eval_f(u_list[m + 1], float(ts[m]))

@@ -5,6 +5,11 @@
 tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
 back.  RHS containers are matched by their field names, so the JAX
 package's ``IMEX``/``Comp2`` become the port's.
+
+``dia_to_torch`` / ``bsr_to_torch`` carry sparse operators across: the
+fields of the JAX package's ``DIA`` and ``BSR`` containers, as numpy arrays,
+become the port's containers on a device, so both packages apply the same
+matrix.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.state import IMEX, Comp2, LevelState
+from pysdc_tpu_torch.ops.sparse import BSR, DIA
 
 _CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2}
 
@@ -47,3 +53,17 @@ def state_to_numpy(state) -> LevelState:
     """A level state with every field as a numpy array."""
     u, f, tau = state
     return LevelState(u=to_numpy(u), f=_rhs(f, to_numpy), tau=to_numpy(tau))
+
+
+def dia_to_torch(data, offsets, shape, grid=None, device='cpu') -> DIA:
+    """A DIA matrix from its fields: ``data (k, n)``, ``offsets (k,)``,
+    ``shape`` and the optional 2D-grid decomposition ``grid``."""
+    return DIA(np.asarray(data, dtype=float), [int(o) for o in np.asarray(offsets)], tuple(shape),
+               grid=grid, device=device)
+
+
+def bsr_to_torch(blocks, seg_starts, shape, br, bc, device='cpu') -> BSR:
+    """A BSR matrix from its fields: ``blocks (nb, kb, br, bc)``,
+    ``seg_starts (nb, kb)`` (element offsets), ``shape``, ``br`` and ``bc``."""
+    return BSR(np.asarray(blocks, dtype=float), np.asarray(seg_starts), tuple(shape), int(br), int(bc),
+               device=device)

@@ -26,6 +26,8 @@ _NO_JAX = (
 @pytest.mark.parametrize('imports', [
     'import pysdc_tpu_torch, pysdc_tpu_torch.models.heat, pysdc_tpu_torch.utils.convert, '
     'pysdc_tpu_torch.ops.kernels.stencil, pysdc_tpu_torch.ops.kernels.build, pysdc_tpu_torch.convergence',
+    'import pysdc_tpu_torch.models.var_diffusion, pysdc_tpu_torch.ops.sparse_op, pysdc_tpu_torch.ops.banded, '
+    'pysdc_tpu_torch.ops.kernels.dia, pysdc_tpu_torch.ops.kernels.bsr',
     'import chip_smoke',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
@@ -49,9 +51,13 @@ def test_unported_parts_raise_naming_the_roadmap():
     from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit
     from pysdc_tpu_torch.models.heat import HeatND
 
-    for kwargs in (dict(backend='sparse'), dict(solver_type='CG')):
+    for kwargs in (dict(solver_type='CG'), dict(solver_type='GMRES'), dict(backend='sparse', solver_type='CG')):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             HeatND(nvars=8, device='cpu', **kwargs)
+    sparse = HeatND(nvars=8, device='cpu', backend='sparse')
+    u = sparse.u_exact(0.0)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        sparse.A.solve_shifted_gmres(u, 0.1, u)
     desc = dict(
         problem_class=HeatND,
         problem_params=dict(nvars=[16, 8], device='cpu'),
