@@ -11,18 +11,22 @@ raises and the script exits nonzero without printing the final line:
 1. build   — compile every kernel of the port from ``pysdc_tpu_torch/csrc``,
    one ``nvcc`` per source, all at once.
 2. kernels — K1 (``cross_stencil_2d``) against its plain version on the card,
-   float32 and float64, several tap tables and shapes.
+   float32 and float64, several tap tables and shapes, each on the path the
+   wrapper picks (bands or general) and with the general path forced.
 3. main    — ``ControllerNonMPI`` on HeatND 2048^2 periodic, float32, M=4
    RADAU-RIGHT, QI='LU', dt=0.01, 4 steps of 8 sweeps; the K1 launch count
-   must equal what the ``niter`` stats imply; ``uend`` against the exact
-   solution and against the same run through the plain apply.
+   must equal what the ``niter`` stats imply, every launch on the bands
+   path; ``uend`` against the exact solution and against the same run through
+   the plain apply.
 4. parity  — HeatND 256^2 float64, restol 1e-10: ``niter`` and ``uend`` on the
    card against the port's CPU run of the same description.
-5. times   — K1, its plain version, a library yardstick and the main-path
+5. times   — the card's copy rate; K1 on both paths (eager, host enqueue,
+   CUDA graph), its plain version, a library yardstick and the main-path
    sweep, with CUDA events.
 6. sparse kernels — K2 (``dia_spmv``) and K3 (``bsr_spmm``) against their
    plain versions on the card, float32 and float64, on the sparse lane's
-   matrices and batch shapes.
+   matrices and batch shapes; K3 on the path the wrapper picks (stream or
+   general) and with the general path forced.
 7. sparse main — ``ControllerNonMPI`` on VarCoeffDiffusion2D 1024^2, float32,
    Dirichlet-0, M=4 RADAU-RIGHT, QI='LU', dt=1e-3, 4 steps of 8 sweeps (the
    PCG lane); the K2 launch count must equal the operator's SpMV count;
@@ -33,8 +37,8 @@ raises and the script exits nonzero without printing the final line:
    VarCoeffDiffusion2D 128^2 (equal ``niter``, ``uend`` to 1e-11) and
    HeatND(backend='sparse') 256^2 periodic (against ``u_exact`` and the
    eigen backend; PCG with its exact preconditioner takes <= 2 iterations).
-10. sparse times — K2 and K3 with their plain versions and library
-   yardsticks, one sparse sweep at 1024^2 and its parts.
+10. sparse times — K2 and K3 (both paths) with their plain versions and
+   library yardsticks, one sparse sweep at 1024^2 and its parts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -208,19 +212,19 @@ def phase_build(card):
     built = build()
     for name, info in built.items():
         print(f'build {name}: {info["seconds"]:.2f} s')
+        entry = ''
         for line in info['log'].splitlines():
-            if 'registers' in line or 'smem' in line or 'spill' in line:
-                print(f'  ptxas: {line.strip()}')
+            if 'Compiling entry function' in line:
+                entry = line.split("'")[1]
+            elif 'Used' in line or ('spill' in line and '0 bytes spill stores, 0 bytes spill loads' not in line):
+                print(f'  ptxas: {entry[:96]}: {line.replace("ptxas info    :", "").strip()}')
     print(f'build: {len(built)} of {len(SOURCES)} libraries compiled in {time.perf_counter() - start:.2f} s [{card}]')
 
 
-def phase_kernels():
-    """K1 against its plain version on the card.  Returns the largest
-    absolute error at the main path's shape and taps, float32."""
-    import torch
-
+def _fd_tables():
+    """name -> tap table: the centred tables of orders 2, 4, 6, an asymmetric
+    one, and the main path's (order 2 with the scale and 1/dx^2 folded in)."""
     from pysdc_tpu_torch.ops.fd import get_finite_difference_stencil
-    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, cross_stencil_2d
     from pysdc_tpu_torch.ops.linop import SeparableFDOperator
 
     tables = {}
@@ -229,33 +233,61 @@ def phase_kernels():
         axis = (tuple(float(x) for x in c), tuple(int(x) for x in s))
         tables[f'order{order}'] = (axis, axis)
     tables['asymmetric'] = (((0.5, -2.0, 1.5), (-2, -1, 0)), ((1.0,), (1,)))
-    dx = 1.0 / N_MAIN
-    per_dim = [dict(size=N_MAIN, dx=dx, derivative=2, order=2, bc='periodic')] * 2
+    per_dim = [dict(size=N_MAIN, dx=1.0 / N_MAIN, derivative=2, order=2, bc='periodic')] * 2
     tables['main'] = SeparableFDOperator(per_dim, scale=0.1)._cross_terms
+    return tables
 
-    shapes = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (17, 33), (16, 16), (1, 4096)]
+
+# K1's shapes: the main path's, the general path's (odd, narrow), and the
+# seams of the bands path: one band wide and a column group wider (float32:
+# 128 and 132 columns; float64: 64 and 66), nx that the band's rows do not
+# divide, a grid whose rows wrap more than once under order 6, a batch
+K1_SHAPES = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (17, 33), (16, 16), (1, 4096),
+             (64, 128), (64, 132), (40, 64), (40, 66), (100, 256), (4, 128), (3, 5, 64, 256)]
+
+
+def phase_kernels():
+    """K1 against its plain version on the card, on the path the wrapper
+    picks and with the general path forced.  Returns the largest absolute
+    error at the main path's shape and taps, float32."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, choose_path, cross_stencil_2d
+
+    tables = _fd_tables()
     gen = torch.Generator(device='cuda').manual_seed(1234)
     main_err = None
     for dtype in (torch.float32, torch.float64):
+        itemsize = torch.empty((), dtype=dtype).element_size()
         for name, terms in tables.items():
             tol = _stencil_tolerance(terms, dtype)
             scale_c = sum(abs(c) for coeff, _ in terms for c in coeff)
             worst = 0.0
-            for shape in shapes:
+            taken = {'bands': [], 'general': []}
+            for shape in K1_SHAPES:
                 u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
-                got = cross_stencil_2d(u, terms)
-                torch.cuda.synchronize()
                 want = _roll_cross_2d(u, terms)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                rel = err / (scale_c * u.abs().max().item())
-                if not (got.shape == u.shape and math.isfinite(err) and rel <= tol):
-                    raise AssertionError(f'K1 {name} {dtype} {shape}: max abs err {err:.3e}, rel {rel:.3e} > {tol:.3e}')
-                worst = max(worst, rel)
-                if name == 'main' and dtype == torch.float32 and shape == (N_MAIN, N_MAIN):
-                    main_err = err
-            print(f'kernels: K1 {name:10s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e} '
-                  f'over shapes {shapes}')
+                expected = choose_path(shape, terms, itemsize)
+                taken[expected].append(shape)
+                for forced in (None, 'general'):
+                    before = dict(cross_stencil_2d.paths)
+                    got = cross_stencil_2d(u, terms, path=forced)
+                    torch.cuda.synchronize()
+                    ran = [k for k, v in cross_stencil_2d.paths.items() if v != before[k]]
+                    if ran != [forced or expected]:
+                        raise AssertionError(f'K1 {name} {dtype} {shape}: path {ran}, expected {forced or expected}')
+                    err = (got - want).abs().max().item()
+                    rel = err / (scale_c * u.abs().max().item())
+                    if not (got.shape == u.shape and math.isfinite(err) and rel <= tol):
+                        raise AssertionError(f'K1 {name} {dtype} {shape} path {ran[0]}: max abs err {err:.3e}, '
+                                             f'rel {rel:.3e} > {tol:.3e}')
+                    worst = max(worst, rel)
+                    if name == 'main' and dtype == torch.float32 and shape == (N_MAIN, N_MAIN) and forced is None:
+                        main_err = err
+            print(f'kernels: K1 {name:10s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e}, both on the '
+                  f'path picked and with the general path forced; bands: {taken["bands"]}; general: {taken["general"]}')
+    if choose_path((N_MAIN, N_MAIN), tables['main'], 4) != 'bands':
+        raise AssertionError('K1: the main path\'s shape and taps do not take the bands path')
     return main_err
 
 
@@ -266,6 +298,7 @@ def phase_main(card):
 
     desc = _heat_description(N_MAIN, torch.float32, 'cuda', restol=-1.0, maxiter=SWEEPS)
     cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
     start = time.perf_counter()
     ctrl, prob, uend, niter = _run(desc)
     torch.cuda.synchronize()
@@ -275,6 +308,8 @@ def phase_main(card):
     expected = sum(2 + M_MAIN * k for k in niter)
     if len(niter) != N_STEPS or launches != expected:
         raise AssertionError(f'main path: niter {niter}, K1 launches {launches}, expected {expected}')
+    if cross_stencil_2d.paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'main path: K1 launches by path {cross_stencil_2d.paths}, expected all on bands')
     if uend.shape != (N_MAIN, N_MAIN) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
         raise AssertionError('main path: uend is not a finite float32 field of the grid shape')
     err_exact = (uend - prob.u_exact(N_STEPS * DT)).abs().max().item()
@@ -288,7 +323,7 @@ def phase_main(card):
         raise AssertionError(f'main path vs plain apply: diff {diff:.3e}, niter {niter_plain}, '
                              f'K1 launches {cross_stencil_2d.launches}')
     print(f'main: HeatND {N_MAIN}^2 fp32 M={M_MAIN} LU, {N_STEPS} steps, niter {niter}, '
-          f'K1 launches {launches} (= sum(2 + {M_MAIN}*niter)), wall {wall:.3f} s incl. first calls, '
+          f'K1 launches {launches} (= sum(2 + {M_MAIN}*niter), all on the bands path), wall {wall:.3f} s incl. first calls, '
           f'|uend - u_exact| {err_exact:.3e} <= {UEND_EXACT_BOUND}, '
           f'|uend - uend_plain_apply| {diff:.3e} <= {UEND_PLAIN_BOUND} [{card}]')
     return ctrl, launches
@@ -306,13 +341,37 @@ def phase_parity():
           f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
 
 
+def _copy_rate(card):
+    """The card's own copy rate: ``dst.copy_(src)`` of 128 MB, read and write
+    counted.  Not a bound: it says how much of the published memory rate a
+    kernel that reads and writes each byte once can see."""
+    import torch
+
+    n = 128 * 2**20 // 4
+    srcs = [torch.randn(n, device='cuda') for _ in range(2)]
+    dsts = [torch.empty(n, device='cuda') for _ in range(2)]
+    ms = _event_ms(lambda i: dsts[i % 2].copy_(srcs[i % 2]), 20)
+    rate = 2 * n * 4 / (ms * 1e-3)  # bytes read plus bytes written, a second
+    print(f'times: copy rate of the card: dst.copy_(src) of 128 MB between 2 x 2 buffers {ms:.4f} ms a copy, '
+          f'{rate / 1e9:.1f} GB/s read plus written ({100 * rate / HBM_BYTES_PER_S:.0f}% of the published '
+          f'{HBM_BYTES_PER_S / 1e9:.0f} GB/s) [{card}]')
+
+
+def _three_times(fn, reps):
+    """(eager ms on the card, host ms to enqueue one call, ms from a CUDA graph) of ``fn(i)``."""
+    eager, host = _event_ms(fn, reps, host=True)
+    return eager, host, _graph_ms(fn, reps)
+
+
 def _time_stencil(shape, terms, card):
-    """K1, its plain version and the conv2d yardstick at ``shape``, float32.
-    Inputs rotate through enough buffers to exceed the 50 MB L2 cache."""
+    """K1 on both paths, its plain version and the conv2d yardstick at
+    ``shape``, float32.  Inputs rotate through enough buffers to exceed the
+    50 MB L2 cache.  The keys ``ms`` ... describe the path the wrapper picks."""
     import torch
     import torch.nn.functional as F
 
-    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, cross_stencil_2d
+    from pysdc_tpu_torch.ops.kernels.stencil import (BAND_ROW_CHOICES, _launch, _roll_cross_2d, band_rows,
+                                                     choose_path, cross_stencil_2d)
 
     gen = torch.Generator(device='cuda').manual_seed(7)
     nbytes = math.prod(shape) * 4
@@ -320,7 +379,31 @@ def _time_stencil(shape, terms, card):
     us = [torch.randn(shape, generator=gen, device='cuda') for _ in range(nbuf)]
     reps = 4 * nbuf
 
-    ms = _event_ms(lambda i: cross_stencil_2d(us[i % nbuf], terms), reps)
+    n_terms = sum(len(o) for _, o in terms)
+    numel = math.prod(shape)
+    bytes_s = 2 * nbytes / HBM_BYTES_PER_S
+    ops_s = 2 * n_terms * numel / FP32_FLOP_PER_S
+    bound_ms = 1e3 * max(bytes_s, ops_s)
+    bound_by = 'bytes' if bytes_s >= ops_s else 'operations'
+
+    picked = choose_path(shape, terms, 4)
+    # picked, other, other, picked: the two paths in turns within this call
+    order = [picked] + [p for p in ('bands', 'general') if p != picked] * 2 + [picked]
+    runs = {}
+    for path in order:
+        t = _three_times(lambda i: cross_stencil_2d(us[i % nbuf], terms, path=path), reps)
+        runs[path] = t if path not in runs else tuple(min(a, b) for a, b in zip(runs[path], t))
+    for path, (eager, host, graph) in runs.items():
+        print(f'times: K1 {shape} fp32 path {path:7s}{" (picked)" if path == picked else "":9s}: eager {eager:.4f} ms, '
+              f'{host:.4f} ms to enqueue on the host, {graph:.4f} ms from a CUDA graph = '
+              f'{2 * nbytes / graph / 1e6:.1f} GB/s, {100 * bound_ms / graph:.0f}% of the bound {bound_ms:.4f} ms '
+              f'by {bound_by} (best of two turns) [{card}]')
+    if picked == 'bands':
+        nb, (nx, ny) = numel // math.prod(shape[-2:]), shape[-2:]
+        sweep = {rows: _graph_ms(lambda i: _launch(us[i % nbuf], terms, rows=rows), reps) for rows in BAND_ROW_CHOICES}
+        print(f'times: K1 {shape} bands path by rows a warp marches over, ms from a CUDA graph: '
+              + ', '.join(f'{rows}: {ms:.4f}' for rows, ms in sweep.items())
+              + f'; the wrapper picks {band_rows(nb, nx, ny, 4)} [{card}]')
     plain_ms = _event_ms(lambda i: _roll_cross_2d(us[i % nbuf], terms), reps)
 
     # yardstick: one cuDNN convolution with the cross-shaped taps on a
@@ -333,19 +416,21 @@ def _time_stencil(shape, terms, card):
     for c, s in zip(cy, oy):
         w[0, 0, rx, ry + s] += c
     padded = [F.pad(u.reshape((-1, 1) + shape[-2:]), (ry, ry, rx, rx), mode='circular') for u in us]
+    tf32 = torch.backends.cudnn.allow_tf32
+    library_default_ms = _event_ms(lambda i: F.conv2d(padded[i % nbuf], w), reps)  # as torch ships: TF32 allowed
+    torch.backends.cudnn.allow_tf32 = False
     library_ms = _event_ms(lambda i: F.conv2d(padded[i % nbuf], w), reps)
+    library_graph_ms = _graph_ms(lambda i: F.conv2d(padded[i % nbuf], w), reps)
     lib_err = (F.conv2d(padded[0], w).reshape(shape) - cross_stencil_2d(us[0], terms)).abs().max().item()
+    torch.backends.cudnn.allow_tf32 = tf32
 
-    n_terms = sum(len(o) for _, o in terms)
-    numel = math.prod(shape)
-    bytes_s = 2 * nbytes / HBM_BYTES_PER_S
-    ops_s = 2 * n_terms * numel / FP32_FLOP_PER_S
-    bound_ms = 1e3 * max(bytes_s, ops_s)
-    bound_by = 'bytes' if bytes_s >= ops_s else 'operations'
-    print(f'times: K1 {shape} fp32: {ms:.4f} ms, plain {plain_ms:.4f} ms, conv2d yardstick {library_ms:.4f} ms '
-          f'(its max abs diff to K1 {lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by}, '
-          f'{2 * nbytes / ms / 1e6:.1f} GB/s [{card}]')
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    ms, enqueue_ms, graph_ms = runs[picked]
+    print(f'times: K1 {shape} fp32: plain {plain_ms:.4f} ms, conv2d yardstick with TF32 off {library_ms:.4f} ms eager, '
+          f'{library_graph_ms:.4f} ms from a CUDA graph (its max abs diff to K1 {lib_err:.3e}); with '
+          f'cudnn.allow_tf32 = {tf32} as torch ships it {library_default_ms:.4f} ms eager [{card}]')
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, path=picked,
+                enqueue_ms=enqueue_ms, graph_ms=graph_ms, library_graph_ms=library_graph_ms,
+                other_path_graph_ms={p: t[2] for p, t in runs.items() if p != picked})
 
 
 def phase_times(ctrl, card):
@@ -355,6 +440,7 @@ def phase_times(ctrl, card):
 
     lvl = ctrl.MS[0].levels[0]
     terms = lvl.prob.A._cross_terms
+    _copy_rate(card)
     k1 = _time_stencil((N_MAIN, N_MAIN), terms, card)
     _time_stencil((M_MAIN, N_MAIN, N_MAIN), terms, card)
 
@@ -417,9 +503,23 @@ def _k2_matrices():
     }
 
 
+def _random_bsr(rng, nb, kb, br, bc):
+    """Random blocks with column segments at arbitrary element offsets."""
+    from pysdc_tpu_torch.ops.sparse import BSR
+
+    ncols = max(nb * br, 4 * bc)
+    blocks = rng.standard_normal((nb, kb, br, bc)) / bc
+    segs = rng.integers(0, ncols - bc + 1, size=(nb, kb))
+    return BSR(blocks, segs, (nb * br, ncols), br, bc, device='cuda')
+
+
 def _k3_matrices():
-    """name -> (BSR on the card, B): bench.py's design point, the 256^2
-    stencil through apply_bsr's blocking, a random 128x128 CSR at br=8."""
+    """name -> (BSR on the card, batch widths): bench.py's design point, the
+    256^2 stencil through apply_bsr's blocking (with the batch widths at the
+    edges of the stream path's template and of the chunking over 8), a random
+    128x128 CSR at br=8, and the seams of the stream path: kb = 1, a br that
+    a slab's rows (32 float32, 16 float64) do not divide, and a bc whose rows
+    are 16-byte multiples in float64 only."""
     from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion2D
     from pysdc_tpu_torch.ops.sparse import BSR, CSR
 
@@ -433,7 +533,14 @@ def _k3_matrices():
     stencil = BSR.from_csr(stencil.A, 256, 256, device='cuda')
     k = int(128 * 128 * 0.1)
     rand = CSR.from_coo(rng.integers(0, 128, k), rng.integers(0, 128, k), rng.normal(size=k), (128, 128))
-    return {'design256': (design, 4), 'stencil256': (stencil, 4), 'random128br8': (BSR.from_csr(rand, 8, 8, device='cuda'), 5)}
+    return {
+        'design256': (design, (4,)),
+        'stencil256': (stencil, (4, 1, 2, 3, 5, 8, 9)),
+        'random128br8': (BSR.from_csr(rand, 8, 8, device='cuda'), (5,)),
+        'kb1': (_random_bsr(rng, 8, 1, 64, 64), (4,)),
+        'br40': (_random_bsr(rng, 6, 2, 40, 64), (4, 9)),
+        'bc6': (_random_bsr(rng, 5, 2, 12, 6), (3,)),
+    }
 
 
 def phase_sparse_kernels():
@@ -442,7 +549,7 @@ def phase_sparse_kernels():
     (K2: the 1024^2 matrix on one vector; K3: the design point), float32."""
     import torch
 
-    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
+    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm, choose_path as k3_path
     from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
     from pysdc_tpu_torch.ops.sparse import DIA
 
@@ -469,23 +576,35 @@ def phase_sparse_kernels():
                         errs['dia_spmv'] = max(errs.get('dia_spmv', 0.0), err)
             print(f'kernels: K2 {name:18s} k={k} {"grid" if dia.grid else "flat"} {str(dtype):13s} '
                   f'max rel err {worst:.3e} <= tol {tol:.3e} over batches (), (4,), (3, 5)')
-    for name, (bsr, B) in _k3_matrices().items():
-        nb, kb, br, bc = bsr.blocks.shape
+    for name, (bsr, widths) in _k3_matrices().items():
+        dims = nb, kb, br, bc = tuple(bsr.blocks.shape)
         rows = bsr.blocks.abs().sum(dim=(1, 3)).reshape(-1)
         for dtype in (torch.float32, torch.float64):
             tol = 2 * kb * bc * torch.finfo(dtype).eps
-            u = torch.randn((bsr.shape[1], B), generator=gen, device='cuda', dtype=dtype)
-            got = bsr_spmm(bsr, u)
-            torch.cuda.synchronize()
-            want = bsr.spmv(u)
-            err = (got - want).abs().max().item()
-            scale = _row_scale(rows, u)
-            if not (got.shape == want.shape and math.isfinite(err) and err <= tol * scale):
-                raise AssertionError(f'K3 {name} {dtype}: max abs err {err:.3e} > {tol * scale:.3e}')
-            if name == 'design256' and dtype == torch.float32:
-                errs['bsr_spmm'] = err
-            print(f'kernels: K3 {name:13s} (nb, kb, br, bc)={(nb, kb, br, bc)} B={B} {str(dtype):13s} '
-                  f'max rel err {err / scale:.3e} <= tol {tol:.3e}')
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            worst, taken = 0.0, []
+            for B in widths:
+                u = torch.randn((bsr.shape[1], B), generator=gen, device='cuda', dtype=dtype)
+                want = bsr.spmv(u)
+                scale = _row_scale(rows, u)
+                expected = k3_path(dims, B, itemsize)
+                taken.append(f'B={B}: {expected}')
+                for forced in (None, 'general'):
+                    before = dict(bsr_spmm.paths)
+                    got = bsr_spmm(bsr, u, path=forced)
+                    torch.cuda.synchronize()
+                    ran = [k for k, v in bsr_spmm.paths.items() if v != before[k]]
+                    if ran != [forced or expected]:
+                        raise AssertionError(f'K3 {name} {dtype} B={B}: path {ran}, expected {forced or expected}')
+                    err = (got - want).abs().max().item()
+                    if not (got.shape == want.shape and math.isfinite(err) and err <= tol * scale):
+                        raise AssertionError(f'K3 {name} {dtype} B={B} path {ran[0]}: max abs err {err:.3e} > '
+                                             f'{tol * scale:.3e}')
+                    worst = max(worst, err / scale)
+                    if name == 'design256' and dtype == torch.float32 and forced is None:
+                        errs['bsr_spmm'] = err
+            print(f'kernels: K3 {name:13s} (nb, kb, br, bc)={dims} {str(dtype):13s} max rel err {worst:.3e} <= tol '
+                  f'{tol:.3e}, both on the path picked and with the general path forced; picked: {", ".join(taken)}')
     return errs
 
 
@@ -544,9 +663,12 @@ def phase_bsr_path(card):
     n = prob.A.n
     U = lvl.u[1:].reshape(M_MAIN, n).T.contiguous()
     bsr_spmm.launches = 0
+    bsr_spmm.paths = {'stream': 0, 'general': 0}
     Y = prob.A.apply_bsr(U)
     torch.cuda.synchronize()
     launches = bsr_spmm.launches
+    if bsr_spmm.paths != {'stream': launches, 'general': 0}:
+        raise AssertionError(f'block-sparse path: K3 launches by path {bsr_spmm.paths}, expected all on stream')
     want = lvl.f[1:].reshape(M_MAIN, n).T
     bsr = prob.A._bsr
     nb, kb, br, bc = bsr.blocks.shape
@@ -555,7 +677,7 @@ def phase_bsr_path(card):
     if launches < 1 or Y.shape != (n, M_MAIN) or not err <= tol:
         raise AssertionError(f'block-sparse path: K3 launches {launches}, max|apply_bsr - f| {err:.3e} > {tol:.3e}')
     print(f'block-sparse path: VarCoeffDiffusion2D 256^2 fp32, the {M_MAIN} node values of a 1-step run through '
-          f'apply_bsr (br={br}, kb={kb}): K3 launches {launches}, max|apply_bsr(U) - f| {err:.3e} <= {tol:.3e} [{card}]')
+          f'apply_bsr (br={br}, kb={kb}): K3 launches {launches} (stream path), max|apply_bsr(U) - f| {err:.3e} <= {tol:.3e} [{card}]')
     return launches
 
 
@@ -641,7 +763,8 @@ def _time_dia(dia, csr, B, card):
           f'{graph_ms:.4f} ms replayed from a CUDA graph), plain {plain_ms:.4f} ms, cuSPARSE CSR yardstick '
           f'{library_ms:.4f} ms (its max abs diff to K2 {lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by}, '
           f'{nbytes / ms / 1e6:.1f} GB/s [{card}]')
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                enqueue_ms=host_ms, graph_ms=graph_ms)
 
 
 def _library_bsr(bsr):
@@ -660,20 +783,39 @@ def _library_bsr(bsr):
 
 
 def _time_bsr(name, bsr, B, card):
-    """K3, its plain version and a torch BSR SpMM yardstick (TF32 off) at
-    (N, B), float32."""
+    """K3 on both paths, its plain version and a torch BSR SpMM yardstick
+    (TF32 off) at (N, B), float32.  The keys ``ms`` ... describe the path the
+    wrapper picks."""
     import torch
 
-    from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
+    from pysdc_tpu_torch.ops.kernels.bsr import _launch, bsr_spmm, choose_path, stream_geometry, stream_rows
 
-    nb, kb, br, bc = bsr.blocks.shape
+    dims = nb, kb, br, bc = tuple(bsr.blocks.shape)
     nbytes = (nb * kb * br * bc + (bsr.shape[0] + bsr.shape[1]) * B) * 4
     nbuf = max(2, math.ceil(3 * L2_BYTES / nbytes))
     gen = torch.Generator(device='cuda').manual_seed(12)
     us = [torch.randn((bsr.shape[1], B), generator=gen, device='cuda') for _ in range(nbuf)]
     reps = 4 * nbuf + 10
-    ms, host_ms = _event_ms(lambda i: bsr_spmm(bsr, us[i % nbuf]), reps, host=True)
-    graph_ms = _graph_ms(lambda i: bsr_spmm(bsr, us[i % nbuf]), reps)
+    bound_ms, bound_by = _bound(nbytes, 2 * nb * kb * br * bc * B)
+
+    picked = choose_path(dims, B, 4)
+    # picked, other, other, picked: the two paths in turns within this call
+    order = [picked] + [p for p in ('stream', 'general') if p != picked] * 2 + [picked]
+    runs = {}
+    for path in order:
+        t = _three_times(lambda i: bsr_spmm(bsr, us[i % nbuf], path=path), reps)
+        runs[path] = t if path not in runs else tuple(min(a, b) for a, b in zip(runs[path], t))
+    for path, (eager, host, graph) in runs.items():
+        print(f'times: K3 {name} (nb, kb, br, bc)={dims} B={B} fp32 path {path:7s}'
+              f'{" (picked)" if path == picked else "":9s}: eager {eager:.4f} ms, {host:.4f} ms to enqueue on the '
+              f'host, {graph:.4f} ms from a CUDA graph = {nbytes / graph / 1e6:.1f} GB/s, '
+              f'{100 * bound_ms / graph:.0f}% of the bound {bound_ms:.4f} ms by {bound_by} (best of two turns) [{card}]')
+    if picked == 'stream':
+        most = stream_geometry(dims, B, 4)[0]
+        sweep = {n: _graph_ms(lambda i: _launch(bsr, us[i % nbuf], stages=n), reps) for n in range(2, most + 1)}
+        print(f'times: K3 {name} stream path by slabs in the ring ({stream_rows(4) * bc * 4 // 1024} KB each), ms from '
+              f'a CUDA graph: ' + ', '.join(f'{n}: {ms:.4f}' for n, ms in sweep.items())
+              + f'; the wrapper takes {most} [{card}]')
     plain_ms = _event_ms(lambda i: bsr.spmv(us[i % nbuf]), reps)
     try:
         A = _library_bsr(bsr)
@@ -689,12 +831,13 @@ def _time_bsr(name, bsr, B, card):
         lib_fn = lambda i: torch.einsum('nkrc,nkcb->nrb', blocks, us[i % nbuf][idx]).reshape(-1, B)  # noqa: E731
         lib_err = (lib_fn(0) - bsr_spmm(bsr, us[0])).abs().max().item()
     library_ms = _event_ms(lib_fn, reps)
-    bound_ms, bound_by = _bound(nbytes, 2 * nb * kb * br * bc * B)
-    print(f'times: K3 {name} (nb, kb, br, bc)={(nb, kb, br, bc)} B={B} fp32: {ms:.4f} ms ({host_ms:.4f} ms to '
-          f'enqueue; {graph_ms:.4f} ms from a CUDA graph), plain {plain_ms:.4f} ms, '
-          f'{lib_name} yardstick {library_ms:.4f} ms (its max abs diff to K3 {lib_err:.3e}), bound {bound_ms:.4f} ms '
-          f'by {bound_by}, {nbytes / ms / 1e6:.1f} GB/s [{card}]')
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    library_graph_ms = _graph_ms(lib_fn, reps)
+    ms, enqueue_ms, graph_ms = runs[picked]
+    print(f'times: K3 {name} B={B} fp32: plain {plain_ms:.4f} ms, {lib_name} yardstick {library_ms:.4f} ms eager, '
+          f'{library_graph_ms:.4f} ms from a CUDA graph (its max abs diff to K3 {lib_err:.3e}) [{card}]')
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, path=picked,
+                enqueue_ms=enqueue_ms, graph_ms=graph_ms, library_graph_ms=library_graph_ms,
+                other_path_graph_ms={p: t[2] for p, t in runs.items() if p != picked})
 
 
 def phase_sparse_times(ctrl, card):
@@ -707,9 +850,9 @@ def phase_sparse_times(ctrl, card):
     k2 = _time_dia(A.dia, A.A, 1, card)
     _time_dia(A.dia, A.A, M_MAIN, card)
     k3 = None
-    for name, (bsr, B) in _k3_matrices().items():
-        if name != 'random128br8':
-            t = _time_bsr(name, bsr, B, card)
+    for name, (bsr, widths) in _k3_matrices().items():
+        if name in ('design256', 'stencil256'):
+            t = _time_bsr(name, bsr, widths[0], card)
             k3 = t if name == 'design256' else k3
 
     # one main-path sweep (update_nodes + residual) and its parts: CUDA events

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pysdc_tpu_torch.core.device import resolve_device
 from pysdc_tpu_torch.core.errors import ProblemError
 
 
@@ -266,9 +267,10 @@ def block_cr_solve(factors, rhs):
     return x
 
 
-def block_cr_shifted_factor(sub_np, diag_np, sup_np, factor, dtype=torch.float64, device='cpu'):
+def block_cr_shifted_factor(sub_np, diag_np, sup_np, factor, dtype=torch.float64, device='cuda'):
     """Factor ``I - factor*A`` for a block-tridiagonal A (numpy band
-    constants), in ``dtype`` on ``device``."""
+    constants), in ``dtype`` on ``device`` (the card unless ``'cpu'`` is asked for)."""
+    device = resolve_device(device)
     sub = -factor * torch.as_tensor(sub_np, dtype=dtype, device=device)
     sup = -factor * torch.as_tensor(sup_np, dtype=dtype, device=device)
     diag = -factor * torch.as_tensor(diag_np, dtype=dtype, device=device)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pysdc_tpu_torch.core.device import resolve_device
 from pysdc_tpu_torch.core.errors import ProblemError
 
 
@@ -224,7 +225,10 @@ def _master(x, dtype, device) -> torch.Tensor:
 
 
 class _DeviceFormat:
-    """Float64 master tensors on one device, cast once per (dtype, device)."""
+    """Float64 master tensors on one device, cast once per (dtype, device).
+
+    The containers live on the card unless the caller asks for the CPU
+    (``device='cpu'``); without a card the default raises."""
 
     def _init_casts(self):
         self._casts: dict = {}
@@ -250,7 +254,8 @@ class ELL(_DeviceFormat):
     ``(vals * u[..., cols]).sum(-1)``; leading axes of ``u`` batch.
     """
 
-    def __init__(self, vals, cols, shape, nnz=None, device='cpu'):
+    def __init__(self, vals, cols, shape, nnz=None, device='cuda'):
+        device = resolve_device(device)
         self.vals = _master(vals, torch.float64, device)
         self.cols = _master(cols, torch.int64, device)
         self.shape = tuple(shape)
@@ -258,7 +263,7 @@ class ELL(_DeviceFormat):
         self._init_casts()
 
     @classmethod
-    def from_csr(cls, A: CSR, device='cpu'):
+    def from_csr(cls, A: CSR, device='cuda'):
         n = A.shape[0]
         k = int(A.row_lengths.max()) if A.nnz else 1
         vals = np.zeros((n, k))
@@ -289,7 +294,8 @@ class DIA(_DeviceFormat):
     result for the same reason.
     """
 
-    def __init__(self, data, offsets, shape, nnz=None, grid=None, device='cpu'):
+    def __init__(self, data, offsets, shape, nnz=None, grid=None, device='cuda'):
+        device = resolve_device(device)
         self.data = _master(data, torch.float64, device)  # (k, n)
         self.offsets = tuple(int(o) for o in offsets)
         self.shape = tuple(shape)
@@ -299,7 +305,7 @@ class DIA(_DeviceFormat):
         self._init_casts()
 
     @classmethod
-    def from_csr(cls, A: CSR, max_diags: int = 24, device='cpu'):
+    def from_csr(cls, A: CSR, max_diags: int = 24, device='cuda'):
         """Convert when the matrix lives on at most ``max_diags`` diagonals
         (FD stencils do); returns None otherwise."""
         n = A.shape[0]
@@ -386,7 +392,8 @@ class BSR(_DeviceFormat):
     segment start 0.
     """
 
-    def __init__(self, blocks, seg_starts, shape, br, bc, nnz=None, device='cpu'):
+    def __init__(self, blocks, seg_starts, shape, br, bc, nnz=None, device='cuda'):
+        device = resolve_device(device)
         self.blocks = _master(blocks, torch.float64, device)  # (nb, kb, br, bc)
         self.seg_starts = _master(seg_starts, torch.int32, device)  # (nb, kb)
         self.shape = tuple(shape)
@@ -400,7 +407,7 @@ class BSR(_DeviceFormat):
         self._init_casts()
 
     @classmethod
-    def from_csr(cls, A: CSR, br: int, bc: int | None = None, device='cpu'):
+    def from_csr(cls, A: CSR, br: int, bc: int | None = None, device='cuda'):
         bc = br if bc is None else bc
         n, m = A.shape
         if n % br or m % bc:

@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pysdc_tpu_torch.core.device import resolve_device
 from pysdc_tpu_torch.core.errors import ProblemError
 from pysdc_tpu_torch.ops import banded
 from pysdc_tpu_torch.ops.fd import fd_matrix_1d
@@ -64,8 +65,9 @@ class SparseOperator:
                 'block_tridiag' | 'pcg' | 'cg'
     precond:    an operator with an exact ``solve_shifted(rhs, factor)`` on
                 the same grid (the nearest separable surrogate); enables 'pcg'.
-    device:     where the device formats keep their master tensors; fields
-                on another device get a copy made once and kept.
+    device:     where the device formats keep their master tensors (the card
+                unless ``'cpu'`` is asked for; without a card the default
+                raises); fields on another device get a copy made once and kept.
 
     Counters: ``spmv_count`` counts every SpMV the operator makes (eval_f,
     Krylov matvecs, residuals); ``pcg_solves`` / ``pcg_iterations`` count the
@@ -74,7 +76,7 @@ class SparseOperator:
     """
 
     def __init__(self, A: CSR, grid_shape=None, bc_rhs=None, block=None, solver='auto', precond=None,
-                 device='cpu'):
+                 device='cuda'):
         n = A.shape[0]
         if A.shape[0] != A.shape[1]:
             raise ProblemError('SparseOperator needs a square matrix')
@@ -82,7 +84,7 @@ class SparseOperator:
         self.A = A
         self.grid_shape = tuple(grid_shape) if grid_shape is not None else (n,)
         self.n = n
-        self.device = torch.device(device)
+        self.device = device = resolve_device(device)
         self.bc_rhs = None if bc_rhs is None else np.asarray(bc_rhs)
         self.ell = ELL.from_csr(A, device=device)
         # FD matrices live on a handful of diagonals: DIA replaces ELL's
@@ -437,7 +439,7 @@ class SparseFDOperator(SparseOperator):
     factorization or PCG (``backend='sparse'`` on the FD problem classes)."""
 
     def __init__(self, per_dim: list[dict], scale: float = 1.0, solver='auto', block=None, precond=None,
-                 device='cpu'):
+                 device='cuda'):
         A, bc_rhs = assemble_ndim_fd(per_dim, scale=scale)
         shape = tuple(d['size'] for d in per_dim)
         if bc_rhs is not None:

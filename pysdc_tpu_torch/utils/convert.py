@@ -8,8 +8,8 @@ package's ``IMEX``/``Comp2`` become the port's.
 
 ``dia_to_torch`` / ``bsr_to_torch`` carry sparse operators across: the
 fields of the JAX package's ``DIA`` and ``BSR`` containers, as numpy arrays,
-become the port's containers on a device, so both packages apply the same
-matrix.
+become the port's containers on a device (the card unless ``device='cpu'``),
+so both packages apply the same matrix.
 """
 
 from __future__ import annotations
@@ -55,14 +55,14 @@ def state_to_numpy(state) -> LevelState:
     return LevelState(u=to_numpy(u), f=_rhs(f, to_numpy), tau=to_numpy(tau))
 
 
-def dia_to_torch(data, offsets, shape, grid=None, device='cpu') -> DIA:
+def dia_to_torch(data, offsets, shape, grid=None, device='cuda') -> DIA:
     """A DIA matrix from its fields: ``data (k, n)``, ``offsets (k,)``,
     ``shape`` and the optional 2D-grid decomposition ``grid``."""
     return DIA(np.asarray(data, dtype=float), [int(o) for o in np.asarray(offsets)], tuple(shape),
                grid=grid, device=device)
 
 
-def bsr_to_torch(blocks, seg_starts, shape, br, bc, device='cpu') -> BSR:
+def bsr_to_torch(blocks, seg_starts, shape, br, bc, device='cuda') -> BSR:
     """A BSR matrix from its fields: ``blocks (nb, kb, br, bc)``,
     ``seg_starts (nb, kb)`` (element offsets), ``shape``, ``br`` and ``bc``."""
     return BSR(np.asarray(blocks, dtype=float), np.asarray(seg_starts), tuple(shape), int(br), int(bc),

@@ -131,13 +131,13 @@ def _var_coeff_2d_matrix(mod, n, periodic=True, seed=3):
 def test_dia_and_bsr_conversion_match_jax(n, periodic):
     jA, tA = _var_coeff_2d_matrix(js, n, periodic), _var_coeff_2d_matrix(ts, n, periodic)
     _same_csr(jA, tA)
-    jd, td = js.DIA.from_csr(jA), ts.DIA.from_csr(tA)
+    jd, td = js.DIA.from_csr(jA), ts.DIA.from_csr(tA, device='cpu')
     np.testing.assert_array_equal(np.asarray(jd.data), td.data.numpy())
     assert jd.offsets == td.offsets and jd.shape == td.shape and jd.nnz == td.nnz
     jg, tg = jd.with_grid((n, n)), td.with_grid((n, n))
     assert jg.grid == tg.grid
     assert (tg.grid is not None) == (not periodic)  # periodic wraps cross grid rows
-    jbs, tbs = js.BSR.from_csr(jA, 8, 8), ts.BSR.from_csr(tA, 8, 8)
+    jbs, tbs = js.BSR.from_csr(jA, 8, 8), ts.BSR.from_csr(tA, 8, 8, device='cpu')
     np.testing.assert_array_equal(np.asarray(jbs.blocks), tbs.blocks.numpy())
     np.testing.assert_array_equal(np.asarray(jbs.seg_starts), tbs.seg_starts.numpy())
     assert (jbs.br, jbs.bc, jbs.nnz) == (tbs.br, tbs.bc, tbs.nnz)
@@ -148,7 +148,7 @@ def test_ell_spmv_matches_jax(batch):
     """The gather SpMV that serves matrices without a DIA form."""
     rng = np.random.default_rng(17)
     jA, tA = _both_csr(rng, 64, 48)
-    je, te = js.ELL.from_csr(jA), ts.ELL.from_csr(tA)
+    je, te = js.ELL.from_csr(jA), ts.ELL.from_csr(tA, device='cpu')
     np.testing.assert_array_equal(np.asarray(je.vals), te.vals.numpy())
     np.testing.assert_array_equal(np.asarray(je.cols), te.cols.numpy())
     u = rng.normal(size=batch + (48,))
@@ -160,9 +160,9 @@ def test_ell_spmv_matches_jax(batch):
 def test_dia_rejects_unstructured_and_bsr_checks_segments():
     rng = np.random.default_rng(3)
     A = ts.CSR.from_coo(rng.integers(0, 64, 200), rng.integers(0, 64, 200), rng.normal(size=200), (64, 64))
-    assert ts.DIA.from_csr(A, max_diags=24) is None
+    assert ts.DIA.from_csr(A, max_diags=24, device='cpu') is None
     with pytest.raises(ProblemError, match='segments'):
-        ts.BSR(np.zeros((2, 1, 4, 4)), [[0], [6]], (8, 8), 4, 4)
+        ts.BSR(np.zeros((2, 1, 4, 4)), [[0], [6]], (8, 8), 4, 4, device='cpu')
 
 
 # ----------------------------------------------------------------------
@@ -179,7 +179,7 @@ def test_dia_spmv_matches_jax(n, periodic, form):
     from pysdc_tpu.ops.pallas.dia import dia_spmv as jax_dia_spmv
 
     jA, tA = _var_coeff_2d_matrix(js, n, periodic), _var_coeff_2d_matrix(ts, n, periodic)
-    jd, td = js.DIA.from_csr(jA), ts.DIA.from_csr(tA)
+    jd, td = js.DIA.from_csr(jA), ts.DIA.from_csr(tA, device='cpu')
     if form == 'grid':
         jd, td = jd.with_grid((n, n)), td.with_grid((n, n))
     u = np.random.default_rng(n).standard_normal((3, n * n))
@@ -189,7 +189,7 @@ def test_dia_spmv_matches_jax(n, periodic, form):
     np.testing.assert_allclose(got, np.asarray(jd.spmv(jnp.asarray(u))), rtol=0, atol=atol)
     np.testing.assert_allclose(_n(tdia.dia_spmv(td, _t(u))), got, rtol=0, atol=atol)
     # the JAX package's DIA, carried across, applies the same matrix
-    carried = dia_to_torch(np.asarray(jd.data), jd.offsets, jd.shape, grid=jd.grid)
+    carried = dia_to_torch(np.asarray(jd.data), jd.offsets, jd.shape, grid=jd.grid, device='cpu')
     np.testing.assert_allclose(_n(carried.spmv(_t(u))), got, rtol=0, atol=atol)
     if form == 'flat':
         for version in (1, 2):
@@ -203,7 +203,7 @@ def test_dia_spmv_1d_periodic_odd_n_and_batch_shapes(shape):
     n = shape[-1]
     a = 1.0 + 0.5 * np.sin(2 * np.pi * np.arange(n + 1) / n)
     A = tso.variable_diffusion_matrix(a, 1.0 / n, bc='periodic')
-    d = ts.DIA.from_csr(A)
+    d = ts.DIA.from_csr(A, device='cpu')
     assert d.offsets == (-(n - 1), -1, 0, 1, n - 1)
     u = np.random.default_rng(1).standard_normal(shape)
     got = _n(tdia.dia_spmv(d, _t(u)))
@@ -212,7 +212,7 @@ def test_dia_spmv_1d_periodic_odd_n_and_batch_shapes(shape):
 
 def test_dia_float32_state_stays_float32():
     A = _var_coeff_2d_matrix(ts, 16)
-    d = ts.DIA.from_csr(A)
+    d = ts.DIA.from_csr(A, device='cpu')
     u = torch.from_numpy(np.random.default_rng(0).standard_normal(256).astype(np.float32))
     y = tdia.dia_spmv(d, u)
     assert y.dtype == torch.float32 and d.data.dtype == torch.float64
@@ -229,7 +229,7 @@ def test_bsr_spmm_matches_jax(n, br, B):
     rng = np.random.default_rng(n + br)
     args = _random_coo(rng, n, n, 0.1)
     jA, tA = js.CSR.from_coo(*args), ts.CSR.from_coo(*args)
-    jbs, tbs = js.BSR.from_csr(jA, br, br), ts.BSR.from_csr(tA, br, br)
+    jbs, tbs = js.BSR.from_csr(jA, br, br), ts.BSR.from_csr(tA, br, br, device='cpu')
     u = rng.normal(size=(n, B))
     atol = 1e-13 * _spmv_scale(tA, u)
     got = _n(tbsr.bsr_spmm(tbs, _t(u)))
@@ -237,7 +237,8 @@ def test_bsr_spmm_matches_jax(n, br, B):
     np.testing.assert_allclose(got, np.asarray(jax_bsr_spmm(jbs, jnp.asarray(u), interpret=True)), rtol=0, atol=atol)
     np.testing.assert_allclose(_n(tbs.spmv(_t(u[:, 0]))), np.asarray(jbs.spmv(jnp.asarray(u[:, 0]))),
                                rtol=0, atol=atol)
-    carried = bsr_to_torch(np.asarray(jbs.blocks), np.asarray(jbs.seg_starts), jbs.shape, jbs.br, jbs.bc)
+    carried = bsr_to_torch(np.asarray(jbs.blocks), np.asarray(jbs.seg_starts), jbs.shape, jbs.br, jbs.bc,
+                           device='cpu')
     np.testing.assert_allclose(_n(carried.spmv(_t(u))), got, rtol=0, atol=atol)
 
 
@@ -261,7 +262,7 @@ def test_apply_bsr_auto_blocking_matches_jax():
 # ----------------------------------------------------------------------
 def test_cpu_path_launches_nothing_and_other_devices_raise():
     A = _var_coeff_2d_matrix(ts, 8)
-    d, b = ts.DIA.from_csr(A), ts.BSR.from_csr(A, 8, 8)
+    d, b = ts.DIA.from_csr(A, device='cpu'), ts.BSR.from_csr(A, 8, 8, device='cpu')
     before = (tdia.dia_spmv.launches, tbsr.bsr_spmm.launches)
     tdia.dia_spmv(d, torch.ones(64, dtype=torch.float64))
     tbsr.bsr_spmm(b, torch.ones(64, 2, dtype=torch.float64))
@@ -345,7 +346,7 @@ def test_block_cr_matches_jax(nb, b):
             _close_solve(tl[key], jl[key])
     _close_solve(tb.block_cr_solve(tfac, _t(rhs)), jb.block_cr_solve(jfac, jnp.asarray(rhs)))
     jsf = jb.block_cr_shifted_factor(sub, dg, sup, 0.05)
-    tsf = tb.block_cr_shifted_factor(sub, dg, sup, 0.05)
+    tsf = tb.block_cr_shifted_factor(sub, dg, sup, 0.05, device='cpu')
     _close_solve(tb.block_cr_solve(tsf, _t(rhs)), jb.block_cr_solve(jsf, jnp.asarray(rhs)))
 
 
@@ -392,7 +393,7 @@ def _operators(kind):
     # cg: a 2D Dirichlet FD matrix with no preconditioner and no block fallback
     per_dim = [dict(size=12, dx=1 / 13, derivative=2, order=2, bc='dirichlet-zero')] * 2
     return (jso.SparseFDOperator(per_dim, scale=0.1, solver='cg'),
-            tso.SparseFDOperator(per_dim, scale=0.1, solver='cg'), (12, 12))
+            tso.SparseFDOperator(per_dim, scale=0.1, solver='cg', device='cpu'), (12, 12))
 
 
 @pytest.mark.parametrize('kind', ['tridiag', 'cyclic_tridiag', 'banded', 'block_tridiag', 'pcg', 'cg'])
@@ -496,8 +497,148 @@ def test_pallas_dia_toggle_and_counts():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
     assert prob.A.spmv_count == 2
     with pytest.raises(ProblemError, match='square'):
-        tso.SparseOperator(ts.CSR.from_coo([0], [0], [1.0], (3, 4)))
+        tso.SparseOperator(ts.CSR.from_coo([0], [0], [1.0], (3, 4)), device='cpu')
     rng = np.random.default_rng(3)
     unstructured = ts.CSR.from_coo(rng.integers(0, 30, 200), rng.integers(0, 30, 200), rng.normal(size=200), (30, 30))
     with pytest.raises(ProblemError, match='DIA'):
-        tso.SparseOperator(unstructured, solver='cg').enable_pallas_dia()
+        tso.SparseOperator(unstructured, solver='cg', device='cpu').enable_pallas_dia()
+
+
+# ----------------------------------------------------------------------
+# K3: the wrapper's choice of kernel and the stream path's work-item walk
+# (pure functions, no card needed)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize('dims, B, itemsize, aligned, want', [
+    ((256, 3, 256, 256), 4, 4, True, 'stream'),     # the design point
+    ((256, 3, 256, 256), 4, 8, True, 'stream'),
+    ((256, 3, 256, 256), 9, 4, True, 'stream'),
+    ((16, 16, 8, 8), 5, 4, True, 'stream'),
+    ((8, 1, 64, 64), 4, 4, True, 'stream'),         # kb = 1
+    ((6, 2, 40, 64), 4, 4, True, 'stream'),         # a br that a slab's rows do not divide
+    ((5, 2, 12, 6), 3, 8, True, 'stream'),          # 6 float64 are 48 bytes
+    ((5, 2, 12, 6), 3, 4, True, 'general'),         # 6 float32 are 24 bytes: no multiple of 16
+    ((5, 2, 12, 7), 3, 8, True, 'general'),
+    ((256, 3, 256, 256), 4, 4, False, 'general'),   # a misaligned base
+    ((4, 3, 256, 512), 4, 4, True, 'stream'),       # 64 KB slabs: three fit
+    ((4, 3, 256, 1024), 4, 4, True, 'general'),     # 128 KB slabs: fewer than two fit
+    ((4, 3, 256, 512), 4, 8, True, 'stream'),
+    ((4, 40, 256, 256), 8, 4, True, 'general'),     # the staged segments leave no room for two slabs
+], ids=str)
+def test_bsr_choose_path(dims, B, itemsize, aligned, want):
+    assert tbsr.choose_path(dims, B, itemsize, aligned) == want
+    geometry = tbsr.stream_geometry(dims, B, itemsize)
+    if want == 'stream':
+        stages, grid_x, smem = geometry
+        assert 2 <= stages <= tbsr.STREAM_MAX_STAGES and smem <= tbsr.SMEM_OPT_IN
+        assert 1 <= grid_x <= min(tbsr.SM_COUNT, dims[0] * -(-dims[2] // tbsr.stream_rows(itemsize)))
+
+
+def test_bsr_stream_geometry_at_the_design_point():
+    stages, grid_x, smem = tbsr.stream_geometry((256, 3, 256, 256), 4, 4)
+    # 4 slabs of 32 rows x 256 float32 (32 KB each), 4 batch rows of 3 x 256 values + 16 bytes, the header
+    assert (stages, grid_x, smem) == (4, 132, 128 + 4 * 32768 + 4 * (3 * 256 * 4 + 16))
+    assert tbsr.stream_geometry((256, 3, 256, 256), 4, 8)[0] == 4 and tbsr.stream_rows(8) == 16
+    assert tbsr.stream_geometry((2, 1, 8, 8), 1, 4)[1] == 2  # never more thread blocks than work items
+
+
+@pytest.mark.parametrize('B, want', [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 8), (17, 8)])
+def test_bsr_batch_tile(B, want):
+    assert tbsr.batch_tile(B) == want
+
+
+@pytest.mark.parametrize('dims, B, itemsize, grid_x', [
+    ((4, 3, 64, 32), 4, 4, 5),      # several items a thread block, block rows shared between neighbours
+    ((6, 2, 40, 64), 9, 4, 132),    # br that 32 rows do not divide; B chunked over 8 (8 + 1)
+    ((6, 2, 40, 64), 5, 8, 7),      # float64: 16-row slabs, B = 5 in a tile of 8
+    ((8, 1, 64, 64), 1, 4, 1),      # kb = 1, one persistent thread block
+    ((3, 2, 8, 8), 2, 4, 3),        # br smaller than a slab
+    ((5, 2, 12, 6), 3, 8, 4),
+    ((16, 3, 256, 32), 8, 4, 132),
+], ids=str)
+def test_bsr_stream_walk_matches_einsum(dims, B, itemsize, grid_x):
+    """The stream kernel's walk in numpy, with the wrapper's constants: each
+    thread block takes its contiguous range of (block row, row group) items;
+    an item is the sum over its kb slabs of slab @ staged segment, batch
+    columns in chunks of ``CHUNK`` padded with zeros to ``batch_tile(B)``."""
+    nb, kb, br, bc = dims
+    rng = np.random.default_rng(sum(dims) + B)
+    blocks = rng.standard_normal(dims)
+    ncols = max(nb * br, 4 * bc)
+    seg = rng.integers(0, ncols - bc + 1, size=(nb, kb))
+    U = rng.standard_normal((ncols, B))
+    geometry = tbsr.stream_geometry(dims, B, itemsize)
+    grid_x = min(grid_x, geometry[1]) if grid_x == 132 else grid_x
+    walk = tbsr.stream_items(dims, itemsize, grid_x)
+    rows_per_slab = tbsr.stream_rows(itemsize)
+    bt = tbsr.batch_tile(B)
+    Y = np.full((nb * br, B), np.nan)
+    chunks = range(0, B, tbsr.CHUNK)  # grid.y: each chunk of batch columns streams the blocks once
+    written = np.zeros(nb * br, dtype=int)
+    assert len(walk) == grid_x
+    for b0 in chunks:
+        cols = min(bt, B - b0)
+        for mine in walk:
+            staged_row, useg = -1, None
+            for i, r0, rows in mine:
+                assert 0 < rows <= rows_per_slab and r0 % rows_per_slab == 0 and r0 + rows <= br
+                if i != staged_row:  # a new block row: stage its segments, transposed, zero-padded to the tile
+                    useg = np.zeros((bt, kb * bc))
+                    for j in range(kb):
+                        useg[:cols, j * bc:(j + 1) * bc] = U[seg[i, j]:seg[i, j] + bc, b0:b0 + cols].T
+                    staged_row = i
+                acc = np.zeros((rows, bt))
+                for j in range(kb):
+                    slab = blocks[i, j, r0:r0 + rows]  # rows * bc contiguous values: one bulk copy
+                    assert (rows * bc * itemsize) % tbsr.STREAM_COPY_BYTES == 0
+                    acc += slab @ useg[:, j * bc:(j + 1) * bc].T
+                Y[i * br + r0:i * br + r0 + rows, b0:b0 + cols] = acc[:, :cols]
+                written[i * br + r0:i * br + r0 + rows] += 1
+    assert (written == len(chunks)).all()  # every row of Y by exactly one item of each chunk
+    sizes = [len(mine) for mine in walk]
+    assert max(sizes) - min(sizes) <= 1 and sum(sizes) == nb * -(-br // rows_per_slab)
+    idx = seg[..., None] + np.arange(bc)
+    want = np.einsum('nkrc,nkcb->nrb', blocks, U[idx]).reshape(nb * br, B)
+    np.testing.assert_allclose(Y, want, rtol=0, atol=1e-12 * np.abs(blocks).sum(axis=(1, 3)).max() * np.abs(U).max())
+    # the port's plain version on the same matrix
+    bsr = ts.BSR(blocks, seg, (nb * br, ncols), br, bc, device='cpu')
+    np.testing.assert_allclose(_n(tbsr.bsr_spmm(bsr, _t(U), path='general')), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    assert tbsr.bsr_spmm.paths == {'stream': 0, 'general': 0}  # a CPU tensor launches nothing
+
+
+# ----------------------------------------------------------------------
+# operators and containers live on the card unless asked for the CPU
+# ----------------------------------------------------------------------
+def _default_device_cases():
+    A = _var_coeff_2d_matrix(ts, 8)
+    per_dim = [dict(size=8, dx=1 / 9, derivative=2, order=2, bc='dirichlet-zero')] * 2
+    sub, dg, sup = _block_system(np.random.default_rng(0), 4, 2)
+    dia = ts.DIA.from_csr(A, device='cpu')
+    bsr = ts.BSR.from_csr(A, 8, 8, device='cpu')
+    return {
+        'SparseOperator': lambda **kw: tso.SparseOperator(A, grid_shape=(8, 8), **kw).device,
+        'SparseFDOperator': lambda **kw: tso.SparseFDOperator(per_dim, scale=0.1, **kw).device,
+        'ELL.from_csr': lambda **kw: ts.ELL.from_csr(A, **kw).vals.device,
+        'DIA.from_csr': lambda **kw: ts.DIA.from_csr(A, **kw).data.device,
+        'BSR.from_csr': lambda **kw: ts.BSR.from_csr(A, 8, 8, **kw).blocks.device,
+        'ELL': lambda **kw: ts.ELL(np.ones((4, 1)), np.zeros((4, 1), dtype=np.int64), (4, 4), **kw).vals.device,
+        'DIA': lambda **kw: ts.DIA(np.ones((1, 4)), [0], (4, 4), **kw).data.device,
+        'BSR': lambda **kw: ts.BSR(np.ones((2, 1, 2, 2)), [[0], [2]], (4, 4), 2, 2, **kw).blocks.device,
+        'block_cr_shifted_factor': lambda **kw: tb.block_cr_shifted_factor(sub, dg, sup, 0.05, **kw)['top_inv'].device,
+        'dia_to_torch': lambda **kw: dia_to_torch(dia.data.numpy(), dia.offsets, dia.shape, **kw).data.device,
+        'bsr_to_torch': lambda **kw: bsr_to_torch(bsr.blocks.numpy(), bsr.seg_starts.numpy(), bsr.shape, 8, 8,
+                                                  **kw).blocks.device,
+    }
+
+
+@pytest.mark.parametrize('name', ['SparseOperator', 'SparseFDOperator', 'ELL.from_csr', 'DIA.from_csr', 'BSR.from_csr',
+                                  'ELL', 'DIA', 'BSR', 'block_cr_shifted_factor', 'dia_to_torch', 'bsr_to_torch'])
+def test_default_device_is_the_card(name):
+    """Without ``device=`` the object lives on the card, and without a card
+    that raises ``resolve_device``'s message; ``device='cpu'`` is as before."""
+    make = _default_device_cases()[name]
+    assert make(device='cpu').type == 'cpu'
+    if torch.cuda.is_available():
+        assert make().type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match="needs a CUDA card.*pass device='cpu'"):
+            make()
