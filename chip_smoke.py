@@ -39,6 +39,21 @@ raises and the script exits nonzero without printing the final line:
    eigen backend; PCG with its exact preconditioner takes <= 2 iterations).
 10. sparse times — K2 and K3 (both paths) with their plain versions and
    library yardsticks, one sparse sweep at 1024^2 and its parts.
+11. pfasst — ``ControllerNonMPI(8, ...)`` on the two-level PFASST configuration
+   of bench.py:512-531 (HeatND 512^2 / 256^2 periodic, float32, 3 / 2 nodes,
+   restol 1e-3, burn-in predictor, one block of 8 steps): every step
+   converges; the K1 launch count equals the number of operator applies on
+   both levels, all on the bands path, at shapes and taps that phase 2
+   covered; ``uend`` against the same run through the plain apply (equal
+   ``niter``) and against the same run in float64.
+12. pfasst parity — float64 on the card against the port's CPU run: PFASST
+   128^2 / 64^2 with 4 steps, and two-level MLSDC with ``FFTTransfer``.
+13. imex — ``HeatNDForced`` 2048^2 float32 with ``IMEXSweeper`` (M=4, LU), 2
+   steps of 8 sweeps; K1 launch count, ``uend`` against the exact solution.
+14. multi-level times — one PFASST block by stage (CUDA events and the host
+   clock), one restrict and one prolong at 512^2 -> 256^2, the block at
+   2048^2 / 1024^2 with 4 steps, and 8 sweeps through ``diagonal_sweeps`` (the
+   operator's diagonal basis) against ``update_nodes_k`` (8 ``update_nodes`` calls).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -72,6 +87,16 @@ N_SPARSE, DT_SPARSE = 1024, 1e-3
 SPARSE_PLAIN_BOUND = 3e-5  # |uend - uend through the plain rolls|
 SPARSE_EIGEN_TOL = 1e-11  # fp64 HeatND 256^2: sparse backend (PCG) against the eigen backend
 SPARSE_EXACT_TOL = 1e-6  # fp64 HeatND 256^2: |uend - u_exact(0.04)|, the time-discretization error
+
+
+# the PFASST lane: bench.py's bench_pfasst_speedup_projected configuration (bench.py:512-531)
+N_PFASST, NC_PFASST, P_PFASST, RESTOL_PFASST = 512, 256, 8, 1e-3
+# float32 roundoff at max|uend| = 0.081: this script measured |uend(float32) - uend(float64)| = 7.4e-7 on an
+# H100 80GB HBM3 at 700 W with equal niter; each bound leaves about 13x room
+PFASST_FP64_BOUND = 1e-5  # |uend(float32) - uend(float64)|, both converged to restol 1e-3
+PFASST_PLAIN_BOUND = 1e-5  # |uend - uend through the plain apply| in float32, equal niter
+N_IMEX, IMEX_STEPS = 2048, 2
+DIAG_SWEEPS_BOUND = 5e-4  # |uend(diagonal_sweeps) - uend(8 x update_nodes)| at 2048^2, the float32 floor above
 
 
 def _card():
@@ -223,7 +248,11 @@ def phase_build(card):
 
 def _fd_tables():
     """name -> tap table: the centred tables of orders 2, 4, 6, an asymmetric
-    one, and the main path's (order 2 with the scale and 1/dx^2 folded in)."""
+    one, the main path's (order 2 with the scale and 1/dx^2 folded in) and
+    those of the PFASST path's fine and coarse operators."""
+    import torch
+
+    from pysdc_tpu_torch.models.heat import HeatND
     from pysdc_tpu_torch.ops.fd import get_finite_difference_stencil
     from pysdc_tpu_torch.ops.linop import SeparableFDOperator
 
@@ -235,28 +264,35 @@ def _fd_tables():
     tables['asymmetric'] = (((0.5, -2.0, 1.5), (-2, -1, 0)), ((1.0,), (1,)))
     per_dim = [dict(size=N_MAIN, dx=1.0 / N_MAIN, derivative=2, order=2, bc='periodic')] * 2
     tables['main'] = SeparableFDOperator(per_dim, scale=0.1)._cross_terms
+    for name, n in (('pfasst fine', N_PFASST), ('pfasst coarse', NC_PFASST)):
+        prob = HeatND(nvars=(n, n), nu=0.1, freq=4, bc='periodic', dtype=torch.float32, device='cuda')
+        tables[name] = prob.A._cross_terms
     return tables
 
 
-# K1's shapes: the main path's, the general path's (odd, narrow), and the
+# K1's shapes: the main path's, the PFASST path's (a field and a stack of the
+# nodes' fields on either level), the general path's (odd, narrow), and the
 # seams of the bands path: one band wide and a column group wider (float32:
 # 128 and 132 columns; float64: 64 and 66), nx that the band's rows do not
 # divide, a grid whose rows wrap more than once under order 6, a batch
-K1_SHAPES = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (17, 33), (16, 16), (1, 4096),
+K1_SHAPES = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (N_PFASST, N_PFASST), (3, N_PFASST, N_PFASST),
+             (NC_PFASST, NC_PFASST), (2, NC_PFASST, NC_PFASST), (17, 33), (16, 16), (1, 4096),
              (64, 128), (64, 132), (40, 64), (40, 66), (100, 256), (4, 128), (3, 5, 64, 256)]
 
 
 def phase_kernels():
     """K1 against its plain version on the card, on the path the wrapper
     picks and with the general path forced.  Returns the largest absolute
-    error at the main path's shape and taps, float32."""
+    error at the main path's shape and taps, float32, and at the PFASST
+    path's shapes and taps, float32, by level."""
     import torch
 
     from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, choose_path, cross_stencil_2d
 
     tables = _fd_tables()
     gen = torch.Generator(device='cuda').manual_seed(1234)
-    main_err = None
+    main_err, pfasst_err = None, {'pfasst fine': 0.0, 'pfasst coarse': 0.0}
+    pfasst_n = {'pfasst fine': N_PFASST, 'pfasst coarse': NC_PFASST}
     for dtype in (torch.float32, torch.float64):
         itemsize = torch.empty((), dtype=dtype).element_size()
         for name, terms in tables.items():
@@ -284,11 +320,14 @@ def phase_kernels():
                     worst = max(worst, rel)
                     if name == 'main' and dtype == torch.float32 and shape == (N_MAIN, N_MAIN) and forced is None:
                         main_err = err
+                    if dtype == torch.float32 and forced is None and shape[-2:] == (pfasst_n.get(name),) * 2:
+                        pfasst_err[name] = max(pfasst_err[name], err)
             print(f'kernels: K1 {name:10s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e}, both on the '
                   f'path picked and with the general path forced; bands: {taken["bands"]}; general: {taken["general"]}')
     if choose_path((N_MAIN, N_MAIN), tables['main'], 4) != 'bands':
         raise AssertionError('K1: the main path\'s shape and taps do not take the bands path')
-    return main_err
+    print(f'kernels: K1 at the PFASST path\'s shapes and taps, fp32, max abs err by level {pfasst_err}')
+    return main_err, pfasst_err
 
 
 def phase_main(card):
@@ -908,6 +947,311 @@ def phase_sparse_times(ctrl, card):
     return k2, k3
 
 
+def _pfasst_description(nf, nc, dtype, device, restol, **over):
+    """The two-level description of bench.py:512-531 at ``nf``^2 / ``nc``^2."""
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    desc = dict(
+        problem_class=HeatND,
+        problem_params=dict(nu=0.1, freq=4, nvars=[(nf, nf), (nc, nc)], bc='periodic', dtype=dtype, device=device),
+        sweeper_class=GenericImplicit,
+        sweeper_params=dict(quad_type='RADAU-RIGHT', num_nodes=[3, 2], QI='LU'),
+        level_params=dict(restol=restol, dt=DT),
+        step_params=dict(maxiter=50),
+        space_transfer_params=dict(rorder=2, iorder=6, periodic=True),
+    )
+    desc.update(over)
+    return desc
+
+
+def _pfasst_controller(description, num_procs):
+    from pysdc_tpu_torch import ControllerNonMPI
+
+    return ControllerNonMPI(num_procs, {'logger_level': 30, 'predict_type': 'pfasst_burnin'}, description)
+
+
+def _block_run(ctrl, n_steps=None):
+    """``n_steps`` steps from u_exact(0), by default one block: as many steps
+    as the controller has processes.  Returns uend and the per-step niter."""
+    from pysdc_tpu_torch import get_sorted
+
+    prob = ctrl.MS[0].levels[0].prob
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, (n_steps or len(ctrl.MS)) * DT)
+    return uend, [v for _, v in get_sorted(stats, type='niter', sortby='time')]
+
+
+def _count_applies(ctrl, shapes):
+    """Count the ``apply`` calls of every step's operator, by level; the set
+    ``shapes`` receives the shape of every field applied to."""
+    counts = {}
+
+    def counted(apply, level):
+        def wrapper(u):
+            counts[level] += 1
+            shapes.add(tuple(u.shape))
+            return apply(u)
+        return wrapper
+
+    for step in ctrl.MS:
+        for lvl in step.levels:
+            counts.setdefault(lvl.level_index, 0)
+            lvl.prob.A.apply = counted(lvl.prob.A.apply, lvl.level_index)
+    return counts
+
+
+def phase_pfasst(card):
+    """The PFASST path at full width.  Returns the controller and the K1 launch count."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = _pfasst_controller(_pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST), P_PFASST)
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, niter = _block_run(ctrl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = cross_stencil_2d.launches
+    if len(niter) != P_PFASST or not all(k < 50 for k in niter):
+        raise AssertionError(f'pfasst: niter {niter}: not every one of {P_PFASST} steps converged under maxiter 50')
+    if launches != sum(applies.values()) or min(applies.values()) < 1:
+        raise AssertionError(f'pfasst: K1 launches {launches}, operator applies by level {applies}')
+    if cross_stencil_2d.paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'pfasst: K1 launches by path {cross_stencil_2d.paths}, expected all on bands')
+    if uend.shape != (N_PFASST, N_PFASST) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError('pfasst: uend is not a finite float32 field of the fine grid shape')
+    # the kernel check held K1 against its plain version at exactly these shapes and taps
+    tables = _fd_tables()
+    taps = [lvl.prob.A._cross_terms for lvl in ctrl.MS[0].levels]
+    if not shapes <= set(K1_SHAPES) or taps != [tables['pfasst fine'], tables['pfasst coarse']]:
+        raise AssertionError(f'pfasst: K1 ran at shapes {sorted(shapes)} or taps that the kernel check did not cover')
+
+    # the same block through the plain apply (torch.roll) on every level
+    plain = _pfasst_controller(_pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST), P_PFASST)
+    for step in plain.MS:
+        for lvl in step.levels:
+            lvl.prob.A.disable_pallas()
+    cross_stencil_2d.launches = 0
+    uend_plain, niter_plain = _block_run(plain)
+    diff_plain = (uend - uend_plain).abs().max().item()
+    if cross_stencil_2d.launches != 0 or niter_plain != niter or not diff_plain <= PFASST_PLAIN_BOUND:
+        raise AssertionError(f'pfasst vs plain apply: diff {diff_plain:.3e} > {PFASST_PLAIN_BOUND}, niter {niter_plain} '
+                             f'against {niter}, K1 launches {cross_stencil_2d.launches}')
+
+    ctrl64 = _pfasst_controller(_pfasst_description(N_PFASST, NC_PFASST, torch.float64, 'cuda', RESTOL_PFASST), P_PFASST)
+    uend64, niter64 = _block_run(ctrl64)
+    diff = (uend.double() - uend64).abs().max().item()
+    if not all(k < 50 for k in niter64) or not diff <= PFASST_FP64_BOUND:
+        raise AssertionError(f'pfasst: float64 niter {niter64}, |uend32 - uend64| {diff:.3e} > {PFASST_FP64_BOUND}')
+    print(f'pfasst: HeatND {N_PFASST}^2/{NC_PFASST}^2 fp32, 3/2 nodes LU, restol {RESTOL_PFASST}, burn-in, '
+          f'{P_PFASST} steps in one block: niter {niter} (float64 on the card: {niter64}), K1 launches {launches} = '
+          f'operator applies by level {applies} at shapes {sorted(shapes)}, all on the bands path, wall {wall:.3f} s '
+          f'incl. first calls, max|uend| {uend.abs().max().item():.6f}, |uend - uend_plain_apply| {diff_plain:.3e} <= '
+          f'{PFASST_PLAIN_BOUND} with equal niter, |uend - uend_float64| {diff:.3e} <= {PFASST_FP64_BOUND} [{card}]')
+    return ctrl, launches
+
+
+def phase_pfasst_parity():
+    """Float64, the card against the CPU: PFASST (4 steps) and two-level MLSDC with the FFT transfer."""
+    import torch
+
+    from pysdc_tpu_torch.transfer import FFTTransfer
+
+    cases = {
+        'PFASST 128^2/64^2, 4 steps, MeshTransfer': (4, {}),
+        'MLSDC 128^2/64^2, 1 step at a time, FFTTransfer': (1, dict(space_transfer_class=FFTTransfer,
+                                                                  space_transfer_params={})),
+    }
+    for name, (procs, over) in cases.items():
+        runs = {}
+        for device in ('cuda', 'cpu'):
+            ctrl = _pfasst_controller(_pfasst_description(128, 64, torch.float64, device, 5e-10, **over), procs)
+            uend, niter = _block_run(ctrl, n_steps=4)
+            runs[device] = (uend.cpu(), niter)
+        (u_card, it_card), (u_cpu, it_cpu) = runs['cuda'], runs['cpu']
+        diff = (u_card - u_cpu).abs().max().item()
+        if it_card != it_cpu or len(it_card) != 4 or not all(k < 50 for k in it_card) or not diff <= PARITY_UEND_TOL:
+            raise AssertionError(f'pfasst parity: {name}: niter card {it_card} cpu {it_cpu}, uend diff {diff:.3e}')
+        print(f'pfasst parity: {name}, fp64 restol 5e-10: niter {it_card} on card and CPU, '
+              f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+
+def phase_imex(card):
+    """The IMEX path.  Returns the K1 launch count."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, IMEXSweeper, get_sorted
+    from pysdc_tpu_torch.models.heat import HeatNDForced
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    desc = dict(
+        problem_class=HeatNDForced,
+        problem_params=dict(nvars=(N_IMEX, N_IMEX), nu=0.1, freq=2, bc='periodic', dtype=torch.float32, device='cuda'),
+        sweeper_class=IMEXSweeper,
+        sweeper_params=dict(num_nodes=M_MAIN, quad_type='RADAU-RIGHT', QI='LU'),
+        level_params=dict(dt=DT, restol=-1.0),
+        step_params=dict(maxiter=SWEEPS),
+    )
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, IMEX_STEPS * DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    niter = [v for _, v in get_sorted(stats, type='niter', sortby='time')]
+    launches = cross_stencil_2d.launches
+    # the implicit part of every eval_f is one apply: per step f(u0) and one
+    # batched f over the M spread nodes; QI='LU' takes the sequential branch
+    # of the sweeper, one eval_f per node and sweep
+    expected = sum(2 + M_MAIN * k for k in niter)
+    if niter != [SWEEPS] * IMEX_STEPS or launches != expected:
+        raise AssertionError(f'imex: niter {niter}, K1 launches {launches}, expected {expected}')
+    if cross_stencil_2d.paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'imex: K1 launches by path {cross_stencil_2d.paths}, expected all on bands')
+    if uend.shape != (N_IMEX, N_IMEX) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError('imex: uend is not a finite float32 field of the grid shape')
+    err = (uend - prob.u_exact(IMEX_STEPS * DT)).abs().max().item()
+    if not err <= UEND_EXACT_BOUND:
+        raise AssertionError(f'imex: |uend - u_exact| = {err:.3e} > {UEND_EXACT_BOUND}')
+    print(f'imex: HeatNDForced {N_IMEX}^2 fp32, IMEXSweeper M={M_MAIN} LU/EE, {IMEX_STEPS} steps, niter {niter}, '
+          f'K1 launches {launches} (= sum(2 + {M_MAIN}*niter), all on the bands path), wall {wall:.3f} s incl. first '
+          f'calls, |uend - u_exact| {err:.3e} <= {UEND_EXACT_BOUND} [{card}]')
+    return launches
+
+
+STAGES = {'_spread': 'spread', '_predict': 'burn-in predictor', '_check': 'checks', '_fine_sweeps': 'fine sweeps',
+          '_restrict_cascade': 'restrict', '_coarse_chain': 'coarse chain', '_prolong_cascade': 'prolong'}
+
+
+def _device_busy(fn):
+    """(ms the card spent in kernels and copies, their number) over one call
+    of ``fn()``, from ``torch.profiler``'s device trace; the rest of the
+    call's time on the card is idle, waiting for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0) for e in events)
+    if not busy_us > 0:
+        raise AssertionError('times: the profiler saw no device time')
+    return busy_us / 1e3, sum(e.count for e in events)
+
+
+def _block_by_stage(ctrl, label, card):
+    """Run one block three times: first calls, then timed by stage of the
+    stage machine (CUDA events around every handler call, the host clock
+    beside them), then under the profiler for the card's busy time.  A check
+    reads one residual per step on the host, so the card's time of a stage
+    can hold the host's time of the one before."""
+    import torch
+
+    spans = {name: [] for name in STAGES}
+    host = dict.fromkeys(STAGES, 0.0)
+
+    def timed(name, handler):
+        def wrapper(running):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            handler(running)
+            end.record()
+            host[name] += 1e3 * (time.perf_counter() - t0)
+            spans[name].append((start, end))
+        return wrapper
+
+    _block_run(ctrl)  # first calls: FFT plans, launch plans, coefficient tables
+    for name in STAGES:
+        setattr(ctrl, name, timed(name, getattr(ctrl, name)))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    uend, niter = _block_run(ctrl)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    for name in STAGES:
+        delattr(ctrl, name)
+    if not bool(torch.isfinite(uend).all()):
+        raise AssertionError(f'times: {label}: uend is not finite, niter {niter}')
+    residual = max(float(step.levels[0].status.residual) for step in ctrl.MS)
+    block_ms = start.elapsed_time(end)
+    busy_ms, n_kernels = _device_busy(lambda: _block_run(ctrl))
+    card_ms = {name: sum(s.elapsed_time(e) for s, e in pairs) for name, pairs in spans.items()}
+    rest = block_ms - sum(card_ms.values())
+    busy = (f'{busy_ms:.3f} ms busy in {n_kernels} kernels and copies, idle {100 * (1 - busy_ms / block_ms):.0f}% '
+            '(profiler, a third run)')
+    print(f'times: {label}: one block {block_ms:.3f} ms on the card, {host_ms:.3f} ms on the host clock, {busy}, '
+          f'niter {niter}, largest fine residual {residual:.3e}; by stage, ms on the card / ms on the host clock (calls): '
+          + ', '.join(f'{STAGES[name]} {card_ms[name]:.3f} / {host[name]:.3f} ({len(spans[name])})' for name in STAGES)
+          + f', rest (seeding the block, hooks, stats) {rest:.3f} [{card}]')
+
+
+def phase_multilevel_times(pfasst_ctrl, heat_ctrl, card):
+    import torch
+
+    _block_by_stage(pfasst_ctrl, f'PFASST {N_PFASST}^2/{NC_PFASST}^2 fp32, {P_PFASST} steps', card)
+
+    # one restrict and one prolong between the levels of a step, as the
+    # block left them, and the space transfer alone on the node stacks
+    step = pfasst_ctrl.MS[0]
+    transfer, (fine, coarse) = step.base_transfers[0], step.levels
+    space = transfer.space_transfer
+    for name, fn in (('BaseTransfer.restrict', lambda i: transfer.restrict()),
+                     ('BaseTransfer.prolong', lambda i: transfer.prolong()),
+                     (f'MeshTransfer.restrict of {tuple(fine.u.shape)}', lambda i: space.restrict(fine.u)),
+                     (f'MeshTransfer.prolong of {tuple(coarse.u[1:].shape)}', lambda i: space.prolong(coarse.u[1:]))):
+        ms, host_ms = _event_ms(fn, 20, host=True)
+        print(f'times: {name} {N_PFASST}^2 -> {NC_PFASST}^2 fp32: {ms:.4f} ms on the card, {host_ms:.4f} ms to '
+              f'enqueue on the host [{card}]')
+
+    # the same block at 2048^2 / 1024^2 with 4 steps.  Its float32 residual
+    # stalls above restol 1e-3 (the roundoff of dt * A u at 1/dx^2 = 4.2e6),
+    # so the block is held to the iteration profile of the 512^2 run instead:
+    # restol -1 and maxiter 1 give the burn-in and one iteration per step
+    big = _pfasst_controller(_pfasst_description(2048, 1024, torch.float32, 'cuda', -1.0, step_params=dict(maxiter=1)), 4)
+    torch.cuda.reset_peak_memory_stats()
+    _block_by_stage(big, 'PFASST 2048^2/1024^2 fp32, 4 steps, one iteration each', card)
+    print(f'times: PFASST 2048^2/1024^2: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]')
+    del big
+
+    # 8 sweeps in the operator's diagonal basis against update_nodes_k (8
+    # update_nodes calls), from the spread initial guess
+    from pysdc_tpu_torch.ops.diag_sdc import diagonal_sweeps
+
+    lvl = heat_ctrl.MS[0].levels[0]
+    prob, sweep = lvl.prob, lvl.sweep
+    state = sweep.predict(prob, prob.u_exact(0.0), 0.0, DT)
+
+    def fused(i=0):
+        return diagonal_sweeps(prob.diagonalizable_operator, sweep, state, 0.0, DT, SWEEPS)
+
+    def looped(i=0):
+        return sweep.update_nodes_k(prob, state, 0.0, DT, SWEEPS)
+
+    diff = (fused().u[-1] - looped().u[-1]).abs().max().item()
+    if not diff <= DIAG_SWEEPS_BOUND:
+        raise AssertionError(f'times: diagonal_sweeps against {SWEEPS} update_nodes: max|d uend| {diff:.3e}')
+    fused_ms, fused_host = _event_ms(fused, 5, warmup=1, host=True)
+    loop_ms, loop_host = _event_ms(looped, 5, warmup=1, host=True)
+    fused_busy, fused_n = _device_busy(fused)
+    loop_busy, loop_n = _device_busy(looped)
+    print(f'times: {SWEEPS} sweeps at {N_MAIN}^2 fp32 M={M_MAIN} LU: diagonal_sweeps (diagonal basis) {fused_ms:.4f} ms '
+          f'on the card, {fused_host:.4f} ms to enqueue, {fused_busy:.4f} ms busy in {fused_n} kernels (profiler); '
+          f'update_nodes_k = {SWEEPS} x update_nodes {loop_ms:.4f} ms, {loop_host:.4f} ms to enqueue, {loop_busy:.4f} ms '
+          f'busy in '
+          f'{loop_n} kernels; max|d uend| {diff:.3e} <= {DIAG_SWEEPS_BOUND} [{card}]')
+
+
 def main():
     import torch
 
@@ -917,7 +1261,7 @@ def main():
     card = _card()
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} [{card}]')
     phase_build(card)
-    main_err = phase_kernels()
+    main_err, pfasst_err = phase_kernels()
     ctrl, launches = phase_main(card)
     phase_parity()
     k1 = phase_times(ctrl, card)
@@ -926,10 +1270,16 @@ def main():
     k3_launches = phase_bsr_path(card)
     phase_sparse_parity()
     k2, k3 = phase_sparse_times(sparse_ctrl, card)
+    pfasst_ctrl, pfasst_launches = phase_pfasst(card)
+    phase_pfasst_parity()
+    imex_launches = phase_imex(card)
+    phase_multilevel_times(pfasst_ctrl, ctrl, card)
 
+    by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
-             replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=launches, max_abs_err=main_err, **k1),
+             replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),
+             launches_by_path=by_path, max_abs_err=main_err, max_abs_err_pfasst=pfasst_err, **k1),
         dict(name='dia_spmv', route='cuda', source='pysdc_tpu_torch/csrc/dia_spmv.cu',
              replaces='pysdc_tpu/ops/pallas/dia.py:144', launches=k2_launches,
              max_abs_err=sparse_errs['dia_spmv'], **k2),

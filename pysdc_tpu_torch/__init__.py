@@ -1,14 +1,17 @@
 """pysdc_tpu_torch: the PyTorch/CUDA port of pysdc_tpu.
 
 A second package beside ``pysdc_tpu``, with its layout (``core/``, ``ops/``,
-``models/``, ``sweepers/``, ``convergence/``, ``hooks/``, ``parallel/``,
-``utils/``), its ``description``-dict frontend and its stats ``Entry``
+``models/``, ``sweepers/``, ``transfer/``, ``convergence/``, ``hooks/``,
+``parallel/``, ``utils/``), its ``description``-dict frontend and its stats ``Entry``
 schema, so one script runs against either package by swapping the import.
 It imports torch, numpy and scipy, never JAX and nothing of ``pysdc_tpu``.
 Every TPU kernel of the JAX package is a hand-written CUDA kernel for Hopper
 under ``csrc/``, built at first use: the periodic cross stencil of the 2D
 heat equation (``cross_stencil.cu``), the DIA SpMV of the sparse lane
-(``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).
+(``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).  SDC, IMEX
+SDC, MLSDC and virtual PFASST run through ``ControllerNonMPI``; the FAS
+transfers (``MeshTransfer``, ``FFTTransfer``, ``NoCoarseTransfer``) are in
+:mod:`pysdc_tpu_torch.transfer`.
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
 
@@ -36,6 +39,7 @@ configure_default_matmul_precision()
 
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit  # noqa: E402
+from pysdc_tpu_torch.sweepers.imex import IMEXSweeper  # noqa: E402
 from pysdc_tpu_torch.utils.stats import filter_stats, get_list_of_types, get_sorted, sort_stats  # noqa: E402
 
 __version__ = '0.1.0'
@@ -43,6 +47,7 @@ __version__ = '0.1.0'
 __all__ = [
     'ControllerNonMPI',
     'GenericImplicit',
+    'IMEXSweeper',
     'filter_stats',
     'sort_stats',
     'get_sorted',

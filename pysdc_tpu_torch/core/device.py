@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device selection and constants on a device for the port's entry points.
 
 Problems and operators run on the CUDA card unless the caller asks for the
 CPU (``device='cpu'``, as the tests do).  Without a card, asking for CUDA
@@ -7,6 +7,7 @@ raises: nothing carries on silently on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,16 @@ def resolve_device(device='cuda') -> torch.device:
 def complex_dtype(dtype: torch.dtype) -> torch.dtype:
     """The complex dtype with the precision of ``dtype`` (real or complex)."""
     return torch.complex64 if dtype in (torch.float32, torch.complex64) else torch.complex128
+
+
+def cached_tensor(cache: dict, key, make, like: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The constant ``make()`` (a numpy array) as a tensor on ``like``'s
+    device, in ``dtype`` (default: ``like``'s), made once per (key, dtype,
+    device) and kept in ``cache``."""
+    dtype = like.dtype if dtype is None else dtype
+    full_key = (key, dtype, like.device)
+    t = cache.get(full_key)
+    if t is None:
+        # np.array copies: the collocation tables are read-only arrays
+        t = cache[full_key] = torch.as_tensor(np.array(make()), dtype=dtype, device=like.device)
+    return t

@@ -50,6 +50,8 @@ class Level:
 
         self.state: LevelState | None = None
         self.uend = None
+        self.uold = None  # u and f as restriction left them, for the FAS prolongation
+        self.fold = None
         self.residual = None  # (M, *shape) node residuals of last computation
 
         self.extra_status_vars: dict = {}
@@ -93,6 +95,8 @@ class Level:
                 setattr(self.status, name, init)
         self.state = None
         self.uend = None
+        self.uold = None
+        self.fold = None
         self.residual = None
         self.tag = None
 

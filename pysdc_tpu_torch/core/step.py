@@ -1,11 +1,10 @@
 """Step: the level hierarchy of one time step.
 
 The counterpart of ``pysdc_tpu/core/step.py`` (reference ``Step``,
-``pySDC/core/step.py:45``): builds the levels from a user-supplied
-``description`` dict and carries the status the controllers' stage machine
-reads and writes (iter, stage, done, prev_done, ...).  This slice builds
-single-level steps; multi-level hierarchies with their transfer operators
-wait for ROADMAP queue 1, item 5.
+``pySDC/core/step.py:45``): builds the level list from a user-supplied
+``description`` dict, connects consecutive levels with space-time transfer
+operators (FAS), and carries the status the controllers' stage machine
+reads and writes (iter, stage, done, prev_done, ...).
 """
 
 from __future__ import annotations
@@ -16,9 +15,22 @@ from pysdc_tpu_torch.core.errors import ParameterError
 from pysdc_tpu_torch.core.level import Level
 
 
+def _per_level(params: dict, num_levels: int) -> list[dict]:
+    """Expand dict values that are lists into per-level dicts; shorter lists
+    repeat their last entry (reference step.py:174 ``__dict_to_list``)."""
+    out = []
+    for lvl in range(num_levels):
+        d = {}
+        for key, value in params.items():
+            if isinstance(value, list):
+                d[key] = value[min(lvl, len(value) - 1)]
+            else:
+                d[key] = value
+        out.append(d)
+    return out
+
+
 def _num_levels(description: dict) -> int:
-    """Levels a description asks for: the longest per-level list
-    (reference step.py:174 ``__dict_to_list``)."""
     n = 1
     for key in ('problem_params', 'sweeper_params', 'level_params'):
         for value in description.get(key, {}).values():
@@ -29,13 +41,8 @@ def _num_levels(description: dict) -> int:
     return n
 
 
-def _level_params(params: dict) -> dict:
-    """A one-level description may still wrap values in one-entry lists."""
-    return {key: value[0] if isinstance(value, list) else value for key, value in params.items()}
-
-
 class Step:
-    """One level + pipeline status."""
+    """Hierarchy of levels + transfer operators + pipeline status."""
 
     def __init__(self, description: dict):
         self.params = SimpleNamespace(maxiter=description.get('step_params', {}).get('maxiter', 20))
@@ -43,6 +50,7 @@ class Step:
             setattr(self.params, key, value)
 
         self.levels: list[Level] = []
+        self.base_transfers = []
         self.prev = None
         self.next = None
         self.description = description
@@ -56,20 +64,37 @@ class Step:
                 raise ParameterError(f'need {key!r} in the description dict')
 
         nlev = _num_levels(description)
-        if nlev > 1:
-            raise NotImplementedError(
-                f'the description asks for {nlev} levels; multi-level steps (MLSDC/PFASST transfers) '
-                'are not ported yet (ROADMAP queue 1, item 5)'
-            )
-        prob_class, sweep_class = description['problem_class'], description['sweeper_class']
-        if isinstance(prob_class, (list, tuple)):
-            prob_class = prob_class[0]
-        if isinstance(sweep_class, (list, tuple)):
-            sweep_class = sweep_class[0]
+        prob_classes = description['problem_class']
+        if not isinstance(prob_classes, (list, tuple)):
+            prob_classes = [prob_classes] * nlev
+        sweep_classes = description['sweeper_class']
+        if not isinstance(sweep_classes, (list, tuple)):
+            sweep_classes = [sweep_classes] * nlev
 
-        problem = prob_class(**_level_params(description.get('problem_params', {})))
-        sweeper = sweep_class(_level_params(description.get('sweeper_params', {})))
-        self.levels.append(Level(problem, sweeper, _level_params(description['level_params']), level_index=0))
+        prob_params = _per_level(description.get('problem_params', {}), nlev)
+        sweep_params = _per_level(description.get('sweeper_params', {}), nlev)
+        level_params = _per_level(description.get('level_params', {}), nlev)
+
+        for lvl in range(nlev):
+            problem = prob_classes[lvl](**prob_params[lvl])
+            sweeper = sweep_classes[lvl](sweep_params[lvl])
+            self.levels.append(Level(problem, sweeper, level_params[lvl], level_index=lvl))
+
+        # connect consecutive levels with base transfer (FAS) operators
+        if nlev > 1:
+            from pysdc_tpu_torch.transfer.base_transfer import BaseTransfer
+            from pysdc_tpu_torch.transfer.space_mesh import MeshTransfer
+
+            base_transfer_class = description.get('base_transfer_class', BaseTransfer)
+            space_transfer_class = description.get('space_transfer_class', MeshTransfer)
+            base_params = description.get('base_transfer_params', {})
+            space_params = description.get('space_transfer_params', {})
+            for lvl in range(nlev - 1):
+                self.base_transfers.append(
+                    base_transfer_class(
+                        self.levels[lvl], self.levels[lvl + 1], base_params, space_transfer_class, space_params
+                    )
+                )
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -112,4 +137,11 @@ class Step:
 
     def transfer(self, source: Level, target: Level):
         """Transfer data between consecutive levels (reference step.py:234)."""
-        raise NotImplementedError('space-time transfers are not ported yet (ROADMAP queue 1, item 5)')
+        si = source.level_index
+        ti = target.level_index
+        if ti == si + 1:
+            self.base_transfers[si].restrict()
+        elif ti == si - 1:
+            self.base_transfers[ti].prolong()
+        else:
+            raise ParameterError(f'cannot transfer from level {si} to non-neighbor {ti}')

@@ -15,10 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pysdc_tpu_torch.core.device import cached_tensor
 from pysdc_tpu_torch.core.errors import ParameterError
 from pysdc_tpu_torch.core.state import LevelState, f_total, map_components, norm_max
 from pysdc_tpu_torch.ops.collocation import get_collocation
-from pysdc_tpu_torch.ops.qdelta import is_diagonal, is_k_dependent, qdelta_implicit
+from pysdc_tpu_torch.ops.qdelta import is_diagonal, is_k_dependent, qdelta_explicit, qdelta_implicit
 
 RESIDUAL_TYPES = ('full_abs', 'last_abs', 'full_rel', 'last_rel')
 
@@ -58,6 +59,12 @@ class Sweeper:
             self.parallelizable = True
         return QD
 
+    def get_Qdelta_explicit(self, qd_type: str, k: int | None = None) -> np.ndarray:
+        QD = qdelta_explicit(self.coll, qd_type, k=k)
+        if is_diagonal(QD):
+            self.parallelizable = True
+        return QD
+
     @property
     def k_dependent(self) -> bool:
         """True if any preconditioner coefficients change between sweeps."""
@@ -69,11 +76,7 @@ class Sweeper:
     def _coeff(self, key, make, like: torch.Tensor) -> torch.Tensor:
         """The coefficient table ``make()`` on ``like``'s device and dtype,
         made once per (key, dtype, device) and kept."""
-        full_key = (key, like.dtype, like.device)
-        t = self._consts.get(full_key)
-        if t is None:
-            t = self._consts[full_key] = torch.as_tensor(make(), dtype=like.dtype, device=like.device)
-        return t
+        return cached_tensor(self._consts, key, make, like)
 
     # -- protocol ------------------------------------------------------
     def predict(self, prob, u0, t, dt, random_val: float = 0.0) -> LevelState:
@@ -110,7 +113,11 @@ class Sweeper:
         return float(self._rng.rand(1)[0])
 
     def update_nodes_k(self, prob, state: LevelState, t, dt, n_sweeps: int, k0: int = 0) -> LevelState:
-        """``n_sweeps`` consecutive sweeps: loops ``update_nodes``."""
+        """``n_sweeps`` consecutive sweeps, each one ``update_nodes`` (on 2D
+        periodic grids through the stencil kernel).  The same sweeps in a
+        linear operator's diagonal basis are ``ops.diag_sdc.diagonal_sweeps``,
+        which the caller picks by name: eager on an H100 it is slower than this
+        loop (PERF.md), so no sweeper dispatches to it."""
         for k in range(k0, k0 + n_sweeps):
             state = self.update_nodes(prob, state, t, dt, k)
         return state

@@ -1,7 +1,7 @@
 """N-dimensional heat equation, finite differences.
 
-The counterpart of ``pysdc_tpu/models/heat.py:HeatND`` (reference
-``heatNd_unforced``, ``pySDC/implementations/problem_classes/HeatEquation_ND_FD.py``):
+The counterpart of ``pysdc_tpu/models/heat.py`` (reference ``heatNd_unforced``
+and ``heatNd_forced``, ``pySDC/implementations/problem_classes/HeatEquation_ND_FD.py``):
 the Laplacian is a separable stencil operator with FFT (periodic) or
 eigen-product (Dirichlet/Neumann) direct shifted solves.  On the card a 2D
 periodic Laplacian applies through kernel K1.  ``backend='sparse'`` assembles
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
+from pysdc_tpu_torch.core.state import IMEX
 from pysdc_tpu_torch.ops.fd import get_1d_grid
 from pysdc_tpu_torch.ops.linop import SeparableFDOperator
 
@@ -83,6 +84,15 @@ class HeatND(Problem):
         return len(self.nvars)
 
     @property
+    def diagonalizable_operator(self):
+        """eval_f is exactly A@u and the solves are exact diagonal-basis
+        solves, so multi-sweep SDC may run fused in that basis
+        (ops/diag_sdc.py).  Only for the direct eigen solver."""
+        if self.backend != 'eigen':
+            return None
+        return self.A if self.solver_type == 'direct' else None
+
+    @property
     def grids(self):
         """ND meshgrid tuple (matches reference generic_ND_FD.grids)."""
         x = torch.as_tensor(self.xvals, dtype=self.dtype, device=self.device)
@@ -134,3 +144,39 @@ class HeatND(Problem):
         else:
             out = self._sin_product() * decay
         return out.to(self.dtype)
+
+
+class HeatNDForced(HeatND):
+    """IMEX-split forced heat equation; exact solution sin-product * cos(t)
+    (reference ``heatNd_forced``)."""
+
+    f_kind = 'imex'
+
+    #: the forcing makes f nonautonomous: no fused diagonal-basis sweeps
+    diagonalizable_operator = None
+
+    def __init__(self, nvars=512, nu=0.1, freq=2, stencil_type='center', order=2,
+                 lintol=1e-12, liniter=10000, solver_type='direct', bc='periodic',
+                 backend='eigen', dtype=None, device='cuda'):
+        super().__init__(nvars, nu, freq, stencil_type, order, lintol, liniter, solver_type, bc,
+                         backend=backend, dtype=dtype, device=device)
+        self._mode = self._sin_product()  # the spatial factor of forcing and solution, made once
+
+    def _forcing_factor(self, t):
+        """nu pi^2 |k|^2 cos t - sin t, for a time or an array of times."""
+        k2 = sum(f**2 for f in self.freq)
+        return self.nu * np.pi**2 * k2 * np.cos(t) - np.sin(t)
+
+    def eval_f(self, u, t):
+        self.work_counters['rhs']()
+        return IMEX(impl=self.A.apply(u), expl=self._mode * float(self._forcing_factor(t)))
+
+    def eval_f_batched(self, u, t):
+        """One apply over the leading node axis (one K1 launch on the card);
+        the forcing takes one time per node."""
+        self.work_counters['rhs'](u.shape[0])
+        factor = torch.as_tensor(self._forcing_factor(np.asarray(t, dtype=float)), dtype=u.dtype, device=u.device)
+        return IMEX(impl=self.A.apply(u), expl=factor.reshape((-1,) + (1,) * self.ndim) * self._mode)
+
+    def u_exact(self, t, u_init=None, t_init=None):
+        return self._mode * math.cos(t)

@@ -249,6 +249,14 @@ class SeparableFDOperator:
         when the operator is all-periodic with a real symbol), numpy."""
         return self.scale * (self._lam_rfft if self._rfft_ok else self._lam_nd)
 
+    def diag_symbol_on(self, xhat):
+        """``diag_symbol`` as a tensor on ``xhat``'s device in its precision
+        (real when the symbol is real), made once and kept."""
+        sym = self.diag_symbol
+        cdtype = complex_dtype(xhat.dtype)
+        dtype = cdtype if np.iscomplexobj(sym) else (torch.float32 if cdtype == torch.complex64 else torch.float64)
+        return self._const('diag_rfft' if self._rfft_ok else 'diag_full', sym, dtype, xhat.device)
+
     def diag_forward(self, x):
         """Transform (trailing spatial axes; leading axes batch) to the
         operator's diagonal basis."""

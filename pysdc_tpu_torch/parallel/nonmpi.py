@@ -1,9 +1,8 @@
 """Virtual-parallel PFASST/MLSDC/SDC/MSSDC controller.
 
-The counterpart of ``pysdc_tpu/parallel/nonmpi.py``: the whole stage machine.
-This slice builds single-level steps (SDC and multi-step SDC for any
-``num_procs``); the level transfers of MLSDC/PFASST wait for ROADMAP
-queue 1, item 5.
+The counterpart of ``pysdc_tpu/parallel/nonmpi.py``: the whole stage machine,
+for single-level steps (SDC, multi-step SDC) and level hierarchies (MLSDC,
+PFASST) with any ``num_procs``.
 
 Host-side orchestration of a *block* of ``num_procs`` virtual time steps that
 march in lockstep through the PFASST stage machine

@@ -11,9 +11,7 @@ Structure of one sweep (mathematically identical to the reference):
                       integral_m + dt * sum_{j<m} QI_mj f_j^{k+1})
 
 Diagonal QI (IEpar / MIN-SR-*): the inner loop disappears — all node solves
-and RHS evaluations take the node axis as a leading batch axis.  The fused
-diagonal-basis ``update_nodes_k`` waits for ``ops/diag_sdc.py`` (ROADMAP
-queue 1, item 6); until then multi-sweeps loop ``update_nodes``.
+and RHS evaluations take the node axis as a leading batch axis.
 """
 
 from __future__ import annotations

@@ -6,6 +6,11 @@ tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
 back.  RHS containers are matched by their field names, so the JAX
 package's ``IMEX``/``Comp2`` become the port's.
 
+``step_to_numpy`` / ``step_to_torch`` carry a whole multi-level step across:
+the first reads every level's ``(u, f, tau)``, ``uold`` and ``fold`` of a
+step of either package as numpy, the second writes such a list into the
+levels of a step of the port, each on its problem's device.
+
 ``dia_to_torch`` / ``bsr_to_torch`` carry sparse operators across: the
 fields of the JAX package's ``DIA`` and ``BSR`` containers, as numpy arrays,
 become the port's containers on a device (the card unless ``device='cpu'``),
@@ -26,6 +31,8 @@ _CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2}
 def to_torch(x, device, dtype=None) -> torch.Tensor:
     """A field (e.g. an initial value ``u0``) as a tensor on ``device``."""
     arr = np.asarray(x)
+    if not arr.flags.writeable:  # arrays of the JAX package are read-only views
+        arr = arr.copy()
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
@@ -53,6 +60,34 @@ def state_to_numpy(state) -> LevelState:
     """A level state with every field as a numpy array."""
     u, f, tau = state
     return LevelState(u=to_numpy(u), f=_rhs(f, to_numpy), tau=to_numpy(tau))
+
+
+def step_to_numpy(step) -> list[dict]:
+    """Per level of ``step`` (of either package): ``state`` as a numpy
+    :class:`LevelState`, ``uold`` and ``fold`` as numpy (None where unset)."""
+    return [
+        dict(
+            state=None if lvl.state is None else state_to_numpy(lvl.state),
+            uold=None if lvl.uold is None else to_numpy(lvl.uold),
+            fold=None if lvl.fold is None else _rhs(lvl.fold, to_numpy),
+        )
+        for lvl in step.levels
+    ]
+
+
+def step_to_torch(levels: list[dict], step, dtype=None):
+    """Write ``levels`` (as ``step_to_numpy`` gives them) into the levels of
+    the port's ``step``, each on its problem's device; a level that receives
+    a state is unlocked, as after ``predict`` or a restriction."""
+    if len(levels) != len(step.levels):
+        raise ValueError(f'{len(levels)} level states for a step of {len(step.levels)} levels')
+    for data, lvl in zip(levels, step.levels):
+        conv = lambda x, dev=lvl.prob.device: to_torch(x, dev, dtype)  # noqa: E731
+        lvl.state = None if data['state'] is None else state_to_torch(data['state'], lvl.prob.device, dtype)
+        lvl.uold = None if data['uold'] is None else conv(data['uold'])
+        lvl.fold = None if data['fold'] is None else _rhs(data['fold'], conv)
+        lvl.status.unlocked = lvl.state is not None
+    return step
 
 
 def dia_to_torch(data, offsets, shape, grid=None, device='cuda') -> DIA:

@@ -28,6 +28,9 @@ _NO_JAX = (
     'pysdc_tpu_torch.ops.kernels.stencil, pysdc_tpu_torch.ops.kernels.build, pysdc_tpu_torch.convergence',
     'import pysdc_tpu_torch.models.var_diffusion, pysdc_tpu_torch.ops.sparse_op, pysdc_tpu_torch.ops.banded, '
     'pysdc_tpu_torch.ops.kernels.dia, pysdc_tpu_torch.ops.kernels.bsr',
+    'import pysdc_tpu_torch.transfer, pysdc_tpu_torch.transfer.base_transfer, pysdc_tpu_torch.transfer.space_mesh, '
+    'pysdc_tpu_torch.transfer.space_fft, pysdc_tpu_torch.transfer.no_coarse, pysdc_tpu_torch.sweepers.imex, '
+    'pysdc_tpu_torch.ops.diag_sdc',
     'import chip_smoke',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
@@ -48,7 +51,6 @@ def test_problem_without_device_needs_a_card(monkeypatch):
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit
     from pysdc_tpu_torch.models.heat import HeatND
 
     for kwargs in (dict(solver_type='CG'), dict(solver_type='GMRES'), dict(backend='sparse', solver_type='CG')):
@@ -58,15 +60,6 @@ def test_unported_parts_raise_naming_the_roadmap():
     u = sparse.u_exact(0.0)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         sparse.A.solve_shifted_gmres(u, 0.1, u)
-    desc = dict(
-        problem_class=HeatND,
-        problem_params=dict(nvars=[16, 8], device='cpu'),
-        sweeper_class=GenericImplicit,
-        sweeper_params=dict(num_nodes=3),
-        level_params=dict(dt=0.1),
-    )
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ControllerNonMPI(1, {}, desc)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone():

@@ -102,6 +102,77 @@ def test_sweeper_states_match_jax(qi, initial_guess):
                                np.asarray(jsw.compute_end_point(jstate, 0.0, dt)), rtol=0, atol=1e-12)
 
 
+# name -> (problem params, QI): the rfft basis, the full complex FFT basis
+# (disable_rfft), the Dirichlet eigenbasis; Gauss-Seidel, diagonal and
+# sweep-dependent tables
+DIAG_CASES = {
+    'periodic2d-LU': (dict(nvars=(16, 16), nu=0.1, freq=2, bc='periodic'), 'LU'),
+    'periodic2d-MIN-SR-S': (dict(nvars=(16, 16), nu=0.1, freq=2, bc='periodic'), 'MIN-SR-S'),
+    'periodic2d-MIN-SR-FLEX': (dict(nvars=(16, 16), nu=0.1, freq=2, bc='periodic'), 'MIN-SR-FLEX'),
+    'periodic1d-full-fft-LU': (dict(nvars=32, nu=0.1, freq=2, bc='periodic'), 'LU'),
+    'dirichlet1d-LU': (dict(nvars=31, nu=0.1, freq=2, bc='dirichlet-zero'), 'LU'),
+    'dirichlet2d-IE': (dict(nvars=(15, 15), nu=0.1, freq=2, bc='dirichlet-zero'), 'IE'),
+}
+
+
+@pytest.mark.parametrize('case', list(DIAG_CASES))
+def test_diagonal_sweeps_match_jax_and_the_sweep_loop(case):
+    """``diagonal_sweeps`` (4 sweeps in the operator's diagonal basis, with a
+    seeded tau) against the JAX package's ``update_nodes_k``, which dispatches
+    to its twin, and against the port's ``update_nodes_k``, which is 4
+    ``update_nodes`` calls: 1e-12 relative to the field's size."""
+    from pysdc_tpu.core.state import LevelState as JaxLevelState
+    from pysdc_tpu_torch.ops.diag_sdc import diagonal_sweeps
+
+    params, qi = DIAG_CASES[case]
+    sweep_params = dict(num_nodes=3, QI=qi, quad_type='RADAU-RIGHT')
+    jprob, tprob = JaxHeat(**params), TorchHeat(**params, device='cpu')
+    if 'full-fft' in case:
+        jprob.A.disable_rfft()
+        tprob.A.disable_rfft()
+    assert tprob.diagonalizable_operator is tprob.A
+    jsw, tsw = pysdc_tpu.GenericImplicit(sweep_params), pysdc_tpu_torch.GenericImplicit(sweep_params)
+    rng = np.random.default_rng(9)
+    u0 = rng.standard_normal(jprob.shape)
+    tau = 1e-2 * rng.standard_normal((3,) + jprob.shape)
+    dt, k0 = 0.02, 1
+    jstate = jsw.predict(jprob, np.asarray(u0), 0.0, dt)._replace(tau=np.asarray(tau))
+    jstate = JaxLevelState(*(np.asarray(x) for x in jstate))
+    tstate = state_to_torch(state_to_numpy(jstate), 'cpu')
+
+    fused = diagonal_sweeps(tprob.diagonalizable_operator, tsw, tstate, 0.0, dt, 4, k0)
+    _states_close(fused, jsw.update_nodes_k(jprob, jstate, 0.0, dt, 4, k0))
+    _states_close(fused, tsw.update_nodes_k(tprob, tstate, 0.0, dt, 4, k0))
+    assert fused.u.dtype == torch.float64 and fused.f.shape == tstate.f.shape and fused.tau is tstate.tau
+
+
+def test_update_nodes_k_loops_without_a_diagonalizable_operator():
+    """``update_nodes_k`` is the loop of ``update_nodes`` whether or not the
+    problem advertises an operator (the sparse backend and the forced problem
+    advertise none), and a float32 state stays float32 through the diagonal
+    basis."""
+    from pysdc_tpu_torch.models.heat import HeatNDForced
+    from pysdc_tpu_torch.ops.diag_sdc import diagonal_sweeps
+
+    sparse = TorchHeat(nvars=(8, 8), bc='periodic', backend='sparse', device='cpu')
+    assert sparse.diagonalizable_operator is None
+    assert HeatNDForced(nvars=8, device='cpu').diagonalizable_operator is None
+    sw = pysdc_tpu_torch.GenericImplicit(dict(num_nodes=3, QI='LU'))
+    state = sw.predict(sparse, sparse.u_exact(0.0), 0.0, 0.01)
+    looped = sw.update_nodes(sparse, sw.update_nodes(sparse, state, 0.0, 0.01), 0.0, 0.01)
+    np.testing.assert_array_equal(to_numpy(sw.update_nodes_k(sparse, state, 0.0, 0.01, 2).u), to_numpy(looped.u))
+
+    prob = TorchHeat(nvars=(16, 16), bc='periodic', dtype=torch.float32, device='cpu')
+    state = sw.predict(prob, prob.u_exact(0.0), 0.0, 0.01)
+    looped = state
+    for _ in range(3):
+        looped = sw.update_nodes(prob, looped, 0.0, 0.01)
+    np.testing.assert_array_equal(to_numpy(sw.update_nodes_k(prob, state, 0.0, 0.01, 3).u), to_numpy(looped.u))
+    fused = diagonal_sweeps(prob.diagonalizable_operator, sw, state, 0.0, 0.01, 3)
+    assert fused.u.dtype == torch.float32 and fused.f.dtype == torch.float32
+    assert (fused.u - looped.u).abs().max().item() < 1e-5
+
+
 def _states_close(tstate, jstate):
     got, want = state_to_numpy(tstate), state_to_numpy(jstate)
     for g, w in zip(got, want):
