@@ -54,6 +54,25 @@ raises and the script exits nonzero without printing the final line:
    clock), one restrict and one prolong at 512^2 -> 256^2, the block at
    2048^2 / 1024^2 with 4 steps, and 8 sweeps through ``diagonal_sweeps`` (the
    operator's diagonal basis) against ``update_nodes_k`` (8 ``update_nodes`` calls).
+15. fused — the same PFASST block through ``ShardedController(8, ...)``: the
+   block controller keeps the 8 steps in tensors with a time axis, and its
+   fused lane replays the block as captured CUDA graphs.  ``niter`` equal to
+   the stage machine's of phase 11, ``uend`` within 1e-5 of it; K1 launches
+   counted, all on the bands path, at shapes that phase 2 covered; the lane
+   entry and the stats types of the contract; then the block controller's
+   eager stage lane likewise.
+16. fused march — 4 blocks of 8 steps at 512^2 / 256^2, and ``HeatNDForced``
+   with ``IMEXSweeper`` at 512^2 (single level, 4 steps a block, 3 blocks and
+   a tail of 2 steps), each against ``ControllerNonMPI`` on the card: equal
+   ``niter`` per step, ``uend`` to 1e-5.  Times and windows are inputs of the
+   graphs: a frozen forcing time would show here.
+17. fused parity — float64, ``run_fused`` on the card against the CPU at
+   128^2 / 64^2, 4 steps: equal ``niter``, ``uend`` to 1e-11.
+18. fused times — the fused block beside the stage machine's of phase 14: ms on
+   the card and on the host clock, kernels by the profiler, host reads, idle
+   share; the eager stage lane of the block controller; the diagonal-basis
+   coarse chain against the serial one; the block at 2048^2 / 1024^2 with its
+   peak memory; the serial march of 8 one-step blocks.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -96,6 +115,13 @@ N_PFASST, NC_PFASST, P_PFASST, RESTOL_PFASST = 512, 256, 8, 1e-3
 PFASST_FP64_BOUND = 1e-5  # |uend(float32) - uend(float64)|, both converged to restol 1e-3
 PFASST_PLAIN_BOUND = 1e-5  # |uend - uend through the plain apply| in float32, equal niter
 N_IMEX, IMEX_STEPS = 2048, 2
+# the fused lane: float32 roundoff between the batched block and the step-by-step stage machine (other cuFFT
+# batch sizes, sums in another order); this script measured the values it prints on an H100 80GB HBM3 at 700 W
+FUSED_STAGE_BOUND = 1e-5  # |uend(fused lane) - uend(stage machine)|, equal niter
+MARCH_BLOCKS = 4  # blocks of P_PFASST steps in the multi-block march
+N_FORCED, P_FORCED, FORCED_STEPS, M_FORCED = 512, 4, 14, 3  # 3 full blocks and a tail of 2 steps
+RESTOL_FORCED = 5e-4  # above the float32 floor of the forced 512^2 residual (about 6e-5: dt * eps * 4 nu / dx^2)
+STATS_CONTRACT = {'dt', 'lane', 'niter', 'residual_post_iteration', 'residual_post_step', 'restart'}
 DIAG_SWEEPS_BOUND = 5e-4  # |uend(diagonal_sweeps) - uend(8 x update_nodes)| at 2048^2, the float32 floor above
 
 
@@ -271,12 +297,18 @@ def _fd_tables():
 
 
 # K1's shapes: the main path's, the PFASST path's (a field and a stack of the
-# nodes' fields on either level), the general path's (odd, narrow), and the
+# nodes' fields on either level), the fused lane's (the same with the block's
+# time axis behind the node axis: 8 steps of PFASST, 4 of the forced march, 1
+# of the serial march), the general path's (odd, narrow), and the
 # seams of the bands path: one band wide and a column group wider (float32:
 # 128 and 132 columns; float64: 64 and 66), nx that the band's rows do not
 # divide, a grid whose rows wrap more than once under order 6, a batch
 K1_SHAPES = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (N_PFASST, N_PFASST), (3, N_PFASST, N_PFASST),
-             (NC_PFASST, NC_PFASST), (2, NC_PFASST, NC_PFASST), (17, 33), (16, 16), (1, 4096),
+             (NC_PFASST, NC_PFASST), (2, NC_PFASST, NC_PFASST),
+             (P_PFASST, N_PFASST, N_PFASST), (3, P_PFASST, N_PFASST, N_PFASST),
+             (P_PFASST, NC_PFASST, NC_PFASST), (2, P_PFASST, NC_PFASST, NC_PFASST),
+             (P_FORCED, N_FORCED, N_FORCED), (M_FORCED, P_FORCED, N_FORCED, N_FORCED),
+             (1, N_PFASST, N_PFASST), (3, 1, N_PFASST, N_PFASST), (17, 33), (16, 16), (1, 4096),
              (64, 128), (64, 132), (40, 64), (40, 66), (100, 256), (4, 128), (3, 5, 64, 256)]
 
 
@@ -1001,7 +1033,7 @@ def _count_applies(ctrl, shapes):
 
 
 def phase_pfasst(card):
-    """The PFASST path at full width.  Returns the controller and the K1 launch count."""
+    """The PFASST path at full width.  Returns the controller, the K1 launch count, uend and niter."""
     import torch
 
     from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
@@ -1052,7 +1084,7 @@ def phase_pfasst(card):
           f'operator applies by level {applies} at shapes {sorted(shapes)}, all on the bands path, wall {wall:.3f} s '
           f'incl. first calls, max|uend| {uend.abs().max().item():.6f}, |uend - uend_plain_apply| {diff_plain:.3e} <= '
           f'{PFASST_PLAIN_BOUND} with equal niter, |uend - uend_float64| {diff:.3e} <= {PFASST_FP64_BOUND} [{card}]')
-    return ctrl, launches
+    return ctrl, launches, uend, niter
 
 
 def phase_pfasst_parity():
@@ -1129,20 +1161,33 @@ STAGES = {'_spread': 'spread', '_predict': 'burn-in predictor', '_check': 'check
           '_restrict_cascade': 'restrict', '_coarse_chain': 'coarse chain', '_prolong_cascade': 'prolong'}
 
 
-def _device_busy(fn):
-    """(ms the card spent in kernels and copies, their number) over one call
-    of ``fn()``, from ``torch.profiler``'s device trace; the rest of the
-    call's time on the card is idle, waiting for the host."""
+def _profiled(fn):
+    """``torch.profiler``'s device events, averaged by kernel name, over one call of ``fn()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0) for e in events)
+    return prof.key_averages()
+
+
+def _device_busy(fn, top=0):
+    """(ms the card spent in kernels and copies, their number) over one call
+    of ``fn()``, from ``torch.profiler``'s device trace; the rest of the
+    call's time on the card is idle, waiting for the host.  ``top`` prints
+    that many kernels, by device time."""
+    def device_us(e):
+        return getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0)
+
+    events = _profiled(fn)
+    busy_us = sum(device_us(e) for e in events)
     if not busy_us > 0:
         raise AssertionError('times: the profiler saw no device time')
+    if top:
+        ranked = sorted(events, key=device_us, reverse=True)[:top]
+        print('times: kernels by device time, ms (count): '
+              + '; '.join(f'{e.key[:70]} {device_us(e) / 1e3:.3f} ({e.count})' for e in ranked))
     return busy_us / 1e3, sum(e.count for e in events)
 
 
@@ -1252,6 +1297,272 @@ def phase_multilevel_times(pfasst_ctrl, heat_ctrl, card):
           f'{loop_n} kernels; max|d uend| {diff:.3e} <= {DIAG_SWEEPS_BOUND} [{card}]')
 
 
+def _block_controller(description, num_procs, coarse_mode='auto', **controller_params):
+    from pysdc_tpu_torch import ShardedController
+
+    params = {'logger_level': 30, 'predict_type': 'pfasst_burnin', **controller_params}
+    return ShardedController(num_procs, params, description, coarse_mode=coarse_mode)
+
+
+def _niter(stats):
+    from pysdc_tpu_torch import get_sorted
+
+    return [v for _, v in get_sorted(stats, type='niter', sortby='time')]
+
+
+def _k1_kernels(fn):
+    """K1 kernels the card ran over one call of ``fn()``, counted by the profiler: a graph replay launches the
+    captured kernels without passing the wrapper, so its count does not see them."""
+    return sum(e.count for e in _profiled(fn) if 'cross_stencil' in e.key)
+
+
+def phase_fused(card, uend_stage, niter_stage):
+    """The PFASST path through the block controller's fused lane, at full width.  Returns the K1 launch count
+    of the wrapper over the first run (warm-up and capture: what the graphs replay)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = _block_controller(_pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST), P_PFASST)
+    prob = ctrl.MS[0].levels[0].prob
+    u0, Tend = prob.u_exact(0.0), P_PFASST * DT
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, stats = ctrl.run(u0, 0.0, Tend)  # lane='auto': the fused lane
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, reads, applies = cross_stencil_2d.launches, dict(ctrl.host_reads), dict(applies)
+    niter = _niter(stats)
+    lane = [v for k, v in stats.items() if k.type == 'lane']
+    types = {k.type for k in stats}
+    diff = (uend - uend_stage).abs().max().item()
+    if niter != niter_stage or not diff <= FUSED_STAGE_BOUND:
+        raise AssertionError(f'fused: niter {niter} against the stage machine\'s {niter_stage}, |uend_fused - uend_stage| '
+                             f'{diff:.3e} > {FUSED_STAGE_BOUND}')
+    if lane != ['fused'] or types != STATS_CONTRACT or ctrl.coarse_mode not in ('diag', 'replicated'):
+        raise AssertionError(f'fused: lane {lane}, stats types {sorted(types)}, coarse mode {ctrl.coarse_mode}')
+    if launches < 1 or launches != sum(applies.values()) or min(applies.values()) < 1:
+        raise AssertionError(f'fused: K1 launches {launches}, operator applies by level {applies}')
+    if cross_stencil_2d.paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'fused: K1 launches by path {cross_stencil_2d.paths}, expected all on bands')
+    if uend.shape != (N_PFASST, N_PFASST) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError('fused: uend is not a finite float32 field of the fine grid shape')
+    tables = _fd_tables()
+    taps = [lvl.prob.A._cross_terms for lvl in ctrl.MS[0].levels]
+    if not shapes <= set(K1_SHAPES) or taps != [tables['pfasst fine'], tables['pfasst coarse']]:
+        raise AssertionError(f'fused: K1 ran at shapes {sorted(shapes)} or taps that the kernel check did not cover')
+    if reads['cont'] > max(1, max(niter)) or reads['fetch'] != 1:
+        raise AssertionError(f'fused: host reads {reads} for niter {niter}: more than one a PFASST iteration and one fetch')
+
+    # a second run replays the graphs: the wrapper launches nothing, the card runs the captured kernels
+    cross_stencil_2d.launches = 0
+    replayed = _k1_kernels(lambda: ctrl.run_fused(u0, 0.0, Tend))
+    if cross_stencil_2d.launches != 0 or replayed < 1:
+        raise AssertionError(f'fused: the replayed block passed the wrapper {cross_stencil_2d.launches} times and ran '
+                             f'{replayed} K1 kernels')
+    uend2, stats2 = ctrl.run_fused(u0, 0.0, Tend)
+    if _niter(stats2) != niter or not torch.equal(uend2, uend):
+        raise AssertionError('fused: a replayed block differs from the first run')
+
+    # the block controller's stage lane: the same batched functions, eager, under the stage machine
+    uend_st, stats_st = ctrl.run(u0, 0.0, Tend, lane='stage')
+    diff_st = (uend_st - uend_stage).abs().max().item()
+    if _niter(stats_st) != niter_stage or not diff_st <= FUSED_STAGE_BOUND:
+        raise AssertionError(f'fused: block controller stage lane niter {_niter(stats_st)}, |uend - uend_stage| {diff_st:.3e}')
+    if [v for k, v in stats_st.items() if k.type == 'lane'] != ['stage']:
+        raise AssertionError('fused: the stage lane did not record itself')
+    print(f'fused: ShardedController({P_PFASST}) HeatND {N_PFASST}^2/{NC_PFASST}^2 fp32, 3/2 nodes LU, restol '
+          f'{RESTOL_PFASST}, burn-in, one block, coarse chain {ctrl.coarse_mode!r}: lane {lane[0]}, niter {niter} = the '
+          f'stage machine\'s, |uend_fused - uend_stage| {diff:.3e} <= {FUSED_STAGE_BOUND}, stats types = the contract\'s '
+          f'{sorted(types)}; K1 launches through the wrapper {launches} (warm-up and capture; = operator applies by '
+          f'level {applies}) at shapes {sorted(shapes)}, all on the bands path; a replayed block passes the wrapper 0 '
+          f'times and runs {replayed} K1 kernels (profiler); host reads a block {reads}; wall {wall:.3f} s incl. '
+          f'warm-up and capture; stage lane of the block controller: niter equal, |uend - uend_stage| {diff_st:.3e} [{card}]')
+    return launches
+
+
+def _forced_description(dtype, device):
+    from pysdc_tpu_torch import IMEXSweeper
+    from pysdc_tpu_torch.models.heat import HeatNDForced
+
+    return dict(
+        problem_class=HeatNDForced,
+        problem_params=dict(nvars=(N_FORCED, N_FORCED), nu=0.1, freq=2, bc='periodic', dtype=dtype, device=device),
+        sweeper_class=IMEXSweeper,
+        sweeper_params=dict(num_nodes=M_FORCED, quad_type='RADAU-RIGHT', QI='LU'),
+        level_params=dict(dt=DT, restol=RESTOL_FORCED),
+        step_params=dict(maxiter=20),
+    )
+
+
+def phase_fused_march(card):
+    """Several blocks through the fused lane against ``ControllerNonMPI`` on the card: the step times and the
+    tail block's window are inputs of the graphs, not frozen in them."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    # PFASST, 4 blocks of 8 steps
+    desc = _pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST)
+    n_steps = MARCH_BLOCKS * P_PFASST
+    stage = _pfasst_controller(desc, P_PFASST)
+    u_stage, it_stage = _block_run(stage, n_steps)
+    block = _block_controller(desc, P_PFASST)
+    u0 = block.MS[0].levels[0].prob.u_exact(0.0)
+    u_fused, stats = block.run_fused(u0, 0.0, n_steps * DT)
+    diff = (u_fused - u_stage).abs().max().item()
+    reads = dict(block.host_reads)
+    if _niter(stats) != it_stage or len(it_stage) != n_steps or not diff <= FUSED_STAGE_BOUND:
+        raise AssertionError(f'fused march: PFASST niter {_niter(stats)} against {it_stage}, |uend - uend_stage| {diff:.3e}')
+    print(f'fused march: PFASST {N_PFASST}^2/{NC_PFASST}^2 fp32, {MARCH_BLOCKS} blocks of {P_PFASST} steps: niter '
+          f'{_niter(stats)} = ControllerNonMPI\'s per step, |uend - uend_stage| {diff:.3e} <= {FUSED_STAGE_BOUND}, host '
+          f'reads over the march {reads} [{card}]')
+
+    # forced heat equation, IMEX, single level: 3 blocks of 4 steps and a tail of 2
+    desc = _forced_description(torch.float32, 'cuda')
+    stage = ControllerNonMPI(P_FORCED, {'logger_level': 30}, desc)
+    prob = stage.MS[0].levels[0].prob
+    Tend = FORCED_STEPS * DT
+    u_stage, stats_stage = stage.run(prob.u_exact(0.0), 0.0, Tend)
+    block = _block_controller(desc, P_FORCED, predict_type=None)
+    shapes = set()
+    _count_applies(block, shapes)
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    u_fused, stats = block.run(prob.u_exact(0.0), 0.0, Tend)
+    exact = prob.u_exact(Tend)
+    err_fused, err_stage = (u_fused - exact).abs().max().item(), (u_stage - exact).abs().max().item()
+    diff = (u_fused - u_stage).abs().max().item()
+    if _niter(stats) != _niter(stats_stage) or len(_niter(stats)) != FORCED_STEPS or not diff <= FUSED_STAGE_BOUND:
+        raise AssertionError(f'fused march: forced niter {_niter(stats)} against {_niter(stats_stage)}, '
+                             f'|uend - uend_stage| {diff:.3e}')
+    if not err_fused <= err_stage + FUSED_STAGE_BOUND:
+        raise AssertionError(f'fused march: forced |uend - u_exact| {err_fused:.3e} worse than the stage machine\'s {err_stage:.3e}')
+    if not shapes <= set(K1_SHAPES) or cross_stencil_2d.paths['general'] != 0 \
+            or prob.A._cross_terms != _fd_tables()['pfasst fine']:
+        raise AssertionError(f'fused march: forced K1 shapes {sorted(shapes)}, by path {cross_stencil_2d.paths}')
+    times = sorted(round(k.time, 10) for k in stats if k.type == 'niter')
+    if times != [round(j * DT, 10) for j in range(FORCED_STEPS)]:
+        raise AssertionError(f'fused march: forced step times {times}')
+    print(f'fused march: HeatNDForced {N_FORCED}^2 fp32 IMEX M={M_FORCED} LU/EE, restol {RESTOL_FORCED}, single level, '
+          f'{FORCED_STEPS} steps = 3 blocks of {P_FORCED} and a tail of 2, lane '
+          f'{[v for k, v in stats.items() if k.type == "lane"]}: niter {_niter(stats)} = ControllerNonMPI\'s per step, '
+          f'|uend - uend_stage| {diff:.3e} <= {FUSED_STAGE_BOUND}, |uend - u_exact| {err_fused:.3e} (stage machine '
+          f'{err_stage:.3e}), host reads over the march {block.host_reads}, programs captured '
+          f'{len(block._fused_fn._programs)} [{card}]')
+
+
+def phase_fused_parity():
+    """Float64, ``run_fused`` on the card (graphs) against the CPU (eager pieces)."""
+    import torch
+
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        ctrl = _block_controller(_pfasst_description(128, 64, torch.float64, device, 1e-10), 4)
+        uend, stats = ctrl.run_fused(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 4 * DT)
+        runs[device] = (uend.cpu(), _niter(stats))
+    (u_card, it_card), (u_cpu, it_cpu) = runs['cuda'], runs['cpu']
+    diff = (u_card - u_cpu).abs().max().item()
+    if it_card != it_cpu or len(it_card) != 4 or not all(k < 50 for k in it_card) or not diff <= PARITY_UEND_TOL:
+        raise AssertionError(f'fused parity: niter card {it_card} cpu {it_cpu}, uend diff {diff:.3e}')
+    print(f'fused parity: run_fused PFASST 128^2/64^2, 4 steps, fp64 restol 1e-10: niter {it_card} on card and CPU, '
+          f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+
+def _timed_block(fn, label, card, reads=None, top=0):
+    """``fn()`` runs one block (or march): after a first call, CUDA events and the host clock around a second,
+    the profiler over a third."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    card_ms = start.elapsed_time(end)
+    busy_ms, n_kernels = _device_busy(fn, top)
+    print(f'times: {label}: {card_ms:.3f} ms on the card, {host_ms:.3f} ms on the host clock, {busy_ms:.3f} ms busy in '
+          f'{n_kernels} kernels and copies, idle {100 * (1 - busy_ms / card_ms):.0f}% (profiler, a third run)'
+          + (f', host reads {reads()}' if reads else '') + f' [{card}]')
+    return out, card_ms
+
+
+def phase_fused_times(card):
+    import torch
+
+    desc = _pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST)
+    Tend = P_PFASST * DT
+    results = {}
+    # auto, other, other, auto: the two coarse chains in turns within this call
+    ctrls = {mode: _block_controller(desc, P_PFASST, coarse_mode=mode) for mode in ('diag', 'replicated')}
+    u0 = ctrls['diag'].MS[0].levels[0].prob.u_exact(0.0)
+    for mode in ('diag', 'replicated', 'replicated', 'diag'):
+        ctrl = ctrls[mode]
+        (uend, stats), ms = _timed_block(lambda: ctrl.run_fused(u0, 0.0, Tend),
+                                         f'fused PFASST block {N_PFASST}^2/{NC_PFASST}^2 fp32, {P_PFASST} steps, coarse '
+                                         f'chain {mode!r}', card, reads=lambda: ctrl.host_reads,
+                                         top=0 if results else 12)
+        results.setdefault(mode, []).append((ms, _niter(stats), uend))
+    (_, it_d, u_d), (_, it_r, u_r) = results['diag'][0], results['replicated'][0]
+    diff = (u_d - u_r).abs().max().item()
+    if it_d != it_r or not diff <= FUSED_STAGE_BOUND:
+        raise AssertionError(f'times: diag chain niter {it_d} against replicated {it_r}, |d uend| {diff:.3e}')
+    # the block's three graphs on their own (start: spread and burn-in; check; work: one iteration)
+    prog = next(iter(ctrls['diag']._fused_fn._programs.values()))
+    prog.run('start')
+    pieces = {name: _event_ms(lambda i: prog.run(name), 5, warmup=1) for name in ('start', 'check', 'work')}
+    print(f'times: fused block by graph, coarse chain \'diag\', ms a replay: '
+          + ', '.join(f'{name} {ms:.3f}' for name, ms in pieces.items())
+          + f'; this block replays start, check, work, check [{card}]')
+    auto = _block_controller(desc, P_PFASST).coarse_mode
+    print(f'times: coarse chain of the fused block, ms on the card in turns: diag {[round(r[0], 3) for r in results["diag"]]}, '
+          f'replicated {[round(r[0], 3) for r in results["replicated"]]}; equal niter {it_d}, max|d uend| {diff:.3e}; '
+          f'coarse_mode=\'auto\' resolves to {auto!r} [{card}]')
+
+    ctrl = ctrls[auto]
+    _timed_block(lambda: ctrl.run(u0, 0.0, Tend, lane='stage'),
+                 f'block controller, eager stage lane, {N_PFASST}^2/{NC_PFASST}^2 fp32, {P_PFASST} steps', card)
+    del ctrls, results
+
+    # the block at 2048^2 / 1024^2 with 4 steps, restol -1 and one iteration a step (float32 cannot reach 1e-3 there)
+    big = _block_controller(_pfasst_description(2048, 1024, torch.float32, 'cuda', -1.0, step_params=dict(maxiter=1)), 4)
+    u0_big = big.MS[0].levels[0].prob.u_exact(0.0)
+    torch.cuda.reset_peak_memory_stats()
+    (uend, stats), _ = _timed_block(lambda: big.run_fused(u0_big, 0.0, 4 * DT),
+                                    'fused PFASST block 2048^2/1024^2 fp32, 4 steps, one iteration each', card,
+                                    reads=lambda: big.host_reads)
+    if _niter(stats) != [1] * 4 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError(f'times: fused 2048^2/1024^2 niter {_niter(stats)}')
+    print(f'times: fused PFASST 2048^2/1024^2: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB '
+          f'(static buffers, the graphs\' pool and the warm-up) [{card}]')
+    del big, u0_big
+
+    # the serial march: single level, 8 one-step blocks through build_fused_many
+    from pysdc_tpu_torch.parallel.fused import build_fused_block, build_fused_many
+
+    serial_desc = dict(desc, problem_params=dict(desc['problem_params'], nvars=(N_PFASST, N_PFASST)),
+                       sweeper_params=dict(desc['sweeper_params'], num_nodes=3))
+    serial = _block_controller(serial_desc, 1, predict_type=None)
+    many = build_fused_many(serial, build_fused_block(serial))
+    starts = DT * np.arange(P_PFASST)
+
+    def march():
+        serial.host_reads = {'cont': 0, 'fetch': 0}
+        return many(u0, DT, starts)
+
+    (uend, iters, _), _ = _timed_block(march,
+                                       f'serial march, ShardedController(1), {N_PFASST}^2 fp32, {P_PFASST} one-step blocks',
+                                       card, reads=lambda: serial.host_reads)
+    print(f'times: serial march niter {iters.reshape(-1).tolist()}, max|uend| {uend.abs().max().item():.6f} [{card}]')
+
+
 def main():
     import torch
 
@@ -1270,12 +1581,16 @@ def main():
     k3_launches = phase_bsr_path(card)
     phase_sparse_parity()
     k2, k3 = phase_sparse_times(sparse_ctrl, card)
-    pfasst_ctrl, pfasst_launches = phase_pfasst(card)
+    pfasst_ctrl, pfasst_launches, pfasst_uend, pfasst_niter = phase_pfasst(card)
     phase_pfasst_parity()
     imex_launches = phase_imex(card)
     phase_multilevel_times(pfasst_ctrl, ctrl, card)
+    fused_launches = phase_fused(card, pfasst_uend, pfasst_niter)
+    phase_fused_march(card)
+    phase_fused_parity()
+    phase_fused_times(card)
 
-    by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches}
+    by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

@@ -11,7 +11,10 @@ heat equation (``cross_stencil.cu``), the DIA SpMV of the sparse lane
 (``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).  SDC, IMEX
 SDC, MLSDC and virtual PFASST run through ``ControllerNonMPI``; the FAS
 transfers (``MeshTransfer``, ``FFTTransfer``, ``NoCoarseTransfer``) are in
-:mod:`pysdc_tpu_torch.transfer`.
+:mod:`pysdc_tpu_torch.transfer`.  ``ShardedController`` keeps a block of time
+steps in tensors with a time axis (one card, no mesh yet) and runs it on the
+stage machine or, by default where eligible, on the fused lane
+(:mod:`pysdc_tpu_torch.parallel.fused`: replayed CUDA graphs on the card).
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
 
@@ -38,6 +41,7 @@ from pysdc_tpu_torch.core.precision import configure_default_matmul_precision
 configure_default_matmul_precision()
 
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
+from pysdc_tpu_torch.parallel.sharded import ShardedController  # noqa: E402
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit  # noqa: E402
 from pysdc_tpu_torch.sweepers.imex import IMEXSweeper  # noqa: E402
 from pysdc_tpu_torch.utils.stats import filter_stats, get_list_of_types, get_sorted, sort_stats  # noqa: E402
@@ -46,6 +50,7 @@ __version__ = '0.1.0'
 
 __all__ = [
     'ControllerNonMPI',
+    'ShardedController',
     'GenericImplicit',
     'IMEXSweeper',
     'filter_stats',

@@ -23,7 +23,7 @@ class CheckConvergence(ConvergenceController):
         super().dependencies(controller, description, **kwargs)
         if self.params.use_e_tol:
             raise NotImplementedError(
-                "e_tol needs EstimateEmbeddedError, which is not ported yet (ROADMAP queue 1, item 6)"
+                "e_tol needs EstimateEmbeddedError, which is not ported yet (ROADMAP queue 1, item 6b)"
             )
 
     @staticmethod

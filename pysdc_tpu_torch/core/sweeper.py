@@ -8,6 +8,14 @@ sweeper.py:125-233).  All node data lives in one
 integrals are small dense contractions along that axis (``torch.tensordot``),
 in full precision under :mod:`pysdc_tpu_torch.core.precision`.  The coefficient tables are copied
 to the field's device once per dtype and kept.
+
+A block of P time steps is the same state with a time axis right behind the
+node axis, ``(M+1, P, *shape)``, and ``t`` a ``(P,)`` float64 tensor on the
+fields' device (the counterpart of ``jax.vmap`` over the steps, written out as
+a batch axis).  Every protocol function takes either form: the node
+contractions run over axis 0 and the problems' solves and applies over the
+trailing space axes, so the time axis rides along.  Only the residual norm has
+to be told (``time_axis=True``: one norm per step).
 """
 
 from __future__ import annotations
@@ -70,8 +78,20 @@ class Sweeper:
         """True if any preconditioner coefficients change between sweeps."""
         return any(is_k_dependent(self.params.get(name, '')) for name in ('QI', 'QE'))
 
-    def node_times(self, t, dt) -> np.ndarray:
+    def node_times(self, t, dt):
+        """Times of the M nodes: a numpy ``(M,)`` for a host ``t``; for a
+        tensor ``t`` (one step's 0-d time or a block's ``(P,)``) a tensor
+        ``(M, *t.shape)`` on its device, so that no host number is frozen
+        into a captured CUDA graph."""
+        if isinstance(t, torch.Tensor):
+            nodes = self._coeff('nodes', lambda: self.coll.nodes, t)
+            return t.unsqueeze(0) + dt * nodes.reshape((-1,) + (1,) * t.dim())
         return t + dt * self.coll.nodes
+
+    @staticmethod
+    def node_time(ts, m: int):
+        """Entry ``m`` of :meth:`node_times`: a host float, or a tensor slice."""
+        return ts[m] if isinstance(ts, torch.Tensor) else float(ts[m])
 
     def _coeff(self, key, make, like: torch.Tensor) -> torch.Tensor:
         """The coefficient table ``make()`` on ``like``'s device and dtype,
@@ -117,7 +137,8 @@ class Sweeper:
         periodic grids through the stencil kernel).  The same sweeps in a
         linear operator's diagonal basis are ``ops.diag_sdc.diagonal_sweeps``,
         which the caller picks by name: eager on an H100 it is slower than this
-        loop (PERF.md), so no sweeper dispatches to it."""
+        loop (PERF.md), so no sweeper dispatches to it (the block controller's
+        coarse chain does, under the fused lane's CUDA graphs)."""
         for k in range(k0, k0 + n_sweeps):
             state = self.update_nodes(prob, state, t, dt, k)
         return state
@@ -128,22 +149,29 @@ class Sweeper:
         ft = f_total(state.f)[1:]
         return dt * torch.tensordot(self._coeff('q', lambda: self.coll.q, ft), ft, dims=1)
 
-    def compute_residual(self, state: LevelState, dt, residual_type: str = 'full_abs', t=0.0):
+    def compute_residual(self, state: LevelState, dt, residual_type: str = 'full_abs', t=0.0,
+                         time_axis: bool = False):
         """Collocation residual and its norm (reference sweeper.py:164-222).
 
         Returns ``(residual_nodes, norm)`` with residual_nodes (M, *shape)
         and norm a 0-d tensor on the field's device (read it with ``.item()``).
+        With ``time_axis=True`` the state is a block ``(M+1, P, *shape)`` and
+        ``norm`` has one entry per step, shape ``(P,)``.
         """
         res = self.integrate(state, dt) + state.tau + state.u[0].unsqueeze(0) - state.u[1:]
-        node_norms = res.abs().reshape(res.shape[0], -1).amax(dim=1)
+        lead = 2 if time_axis else 1  # axes in front of the space axes: nodes[, steps]
+        node_norms = res.abs().flatten(lead).amax(dim=-1) if res.dim() > lead else res.abs()
+        if residual_type.endswith('_rel'):
+            u0 = state.u[0]
+            u0_norm = (u0.abs().flatten(1).amax(dim=-1) if u0.dim() > 1 else u0.abs()) if time_axis else norm_max(u0)
         if residual_type == 'full_abs':
-            norm = node_norms.amax()
+            norm = node_norms.amax(dim=0)
         elif residual_type == 'last_abs':
             norm = node_norms[-1]
         elif residual_type == 'full_rel':
-            norm = node_norms.amax() / norm_max(state.u[0])
+            norm = node_norms.amax(dim=0) / u0_norm
         elif residual_type == 'last_rel':
-            norm = node_norms[-1] / norm_max(state.u[0])
+            norm = node_norms[-1] / u0_norm
         else:
             raise ParameterError(
                 f'residual_type = {residual_type} not implemented, choose full_abs, last_abs, full_rel or last_rel'

@@ -116,11 +116,14 @@ class HeatND(Problem):
 
     def solve_system_batched(self, rhs, factor, u0, t):
         """One transform pair for all nodes; ``factor`` holds one shift per
-        node.  The sparse backend solves node by node."""
+        node (``rhs`` may carry a block's time axis behind the node axis).
+        The sparse backend solves node by node."""
         if self.backend == 'sparse':
             return super().solve_system_batched(rhs, factor, u0, t)
-        shifts = torch.as_tensor(np.asarray(factor, dtype=float), dtype=rhs.dtype, device=rhs.device)
-        return self.A.solve_shifted(rhs, shifts.reshape((-1,) + (1,) * self.ndim))
+        # made once per set of shifts and kept: a copy from the host is not allowed inside a graph capture
+        values = tuple(float(x) for x in np.asarray(factor, dtype=float))
+        shifts = self.A._const(('shifts', values), values, rhs.dtype, rhs.device)
+        return self.A.solve_shifted(rhs, shifts.reshape((-1,) + (1,) * (rhs.dim() - 1)))
 
     def _sin_product(self):
         if self.ndim == 1:
@@ -163,20 +166,34 @@ class HeatNDForced(HeatND):
         self._mode = self._sin_product()  # the spatial factor of forcing and solution, made once
 
     def _forcing_factor(self, t):
-        """nu pi^2 |k|^2 cos t - sin t, for a time or an array of times."""
+        """nu pi^2 |k|^2 cos t - sin t, for a time, an array of times or a
+        tensor of times (computed where the tensor lives, in its precision)."""
         k2 = sum(f**2 for f in self.freq)
+        if isinstance(t, torch.Tensor):
+            return self.nu * np.pi**2 * k2 * torch.cos(t) - torch.sin(t)
         return self.nu * np.pi**2 * k2 * np.cos(t) - np.sin(t)
+
+    def _forcing(self, t, u):
+        """The explicit part for the fields ``u`` whose leading axes (nodes,
+        steps) are the axes of the times ``t``.  Times on the device stay
+        there: a host number would be frozen into a captured CUDA graph."""
+        if isinstance(t, torch.Tensor):
+            factor = self._forcing_factor(t).to(u.dtype)
+        elif np.ndim(t) == 0:
+            return self._mode * float(self._forcing_factor(t))
+        else:
+            factor = torch.as_tensor(self._forcing_factor(np.asarray(t, dtype=float)), dtype=u.dtype, device=u.device)
+        return factor.reshape(tuple(factor.shape) + (1,) * self.ndim) * self._mode
 
     def eval_f(self, u, t):
         self.work_counters['rhs']()
-        return IMEX(impl=self.A.apply(u), expl=self._mode * float(self._forcing_factor(t)))
+        return IMEX(impl=self.A.apply(u), expl=self._forcing(t, u))
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K1 launch on the card);
-        the forcing takes one time per node."""
+        the forcing takes one time per node (and per step of a block)."""
         self.work_counters['rhs'](u.shape[0])
-        factor = torch.as_tensor(self._forcing_factor(np.asarray(t, dtype=float)), dtype=u.dtype, device=u.device)
-        return IMEX(impl=self.A.apply(u), expl=factor.reshape((-1,) + (1,) * self.ndim) * self._mode)
+        return IMEX(impl=self.A.apply(u), expl=self._forcing(t, u))
 
     def u_exact(self, t, u_init=None, t_init=None):
         return self._mode * math.cos(t)

@@ -17,9 +17,16 @@ path (each node solve is transform/divide/transform).
 The result is mathematically identical to looping
 ``GenericImplicit.update_nodes`` (gated in tests/test_torch_sdc.py to float64
 roundoff).  Callers pass the problem's ``diagonalizable_operator`` (``None``
-where the problem has no such basis).  No sweeper dispatches here:
-``Sweeper.update_nodes_k`` stays the loop, which eager on an H100 is the
-faster of the two (PERF.md) and the one that runs the stencil kernel.
+where the problem has no such basis).
+
+Who dispatches here: the block controller's coarse chain and burn-in
+wavefront (``parallel/sharded.py``, ``coarse_mode='diag'``, which ``'auto'``
+picks where the coarsest level is eligible) run ``_one_sweep_diag`` on the
+whole block between one transform pair; replayed from the fused lane's CUDA
+graphs that chain is the faster one on an H100 (PERF.md).  No sweeper
+dispatches here: ``Sweeper.update_nodes_k`` stays the loop, which *eager* on
+an H100 is the faster of the two and the one that runs the stencil kernel.
+``uhat`` may carry a block's time axis behind the node axis.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ def _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat):
     integral = dt * torch.tensordot(W, fhat[1:], dims=1) + uhat[0].unsqueeze(0) + tauhat
 
     if is_diagonal(QI):
-        unew = integral / (1.0 - dt * qd.reshape((-1,) + (1,) * lam.dim()) * lam)
+        unew = integral / (1.0 - dt * qd.reshape((-1,) + (1,) * (integral.dim() - 1)) * lam)
     else:
         us, fs = [], []  # the new node values and their right-hand sides lam * u, each made once
         for m in range(M):

@@ -5,7 +5,7 @@ The counterpart of ``pysdc_tpu/ops/pallas/stencil.py`` (``cross_stencil_2d``,
 ``pysdc_tpu_torch/csrc/cross_stencil.cu``; they replace the Pallas kernels
 ``_cross2d_rows_db_kernel`` and ``_cross2d_kernel`` and need no alignment
 of the grid.  The sharded halo applies of the JAX module wait for the
-sharded controller (ROADMAP queue 1, item 10).
+mesh half of the sharded controller (ROADMAP queue 1, item 10b).
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches a kernel
 or raises.  Two kernels share the work, chosen by :func:`choose_path` from

@@ -18,7 +18,7 @@ structure is used directly:
 one transform, one elementwise divide, one inverse transform.  Constant
 tensors are made once per (dtype, device) and kept.  The iterative CG/GMRES
 paths and ``SpectralOperator`` wait for a later slice (ROADMAP queue 1,
-item 9), the halo apply for the sharded controller (item 10).
+item 9), the halo apply for the mesh half of the sharded controller (item 10b).
 """
 
 from __future__ import annotations

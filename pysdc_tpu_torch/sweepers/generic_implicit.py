@@ -72,9 +72,9 @@ class GenericImplicit(Sweeper):
                 u_list[m + 1] = rhs
             elif prob.accepts_node_index:
                 # the node index selects the prepared factorization
-                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], float(ts[m]), node=m)
+                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], self.node_time(ts, m), node=m)
             else:
-                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], float(ts[m]))
-            f_list[m + 1] = prob.eval_f(u_list[m + 1], float(ts[m]))
+                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], self.node_time(ts, m))
+            f_list[m + 1] = prob.eval_f(u_list[m + 1], self.node_time(ts, m))
 
         return LevelState(u=torch.stack(u_list), f=torch.stack(f_list), tau=state.tau)

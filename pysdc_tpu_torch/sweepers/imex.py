@@ -81,10 +81,10 @@ class IMEXSweeper(Sweeper):
             alpha = dt * float(QI[m + 1, m + 1])
             if prob.accepts_node_index:
                 # the node index selects the prepared factorization
-                u_list[m + 1] = prob.solve_system(rhs, alpha, u_list[m + 1], float(ts[m]), node=m)
+                u_list[m + 1] = prob.solve_system(rhs, alpha, u_list[m + 1], self.node_time(ts, m), node=m)
             else:
-                u_list[m + 1] = prob.solve_system(rhs, alpha, u_list[m + 1], float(ts[m]))
-            fm = prob.eval_f(u_list[m + 1], float(ts[m]))
+                u_list[m + 1] = prob.solve_system(rhs, alpha, u_list[m + 1], self.node_time(ts, m))
+            fm = prob.eval_f(u_list[m + 1], self.node_time(ts, m))
             fi_list[m + 1], fe_list[m + 1] = fm.impl, fm.expl
 
         f = IMEX(impl=torch.stack(fi_list), expl=torch.stack(fe_list))

@@ -188,25 +188,26 @@ class MeshTransfer:
         self.R_sten = [None] * len(self.R_sten)
 
     @staticmethod
-    def _stencil_sum(offs, w, x):
-        """sum_j w_j x[(i + off_j) % n] along the last axis."""
+    def _stencil_sum(offs, w, x, dim):
+        """sum_j w_j x[(i + off_j) % n] along axis ``dim``."""
         acc = None
         for o, wj in zip(offs, w):
-            term = float(wj) * torch.roll(x, -int(o), dims=-1)
+            term = float(wj) * torch.roll(x, -int(o), dims=dim)
             acc = term if acc is None else acc + term
         return acc
 
     @classmethod
-    def _stencil_restrict_axis(cls, s, stencil, x):
-        """out[q] = sum_j w_j x[(q*s + off_j) % nf] along the last axis."""
+    def _stencil_restrict_axis(cls, s, stencil, x, dim):
+        """out[q] = sum_j w_j x[(q*s + off_j) % nf] along axis ``dim`` (>= 0)."""
         (offs, w), = stencil
-        return cls._stencil_sum(offs, w, x)[..., ::s]
+        keep = (slice(None),) * dim + (slice(None, None, s),)
+        return cls._stencil_sum(offs, w, x, dim)[keep]
 
     @classmethod
-    def _stencil_prolong_axis(cls, s, stencils, x):
-        """out[q*s + r] = sum_j w_rj x[(q + off_rj) % nc] along the last axis."""
-        stacked = torch.stack([cls._stencil_sum(offs, w, x) for offs, w in stencils], dim=-1)  # (..., nc, s)
-        return stacked.reshape(x.shape[:-1] + (x.shape[-1] * s,))
+    def _stencil_prolong_axis(cls, s, stencils, x, dim):
+        """out[q*s + r] = sum_j w_rj x[(q + off_rj) % nc] along axis ``dim`` (>= 0)."""
+        stacked = torch.stack([cls._stencil_sum(offs, w, x, dim) for offs, w in stencils], dim=dim + 1)
+        return stacked.reshape(x.shape[:dim] + (x.shape[dim] * s,) + x.shape[dim + 1:])
 
     def _apply_per_axis(self, kind, x):
         mats, stens = (self.R_1d, self.R_sten) if kind == 'restrict' else (self.P_1d, self.P_sten)
@@ -216,14 +217,10 @@ class MeshTransfer:
             if M.shape[0] == M.shape[1]:
                 continue  # equal sizes along this axis: the identity
             if sten is not None:
+                # along the axis where it lies: moving it to the end first would make every roll a transposing copy
                 s, stencil = sten
-                moved = torch.movedim(x, ax, -1)
-                out = (
-                    self._stencil_restrict_axis(s, stencil, moved)
-                    if kind == 'restrict'
-                    else self._stencil_prolong_axis(s, stencil, moved)
-                )
-                x = torch.movedim(out, -1, ax)
+                axis_op = self._stencil_restrict_axis if kind == 'restrict' else self._stencil_prolong_axis
+                x = axis_op(s, stencil, x, ax)
             else:
                 Mt = cached_tensor(self._consts, (kind, axis), lambda: M, x)
                 x = torch.movedim(torch.tensordot(Mt, x, dims=([1], [ax])), 0, ax)

@@ -31,6 +31,8 @@ _NO_JAX = (
     'import pysdc_tpu_torch.transfer, pysdc_tpu_torch.transfer.base_transfer, pysdc_tpu_torch.transfer.space_mesh, '
     'pysdc_tpu_torch.transfer.space_fft, pysdc_tpu_torch.transfer.no_coarse, pysdc_tpu_torch.sweepers.imex, '
     'pysdc_tpu_torch.ops.diag_sdc',
+    'import pysdc_tpu_torch.parallel.sharded, pysdc_tpu_torch.parallel.fused; '
+    'from pysdc_tpu_torch import ShardedController',
     'import chip_smoke',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
@@ -60,6 +62,21 @@ def test_unported_parts_raise_naming_the_roadmap():
     u = sparse.u_exact(0.0)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         sparse.A.solve_shifted_gmres(u, 0.1, u)
+
+    # the block controller: a mesh, the owner-computes chain and the adaptive fused lane
+    from pysdc_tpu_torch import GenericImplicit, ShardedController
+    from pysdc_tpu_torch.core.errors import ControllerError
+    from pysdc_tpu_torch.parallel import fused
+
+    desc = dict(problem_class=HeatND, problem_params=dict(nvars=8, device='cpu'), sweeper_class=GenericImplicit,
+                sweeper_params=dict(num_nodes=2), level_params=dict(dt=0.1))
+    for kwargs in (dict(mesh='a mesh'), dict(coarse_mode='owner')):
+        with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
+            ShardedController(2, {'logger_level': 40}, desc, **kwargs)
+    ctrl = ShardedController(2, {'logger_level': 40}, desc)
+    for entry in (fused.check_fused_adaptive_eligibility, fused.run_fused_adaptive):
+        with pytest.raises(ControllerError, match='ROADMAP queue 1, item 6b'):
+            entry(ctrl)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone():
