@@ -61,7 +61,8 @@ raises and the script exits nonzero without printing the final line:
    counted, all on the bands path, at shapes that phase 2 covered; the lane
    entry and the stats types of the contract; then the block controller's
    eager stage lane likewise.
-16. fused march — 4 blocks of 8 steps at 512^2 / 256^2, and ``HeatNDForced``
+16. fused march — 4 blocks of 8 steps at 512^2 / 256^2 (relative residuals,
+   so that the decaying solution iterates in every block), and ``HeatNDForced``
    with ``IMEXSweeper`` at 512^2 (single level, 4 steps a block, 3 blocks and
    a tail of 2 steps), each against ``ControllerNonMPI`` on the card: equal
    ``niter`` per step, ``uend`` to 1e-5.  Times and windows are inputs of the
@@ -73,6 +74,37 @@ raises and the script exits nonzero without printing the final line:
    share; the eager stage lane of the block controller; the diagonal-basis
    coarse chain against the serial one; the block at 2048^2 / 1024^2 with its
    peak memory; the serial march of 8 one-step blocks.
+
+19. adaptive kernels — K1 against its plain version at the shapes and taps
+   of the adaptive paths (the blocks of 4 steps at 256^2 / 128^2 and 1024^2 /
+   512^2, the Allen-Cahn node stacks), float32 and float64, both paths.
+20. adaptive — the adaptive production stack of bench.py:621-673 (HeatND 256^2
+   / 128^2 periodic, float32, 3 / 2 nodes, ``restol=-1``, ``maxiter=4``,
+   ``Adaptivity(e_tol=1e-5, dt_max=0.05, dt_min=1e-4)``, burn-in, 4 steps a
+   block) through ``ShardedController.run``: ``lane='auto'`` must take the
+   adaptive fused lane, which is held against ``lane='stage'``: equal
+   ``niter`` and ``restart`` per step, equal step count, accepted ``dt``
+   (to 1e-4 with the serial coarse chain on both lanes, where the two lanes
+   do the same arithmetic; with the production ``'diag'`` chain to the float32
+   floor of the estimate, stated), ``uend`` to 1e-5; ONE program of three
+   graphs over a march of at least three distinct ``dt``; no ``cont`` read,
+   one fetch a block; K1 through the wrapper only in warm-up and capture, all
+   on bands, at no shape the kernel check did not cover; the stats types of
+   the fused-adaptive column of the README's contract.  Then the same at
+   1024^2 / 512^2 over at least 4 blocks.
+21. adaptive allen-cahn — ``AllenCahnPeriodicSemiImplicitND`` 1024^2 / 512^2
+   float32 (eps 0.04), ``IMEXSweeper`` M=3 LU / EE, ``Adaptivity`` with a
+   ``StepSizeLimiter``, 4 steps a block, the same gates; and the 20 sweeps of
+   bench.py:209-244 at 1024^2, M=4, dt=1e-4 (K1 launches = applies, against
+   the plain apply).
+22. adaptive parity — float64, the card against the CPU on the adaptive
+   lane: VanDerPol with 1 and 4 steps a block, both estimator flavours, and
+   Allen-Cahn 32^2 / 16^2: equal ``niter`` and ``restart``, ``dt`` and
+   ``uend`` to 1e-10 (Allen-Cahn's ``dt`` to 1e-7: its estimates sit close
+   above float64 roundoff), the Newton flag clear.
+23. adaptive times — each march by lane: ms on the card and on the host
+   clock, kernels and busy time by the profiler, idle share, host reads, ms a
+   graph.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -122,6 +154,26 @@ MARCH_BLOCKS = 4  # blocks of P_PFASST steps in the multi-block march
 N_FORCED, P_FORCED, FORCED_STEPS, M_FORCED = 512, 4, 14, 3  # 3 full blocks and a tail of 2 steps
 RESTOL_FORCED = 5e-4  # above the float32 floor of the forced 512^2 residual (about 6e-5: dt * eps * 4 nu / dx^2)
 STATS_CONTRACT = {'dt', 'lane', 'niter', 'residual_post_iteration', 'residual_post_step', 'restart'}
+# the adaptive lane: bench.py's bench_adaptive_lane configuration (bench.py:621-673), and the same at 1024^2 / 512^2
+N_AD, NC_AD, N_AD_BIG, NC_AD_BIG, P_AD, MAXITER_AD = 256, 128, 1024, 512, 4, 4
+TEND_AD, TEND_AD_BIG = 16 * DT, 40 * DT  # 3 blocks at 256^2; at least 4 blocks at 1024^2 (dt grows to dt_max)
+ADAPTIVE_PARAMS = dict(e_tol=1e-5, dt_max=0.05, dt_min=1e-4)
+ADAPTIVE_DT_RTOL = 1e-4  # accepted dt, adaptive fused lane against the stage lane, the same arithmetic on both
+# with the 'diag' coarse chain the fused lane's burn-in runs in the operator's diagonal basis and the stage lane's in
+# real space: the two round differently, and the estimate |u^4 - u^3| of about 6e-7 at max|u| 0.28 sits 1.5 decades
+# above float32 roundoff.  This script measured dt gaps of 1.7e-2 (256^2) and 5.8e-2 (1024^2) on an H100 80GB HBM3
+ADAPTIVE_DIAG_DT_RTOL = 0.25
+ADAPTIVE_CONTRACT = STATS_CONTRACT | {'timing_run', 'timing_step', 'timing_iteration', 'error_embedded_estimate',
+                                      'error_embedded_estimate_post_step'}
+# Allen-Cahn, the problem of bench.py:209-244, adaptive over two levels
+N_AC, NC_AC, M_AC, DT_AC, TEND_AC = 1024, 512, 3, 2e-4, 6.4e-3
+AC_PARAMS = dict(e_tol=1e-5, dt_max=2e-3, dt_min=1e-7)
+AC_SWEEPS, AC_SWEEP_M, AC_SWEEP_DT = 20, 4, 1e-4
+AC_PLAIN_BOUND = 1e-4  # |u after 20 sweeps - the same through the plain apply|, float32, |u| <= 1
+ADAPTIVE_PARITY_TOL = 1e-10  # fp64, card against CPU: dt (relative) and uend
+# Allen-Cahn's estimates |u^4 - u^3| of 1e-9 to 1e-7 at |u| = 1 carry the 1e-16 by which cuFFT and the CPU's FFT round
+# differently: relative 1e-7 at worst, a fourth of it in dt.  This script measured a dt gap of 3.3e-9 (uend 6.6e-11)
+ADAPTIVE_PARITY_DT_TOL_AC = 1e-7
 DIAG_SWEEPS_BOUND = 5e-4  # |uend(diagonal_sweeps) - uend(8 x update_nodes)| at 2048^2, the float32 floor above
 
 
@@ -312,6 +364,34 @@ K1_SHAPES = [(N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN), (N_PFASST, N_PFASST), (
              (64, 128), (64, 132), (40, 64), (40, 66), (100, 256), (4, 128), (3, 5, 64, 256)]
 
 
+def _k1_both_paths(name, terms, u, expected, tol):
+    """K1 on ``u`` against its plain version, on the path the wrapper picks (which must be ``expected``) and with
+    the general path forced.  Returns the picked path's largest absolute error and the larger relative error of
+    the two (relative to sum|c| * max|u|, held to ``tol``)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, cross_stencil_2d
+
+    want = _roll_cross_2d(u, terms)
+    scale = sum(abs(c) for coeff, _ in terms for c in coeff) * u.abs().max().item()
+    picked_err, worst = None, 0.0
+    for forced in (None, 'general'):
+        before = dict(cross_stencil_2d.paths)
+        got = cross_stencil_2d(u, terms, path=forced)
+        torch.cuda.synchronize()
+        ran = [k for k, v in cross_stencil_2d.paths.items() if v != before[k]]
+        if ran != [forced or expected]:
+            raise AssertionError(f'K1 {name} {u.dtype} {tuple(u.shape)}: path {ran}, expected {forced or expected}')
+        err = (got - want).abs().max().item()
+        rel = err / scale
+        if not (got.shape == u.shape and math.isfinite(err) and rel <= tol):
+            raise AssertionError(f'K1 {name} {u.dtype} {tuple(u.shape)} path {ran[0]}: max abs err {err:.3e}, '
+                                 f'rel {rel:.3e} > {tol:.3e}')
+        picked_err = err if forced is None else picked_err
+        worst = max(worst, rel)
+    return picked_err, worst
+
+
 def phase_kernels():
     """K1 against its plain version on the card, on the path the wrapper
     picks and with the general path forced.  Returns the largest absolute
@@ -319,7 +399,7 @@ def phase_kernels():
     path's shapes and taps, float32, by level."""
     import torch
 
-    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, choose_path, cross_stencil_2d
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path
 
     tables = _fd_tables()
     gen = torch.Generator(device='cuda').manual_seed(1234)
@@ -329,31 +409,18 @@ def phase_kernels():
         itemsize = torch.empty((), dtype=dtype).element_size()
         for name, terms in tables.items():
             tol = _stencil_tolerance(terms, dtype)
-            scale_c = sum(abs(c) for coeff, _ in terms for c in coeff)
             worst = 0.0
             taken = {'bands': [], 'general': []}
             for shape in K1_SHAPES:
                 u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
-                want = _roll_cross_2d(u, terms)
                 expected = choose_path(shape, terms, itemsize)
                 taken[expected].append(shape)
-                for forced in (None, 'general'):
-                    before = dict(cross_stencil_2d.paths)
-                    got = cross_stencil_2d(u, terms, path=forced)
-                    torch.cuda.synchronize()
-                    ran = [k for k, v in cross_stencil_2d.paths.items() if v != before[k]]
-                    if ran != [forced or expected]:
-                        raise AssertionError(f'K1 {name} {dtype} {shape}: path {ran}, expected {forced or expected}')
-                    err = (got - want).abs().max().item()
-                    rel = err / (scale_c * u.abs().max().item())
-                    if not (got.shape == u.shape and math.isfinite(err) and rel <= tol):
-                        raise AssertionError(f'K1 {name} {dtype} {shape} path {ran[0]}: max abs err {err:.3e}, '
-                                             f'rel {rel:.3e} > {tol:.3e}')
-                    worst = max(worst, rel)
-                    if name == 'main' and dtype == torch.float32 and shape == (N_MAIN, N_MAIN) and forced is None:
-                        main_err = err
-                    if dtype == torch.float32 and forced is None and shape[-2:] == (pfasst_n.get(name),) * 2:
-                        pfasst_err[name] = max(pfasst_err[name], err)
+                err, rel = _k1_both_paths(name, terms, u, expected, tol)
+                worst = max(worst, rel)
+                if name == 'main' and dtype == torch.float32 and shape == (N_MAIN, N_MAIN):
+                    main_err = err
+                if dtype == torch.float32 and shape[-2:] == (pfasst_n.get(name),) * 2:
+                    pfasst_err[name] = max(pfasst_err[name], err)
             print(f'kernels: K1 {name:10s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e}, both on the '
                   f'path picked and with the general path forced; bands: {taken["bands"]}; general: {taken["general"]}')
     if choose_path((N_MAIN, N_MAIN), tables['main'], 4) != 'bands':
@@ -1406,8 +1473,11 @@ def phase_fused_march(card):
     from pysdc_tpu_torch import ControllerNonMPI
     from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 
-    # PFASST, 4 blocks of 8 steps
+    # PFASST, 4 blocks of 8 steps.  The solution decays by a factor of 12 a block, so against an absolute restol
+    # only the first block would iterate: the residual is taken relative to each step's |u0| (its float32 floor is
+    # about 1.5e-4 then), and every block meets the same iteration
     desc = _pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST)
+    desc['level_params'] = dict(desc['level_params'], residual_type='full_rel')
     n_steps = MARCH_BLOCKS * P_PFASST
     stage = _pfasst_controller(desc, P_PFASST)
     u_stage, it_stage = _block_run(stage, n_steps)
@@ -1418,7 +1488,12 @@ def phase_fused_march(card):
     reads = dict(block.host_reads)
     if _niter(stats) != it_stage or len(it_stage) != n_steps or not diff <= FUSED_STAGE_BOUND:
         raise AssertionError(f'fused march: PFASST niter {_niter(stats)} against {it_stage}, |uend - uend_stage| {diff:.3e}')
-    print(f'fused march: PFASST {N_PFASST}^2/{NC_PFASST}^2 fp32, {MARCH_BLOCKS} blocks of {P_PFASST} steps: niter '
+    by_block = [it_stage[b * P_PFASST:(b + 1) * P_PFASST] for b in range(MARCH_BLOCKS)]
+    if not all(min(block[1:]) >= 1 and max(block) < 50 for block in by_block):
+        raise AssertionError(f'fused march: a block holds nothing: niter by block {by_block}, expected at least one '
+                             f'iteration in every step but the first of each block')
+    print(f'fused march: PFASST {N_PFASST}^2/{NC_PFASST}^2 fp32, relative residuals, {MARCH_BLOCKS} blocks of {P_PFASST} steps '
+          f'(every block iterates in every step but its first): niter '
           f'{_niter(stats)} = ControllerNonMPI\'s per step, |uend - uend_stage| {diff:.3e} <= {FUSED_STAGE_BOUND}, host '
           f'reads over the march {reads} [{card}]')
 
@@ -1563,6 +1638,337 @@ def phase_fused_times(card):
     print(f'times: serial march niter {iters.reshape(-1).tolist()}, max|uend| {uend.abs().max().item():.6f} [{card}]')
 
 
+def _entries(stats, kind):
+    """The values of the ``kind`` entries in the order the run made them: by time, a rejected step before its repeat."""
+    keys = sorted((k for k in stats if k.type == kind), key=lambda k: (k.time, k.num_restarts))
+    return [stats[k] for k in keys]
+
+
+def _adaptive_description(nf, nc, dtype, device):
+    """bench.py:621-673 at ``nf``^2 / ``nc``^2: the PFASST description with maxiter-only termination and Adaptivity."""
+    from pysdc_tpu_torch.convergence import Adaptivity
+
+    return _pfasst_description(nf, nc, dtype, device, -1.0, step_params=dict(maxiter=MAXITER_AD),
+                               convergence_controllers={Adaptivity: dict(ADAPTIVE_PARAMS)})
+
+
+def _allen_cahn_description(nf, nc, dtype, device, dt=DT_AC, eps=0.04, **adaptivity):
+    from pysdc_tpu_torch import IMEXSweeper
+    from pysdc_tpu_torch.convergence import Adaptivity
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicSemiImplicitND
+
+    return dict(
+        problem_class=AllenCahnPeriodicSemiImplicitND,
+        problem_params=dict(nvars=[(nf, nf), (nc, nc)], eps=eps, radius=0.25, dtype=dtype, device=device),
+        sweeper_class=IMEXSweeper,
+        sweeper_params=dict(quad_type='RADAU-RIGHT', num_nodes=[M_AC], QI='LU', QE='EE'),
+        level_params=dict(restol=-1.0, dt=dt),
+        step_params=dict(maxiter=MAXITER_AD),
+        space_transfer_params=dict(rorder=2, iorder=6, periodic=True),
+        convergence_controllers={Adaptivity: dict(adaptivity or AC_PARAMS)},  # dt_min / dt_max: a StepSizeLimiter
+    )
+
+
+def _block_shapes(n, nc, m_fine, m_coarse, serial_chain):
+    """K1's shapes on a two-level block of P_AD steps: a block of fields and the node stacks of blocks on either
+    level; the serial coarse chain also applies to one coarse field at a time."""
+    shapes = {(P_AD, n, n), (m_fine, P_AD, n, n), (P_AD, nc, nc), (m_coarse, P_AD, nc, nc)}
+    return shapes | ({(nc, nc)} if serial_chain else set())
+
+
+def _adaptive_k1_cases():
+    """(name, taps, shapes): what the adaptive paths give K1."""
+    import torch
+
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicSemiImplicitND
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    def heat(n):
+        return HeatND(nvars=(n, n), nu=0.1, freq=4, bc='periodic', dtype=torch.float32, device='cuda').A._cross_terms
+
+    def allen_cahn(n):
+        return AllenCahnPeriodicSemiImplicitND(nvars=(n, n), eps=0.04, dtype=torch.float32, device='cuda').A._cross_terms
+
+    cases = []
+    for n, nc in ((N_AD, NC_AD), (N_AD_BIG, NC_AD_BIG)):
+        shapes = _block_shapes(n, nc, 3, 2, serial_chain=True)
+        cases.append((f'adaptive heat {n}', heat(n), sorted(sh for sh in shapes if sh[-1] == n)))
+        cases.append((f'adaptive heat {nc}', heat(nc), sorted(sh for sh in shapes if sh[-1] == nc)))
+    shapes = _block_shapes(N_AC, NC_AC, M_AC, M_AC, serial_chain=True)
+    cases.append((f'allen-cahn {N_AC}', allen_cahn(N_AC),
+                  sorted({sh for sh in shapes if sh[-1] == N_AC} | {(N_AC, N_AC), (AC_SWEEP_M, N_AC, N_AC)})))
+    cases.append((f'allen-cahn {NC_AC}', allen_cahn(NC_AC), sorted(sh for sh in shapes if sh[-1] == NC_AC)))
+    return cases
+
+
+def phase_adaptive_kernels():
+    """K1 against its plain version at the adaptive paths' shapes and taps, on the path the wrapper picks (bands at
+    every one of them) and with the general path forced.  Returns name -> (taps, shapes covered)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path
+
+    gen = torch.Generator(device='cuda').manual_seed(4321)
+    covered = {}
+    for name, terms, shapes in _adaptive_k1_cases():
+        covered.setdefault(name, (terms, set()))[1].update(shapes)
+        for dtype in (torch.float32, torch.float64):
+            tol = _stencil_tolerance(terms, dtype)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            worst, worst_abs = 0.0, 0.0
+            for shape in shapes:
+                if choose_path(shape, terms, itemsize) != 'bands':
+                    raise AssertionError(f'K1 {name} {dtype} {shape}: the wrapper does not pick the bands path')
+                u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+                err, rel = _k1_both_paths(name, terms, u, 'bands', tol)
+                worst, worst_abs = max(worst, rel), max(worst_abs, err)
+                del u
+            print(f'adaptive kernels: K1 {name:18s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e} (max abs '
+                  f'{worst_abs:.3e} on bands), on bands and with the general path forced, at {shapes}')
+    return covered
+
+
+def _adaptive_against_stage(label, desc, Tend, card, covered, expected_shapes, dt_rtol, coarse_mode='auto',
+                            min_blocks=3, replay=True):
+    """One adaptive march through ``run()`` (``lane='auto'``) against the block controller's stage lane, with every
+    gate of the adaptive lane.  Returns (controller, stage controller, K1 launches of the wrapper, what was printed)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = _block_controller(desc, P_AD, coarse_mode=coarse_mode)
+    stage = _block_controller(desc, P_AD, coarse_mode=coarse_mode)
+    prob = ctrl.MS[0].levels[0].prob
+    u0 = prob.u_exact(0.0)
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, stats = ctrl.run(u0, 0.0, Tend)  # lane='auto': the adaptive fused lane
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, reads, applies = cross_stencil_2d.launches, dict(ctrl.host_reads), dict(applies)
+    by_path = dict(cross_stencil_2d.paths)
+    uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+
+    lane = [v for k, v in stats.items() if k.type == 'lane']
+    types = {k.type for k in stats}
+    niter, restart, dts = (_entries(stats, kind) for kind in ('niter', 'restart', 'dt'))
+    niter_s, restart_s, dts_s = (_entries(stats_s, kind) for kind in ('niter', 'restart', 'dt'))
+    blocks = sum(1 for k in stats if k.type == 'niter' and k.process == 0)
+    if lane != ['fused_adaptive'] or [v for k, v in stats_s.items() if k.type == 'lane'] != ['stage']:
+        raise AssertionError(f'{label}: lane {lane}: run() did not take the adaptive fused lane')
+    if types != ADAPTIVE_CONTRACT:
+        raise AssertionError(f'{label}: stats types {sorted(types)} are not the contract\'s {sorted(ADAPTIVE_CONTRACT)}')
+    if niter != niter_s or restart != restart_s or len(dts) != len(dts_s) or set(niter) != {MAXITER_AD}:
+        raise AssertionError(f'{label}: niter {niter} / restart {restart} against the stage lane\'s {niter_s} / {restart_s}')
+    dt_gap = max(abs(a - b) / b for a, b in zip(dts, dts_s))
+    diff = (uend - uend_s).abs().max().item()
+    if not dt_gap <= dt_rtol or not diff <= FUSED_STAGE_BOUND:
+        first = next(i for i, (a, b) in enumerate(zip(dts, dts_s)) if abs(a - b) / b > dt_rtol) if dt_gap > dt_rtol else None
+        raise AssertionError(f'{label}: accepted dt differ by {dt_gap:.3e} > {dt_rtol} (first at step {first}): {dts} against '
+                             f'{dts_s}; |uend_fused - uend_stage| {diff:.3e}')
+    distinct = sorted({float(f'{dt:.6g}') for dt in dts})
+    programs = ctrl._fused_adaptive_fn._programs
+    graphs = sum(len(prog.graphs) for prog in programs.values())
+    if len(programs) != 1 or graphs != 3 or len(distinct) < 3 or blocks < min_blocks:
+        raise AssertionError(f'{label}: {len(programs)} programs with {graphs} graphs over {blocks} blocks with dt in {distinct}')
+    if reads != {'cont': 0, 'fetch': blocks, 'estimate': len(niter)}:
+        raise AssertionError(f'{label}: host reads {reads} over {blocks} blocks of {len(niter)} steps')
+    if launches < 1 or launches != sum(applies.values()) or by_path != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches {launches} by path {by_path}, operator applies by level {applies}')
+    taps = [lvl.prob.A._cross_terms for lvl in ctrl.MS[0].levels]
+    names = [name for name, (terms, _) in covered.items() if terms in taps]
+    checked = set().union(*(covered[name][1] for name in names)) if names else set()
+    if shapes != expected_shapes or not shapes <= checked or len(names) < len(taps):
+        raise AssertionError(f'{label}: K1 ran at shapes {sorted(shapes)}, expected {sorted(expected_shapes)}, the kernel '
+                             f'check covered {sorted(checked)} under {names}')
+    if uend.shape != prob.shape or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError(f'{label}: uend is not a finite float32 field of the fine grid shape')
+
+    replayed = None
+    if replay:  # a second march replays the graphs: the wrapper launches nothing
+        cross_stencil_2d.launches = 0
+        replayed = _k1_kernels(lambda: ctrl.run(u0, 0.0, Tend))
+        uend2, stats2 = ctrl.run(u0, 0.0, Tend)
+        if cross_stencil_2d.launches != 0 or replayed < 1 or not torch.equal(uend2, uend) or _entries(stats2, 'dt') != dts:
+            raise AssertionError(f'{label}: a replayed march passed the wrapper {cross_stencil_2d.launches} times, ran '
+                                 f'{replayed} K1 kernels, or differs from the first')
+        if len(programs) != 1:
+            raise AssertionError(f'{label}: a second march captured again')
+    print(f'{label}, coarse chain {ctrl.coarse_mode!r}: lane {lane[0]}, {len(niter)} steps in {blocks} blocks, niter all '
+          f'{MAXITER_AD}, restart {restart} = the stage lane\'s, accepted dt {[float(f"{dt:.5g}") for dt in dts]} within '
+          f'{dt_gap:.3e} <= {dt_rtol} of the stage lane\'s, |uend_fused - uend_stage| {diff:.3e} <= {FUSED_STAGE_BOUND} at '
+          f'max|uend| {uend.abs().max().item():.3e}; 1 program = 3 graphs over {len(distinct)} distinct dt; host reads '
+          f'{reads} (no cont, one fetch a block); K1 through the wrapper {launches} (warm-up and capture; = applies by '
+          f'level {applies}) at {sorted(shapes)}, all on bands'
+          + (f'; a replayed march passes the wrapper 0 times and runs {replayed} K1 kernels (profiler)' if replay else '')
+          + f'; stats types = the contract\'s; wall {wall:.3f} s incl. capture [{card}]')
+    return ctrl, stage, launches
+
+
+def phase_adaptive(card, covered):
+    """The adaptive production stack on the heat equation at 256^2 / 128^2 and at 1024^2 / 512^2.  Returns the
+    controllers by size for the times and the K1 launch counts."""
+    import torch
+
+    out, launches = {}, {}
+    for n, nc, Tend, min_blocks in ((N_AD, NC_AD, TEND_AD, 3), (N_AD_BIG, NC_AD_BIG, TEND_AD_BIG, 4)):
+        desc = _adaptive_description(n, nc, torch.float32, 'cuda')
+        label = f'adaptive: HeatND {n}^2/{nc}^2 fp32, 3/2 nodes LU, maxiter {MAXITER_AD}, Adaptivity {ADAPTIVE_PARAMS}, ' \
+                f'burn-in, P={P_AD}, Tend {Tend:g}'
+        # the serial coarse chain on both lanes: the same arithmetic, so the accepted dt must agree
+        _adaptive_against_stage(label, desc, Tend, card, covered, _block_shapes(n, nc, 3, 2, True), ADAPTIVE_DT_RTOL,
+                                coarse_mode='replicated', min_blocks=min_blocks, replay=False)
+        # the production configuration: coarse_mode='auto' resolves to the diagonal basis
+        ctrl, stage, k1 = _adaptive_against_stage(label, desc, Tend, card, covered, _block_shapes(n, nc, 3, 2, False),
+                                                  ADAPTIVE_DIAG_DT_RTOL, min_blocks=min_blocks)
+        if ctrl.coarse_mode != 'diag':
+            raise AssertionError(f'adaptive: coarse_mode \'auto\' resolved to {ctrl.coarse_mode!r}')
+        out[n], launches[n] = (ctrl, stage, Tend), k1
+    return out, launches
+
+
+def phase_adaptive_allen_cahn(card, covered):
+    """Allen-Cahn: the adaptive two-level block march, and the 20 sweeps of bench.py:209-244.  Returns the march's
+    controllers and the two K1 launch counts."""
+    import torch
+
+    from pysdc_tpu_torch import IMEXSweeper
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicSemiImplicitND
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    desc = _allen_cahn_description(N_AC, NC_AC, torch.float32, 'cuda')
+    label = f'adaptive allen-cahn: AllenCahnPeriodicSemiImplicitND {N_AC}^2/{NC_AC}^2 fp32 eps 0.04, IMEX M={M_AC} LU/EE, ' \
+            f'maxiter {MAXITER_AD}, Adaptivity {AC_PARAMS} (StepSizeLimiter), burn-in, P={P_AD}, dt0 {DT_AC:g}, Tend {TEND_AC:g}'
+    ctrl, stage, march_launches = _adaptive_against_stage(
+        label, desc, TEND_AC, card, covered, _block_shapes(N_AC, NC_AC, M_AC, M_AC, True), ADAPTIVE_DT_RTOL, min_blocks=4)
+    if 'StepSizeLimiter' not in [type(C).__name__ for C in ctrl.convergence_controllers]:
+        raise AssertionError('adaptive allen-cahn: no StepSizeLimiter in the stack')
+
+    # the twin of bench_tpu_allen_cahn: 20 sweeps (update_nodes + residual) from the spread initial guess
+    prob = AllenCahnPeriodicSemiImplicitND(nvars=(N_AC, N_AC), eps=0.04, radius=0.25, dtype=torch.float32, device='cuda')
+    sweep = IMEXSweeper({'num_nodes': AC_SWEEP_M, 'quad_type': 'RADAU-RIGHT', 'QI': 'LU', 'QE': 'EE'})
+    counts, shapes = {'applies': 0}, set()
+    apply = prob.A.apply
+
+    def counted(u):
+        counts['applies'] += 1
+        shapes.add(tuple(u.shape))
+        return apply(u)
+
+    def chain(i=0):
+        state = sweep.predict(prob, prob.u_exact(0.0), 0.0, AC_SWEEP_DT)
+        for _ in range(AC_SWEEPS):
+            state = sweep.update_nodes(prob, state, 0.0, AC_SWEEP_DT, 0)
+            _, res = sweep.compute_residual(state, AC_SWEEP_DT)
+        return state, res
+
+    prob.A.apply = counted
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    state, res = chain()
+    torch.cuda.synchronize()
+    sweep_launches = cross_stencil_2d.launches
+    del prob.A.apply
+    expected = 2 + AC_SWEEP_M * AC_SWEEPS  # f(u0) and the batched f over the spread nodes, then M a sweep
+    name = f'allen-cahn {N_AC}'
+    if sweep_launches != counts['applies'] or sweep_launches != expected \
+            or cross_stencil_2d.paths != {'bands': sweep_launches, 'general': 0}:
+        raise AssertionError(f'adaptive allen-cahn: sweeps: K1 launches {sweep_launches}, applies {counts["applies"]}, '
+                             f'expected {expected}, by path {cross_stencil_2d.paths}')
+    if prob.A._cross_terms != covered[name][0] or not shapes <= covered[name][1]:
+        raise AssertionError(f'adaptive allen-cahn: sweeps: K1 ran at {sorted(shapes)} or taps the kernel check did not cover')
+    prob.A.disable_pallas()
+    state_plain, res_plain = chain()
+    prob.A.enable_pallas()
+    diff = (state.u - state_plain.u).abs().max().item()
+    if cross_stencil_2d.launches != sweep_launches or not diff <= AC_PLAIN_BOUND or not math.isfinite(float(res)):
+        raise AssertionError(f'adaptive allen-cahn: sweeps against the plain apply: {diff:.3e} > {AC_PLAIN_BOUND}, residual '
+                             f'{float(res):.3e}')
+    ms, host_ms = _event_ms(chain, 3, warmup=1, host=True)
+    prob.A.disable_pallas()
+    plain_ms = _event_ms(chain, 3, warmup=1)
+    prob.A.enable_pallas()
+    nnz_per_sweep = AC_SWEEP_M * 5 * N_AC * N_AC
+    print(f'adaptive allen-cahn: {AC_SWEEPS} sweeps at {N_AC}^2 fp32, IMEX M={AC_SWEEP_M} LU/EE, dt {AC_SWEEP_DT:g} '
+          f'(bench.py:209-244): K1 launches {sweep_launches} = applies = 2 + {AC_SWEEP_M} a sweep, all on bands, at '
+          f'{sorted(shapes)}; residual {float(res):.3e} (plain apply {float(res_plain):.3e}), |u - u_plain_apply| {diff:.3e} <= '
+          f'{AC_PLAIN_BOUND}; {ms / AC_SWEEPS:.4f} ms a sweep on the card, {host_ms / AC_SWEEPS:.4f} ms to enqueue on the '
+          f'host, {nnz_per_sweep * AC_SWEEPS / ms / 1e6:.3f} Gnnz/s; through the plain apply {plain_ms / AC_SWEEPS:.4f} ms a '
+          f'sweep (predict included in each) [{card}]')
+    return (ctrl, stage, TEND_AC), march_launches, sweep_launches
+
+
+def phase_adaptive_parity():
+    """Float64, the adaptive lane on the card (graphs, fixed-depth Newton) against the CPU (eager pieces)."""
+    import torch
+
+    from pysdc_tpu_torch import GenericImplicit, ShardedController
+    from pysdc_tpu_torch.convergence import Adaptivity
+    from pysdc_tpu_torch.models.odes import VanDerPol
+
+    def van_der_pol(device, num_procs, flavor):
+        return dict(
+            problem_class=VanDerPol,
+            problem_params=dict(mu=5.0, u0=(2.0, 0.0), newton_tol=1e-10, dtype=torch.float64, device=device),
+            sweeper_class=GenericImplicit,
+            sweeper_params=dict(quad_type='RADAU-RIGHT', num_nodes=3, QI='LU'),
+            level_params=dict(restol=-1.0, dt=1e-2),
+            step_params=dict(maxiter=4 if num_procs == 1 else 7),
+            convergence_controllers={Adaptivity: {'e_tol': 1e-7, 'embedded_error_flavor': flavor}},
+        )
+
+    cases = {f'VanDerPol P={P} {flavor}': (lambda dev, P=P, flavor=flavor: van_der_pol(dev, P, flavor), P,
+                                           dict(mssdc_jac=True, predict_type=None), 0.1)
+             for P in (1, 4) for flavor in ('standard', 'linearized')}
+    cases['Allen-Cahn 32^2/16^2 P=4'] = (
+        lambda dev: _allen_cahn_description(32, 16, torch.float64, dev, dt=1e-3, eps=0.2, e_tol=1e-7, dt_max=5e-3,
+                                            dt_min=1e-5), 4, {}, 1e-3)
+    for name, (make, num_procs, cp, Tend) in cases.items():
+        runs = {}
+        for device in ('cuda', 'cpu'):
+            ctrl = ShardedController(num_procs, {'logger_level': 30, 'predict_type': 'pfasst_burnin', **cp}, make(device))
+            uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, Tend)
+            flags = [bool(f) for f in ctrl._fused_adaptive_fn.newton_flags]
+            runs[device] = (uend.cpu(), stats, flags, len(ctrl._fused_adaptive_fn._programs))
+        (u_card, s_card, flags, programs), (u_cpu, s_cpu, _, _) = runs['cuda'], runs['cpu']
+        lanes = [v for k, v in s_card.items() if k.type == 'lane'] + [v for k, v in s_cpu.items() if k.type == 'lane']
+        niter, restart, dts = (_entries(s_card, kind) for kind in ('niter', 'restart', 'dt'))
+        same = niter == _entries(s_cpu, 'niter') and restart == _entries(s_cpu, 'restart') and len(dts) == len(_entries(s_cpu, 'dt'))
+        if lanes != ['fused_adaptive'] * 2 or not same or any(flags) or programs != 1:
+            raise AssertionError(f'adaptive parity: {name}: lanes {lanes}, niter {niter} / restart {restart} on the card, '
+                                 f'{_entries(s_cpu, "niter")} / {_entries(s_cpu, "restart")} on the CPU, Newton flags {flags}')
+        dt_gap = max(abs(a - b) / b for a, b in zip(dts, _entries(s_cpu, 'dt')))
+        diff = (u_card - u_cpu).abs().max().item()
+        dt_tol = ADAPTIVE_PARITY_DT_TOL_AC if name.startswith('Allen-Cahn') else ADAPTIVE_PARITY_TOL
+        if not dt_gap <= dt_tol or not diff <= ADAPTIVE_PARITY_TOL or sum(restart) < 1:
+            raise AssertionError(f'adaptive parity: {name}: dt gap {dt_gap:.3e}, uend diff {diff:.3e}, restarts {sum(restart)}')
+        print(f'adaptive parity: {name}, fp64, adaptive fused lane on card and CPU: {len(niter)} steps, niter all '
+              f'{niter[0]}, {sum(restart)} restarted steps, {len(set(dts))} distinct dt, equal niter and restart, dt within '
+              f'{dt_gap:.3e} <= {dt_tol}, uend within {diff:.3e} <= {ADAPTIVE_PARITY_TOL}; Newton flags {flags} (clear) [1 program]')
+
+
+def phase_adaptive_times(runs, card):
+    """Each adaptive march by lane: the adaptive fused lane (replayed graphs) and the block controller's stage lane."""
+    for label, (ctrl, stage, Tend) in runs.items():
+        u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+        (_, stats), fused_ms = _timed_block(lambda: ctrl.run(u0, 0.0, Tend), f'adaptive march {label}, adaptive fused lane',
+                                            card, reads=lambda: ctrl.host_reads, top=8 if label.startswith('HeatND 256') else 0)
+        blocks = ctrl.host_reads['fetch']
+        _, stage_ms = _timed_block(lambda: stage.run(u0, 0.0, Tend, lane='stage'),
+                                   f'adaptive march {label}, stage lane of the block controller', card)
+        prog = next(iter(ctrl._fused_adaptive_fn._programs.values()))
+        prog.run('start')
+        pieces = {name: _event_ms(lambda i: prog.run(name), 5, warmup=1) for name in ('start', 'check', 'work')}
+        replayed = pieces['start'] + MAXITER_AD * (pieces['check'] + pieces['work']) + pieces['check']
+        print(f'times: adaptive march {label}: {blocks} blocks of {P_AD} steps ({len(_entries(stats, "niter"))} steps), '
+              f'{fused_ms / blocks:.3f} ms a block on the adaptive fused lane against {stage_ms / blocks:.3f} ms on the stage '
+              f'lane; by graph, ms a replay: ' + ', '.join(f'{name} {ms:.3f}' for name, ms in pieces.items())
+              + f'; a block replays start, {MAXITER_AD} x (check, work), check = {replayed:.3f} ms [{card}]')
+
+
 def main():
     import torch
 
@@ -1571,26 +1977,46 @@ def main():
         return 1
     card = _card()
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} [{card}]')
-    phase_build(card)
-    main_err, pfasst_err = phase_kernels()
-    ctrl, launches = phase_main(card)
-    phase_parity()
-    k1 = phase_times(ctrl, card)
-    sparse_errs = phase_sparse_kernels()
-    sparse_ctrl, k2_launches = phase_sparse_main(card)
-    k3_launches = phase_bsr_path(card)
-    phase_sparse_parity()
-    k2, k3 = phase_sparse_times(sparse_ctrl, card)
-    pfasst_ctrl, pfasst_launches, pfasst_uend, pfasst_niter = phase_pfasst(card)
-    phase_pfasst_parity()
-    imex_launches = phase_imex(card)
-    phase_multilevel_times(pfasst_ctrl, ctrl, card)
-    fused_launches = phase_fused(card, pfasst_uend, pfasst_niter)
-    phase_fused_march(card)
-    phase_fused_parity()
-    phase_fused_times(card)
+    t_start = time.perf_counter()
 
-    by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches}
+    def phase(fn, *args):
+        """Run one phase and say how long it took and where the script stands."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f'phase {fn.__name__[6:]}: {now - t0:.1f} s, {now - t_start:.1f} s since the start')
+        return out
+
+    phase(phase_build, card)
+    main_err, pfasst_err = phase(phase_kernels)
+    ctrl, launches = phase(phase_main, card)
+    phase(phase_parity)
+    k1 = phase(phase_times, ctrl, card)
+    sparse_errs = phase(phase_sparse_kernels)
+    sparse_ctrl, k2_launches = phase(phase_sparse_main, card)
+    k3_launches = phase(phase_bsr_path, card)
+    phase(phase_sparse_parity)
+    k2, k3 = phase(phase_sparse_times, sparse_ctrl, card)
+    pfasst_ctrl, pfasst_launches, pfasst_uend, pfasst_niter = phase(phase_pfasst, card)
+    phase(phase_pfasst_parity)
+    imex_launches = phase(phase_imex, card)
+    phase(phase_multilevel_times, pfasst_ctrl, ctrl, card)
+    fused_launches = phase(phase_fused, card, pfasst_uend, pfasst_niter)
+    phase(phase_fused_march, card)
+    phase(phase_fused_parity)
+    phase(phase_fused_times, card)
+    covered = phase(phase_adaptive_kernels)
+    adaptive_runs, adaptive_launches = phase(phase_adaptive, card, covered)
+    ac_run, ac_launches, ac_sweep_launches = phase(phase_adaptive_allen_cahn, card, covered)
+    phase(phase_adaptive_parity)
+    phase(phase_adaptive_times, {f'HeatND {N_AD}^2/{NC_AD}^2': adaptive_runs[N_AD],
+                                 f'HeatND {N_AD_BIG}^2/{NC_AD_BIG}^2': adaptive_runs[N_AD_BIG],
+                                 f'Allen-Cahn {N_AC}^2/{NC_AC}^2': ac_run}, card)
+
+    by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
+               f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
+               'adaptive allen-cahn': ac_launches, 'allen-cahn sweeps': ac_sweep_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

@@ -13,8 +13,10 @@ SDC, MLSDC and virtual PFASST run through ``ControllerNonMPI``; the FAS
 transfers (``MeshTransfer``, ``FFTTransfer``, ``NoCoarseTransfer``) are in
 :mod:`pysdc_tpu_torch.transfer`.  ``ShardedController`` keeps a block of time
 steps in tensors with a time axis (one card, no mesh yet) and runs it on the
-stage machine or, by default where eligible, on the fused lane
-(:mod:`pysdc_tpu_torch.parallel.fused`: replayed CUDA graphs on the card).
+stage machine or, by default where eligible, on the fused lane or, for the
+step-size adaptivity stack of :mod:`pysdc_tpu_torch.convergence`, on the
+adaptive fused lane (:mod:`pysdc_tpu_torch.parallel.fused`: replayed CUDA
+graphs on the card that read ``dt`` from the device).
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
 

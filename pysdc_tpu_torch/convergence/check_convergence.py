@@ -22,9 +22,9 @@ class CheckConvergence(ConvergenceController):
     def dependencies(self, controller, description, **kwargs):
         super().dependencies(controller, description, **kwargs)
         if self.params.use_e_tol:
-            raise NotImplementedError(
-                "e_tol needs EstimateEmbeddedError, which is not ported yet (ROADMAP queue 1, item 6b)"
-            )
+            from pysdc_tpu_torch.convergence.estimate_embedded_error import EstimateEmbeddedError
+
+            controller.add_convergence_controller(EstimateEmbeddedError, description=description)
 
     @staticmethod
     def check_convergence(S, self=None):

@@ -1,0 +1,142 @@
+"""Embedded error estimates from order-mismatched solution pairs.
+
+The counterpart of ``pysdc_tpu/convergence/estimate_embedded_error.py``;
+behavioral counterparts of the reference's embedded-error family
+(``convergence_controller_classes/estimate_embedded_error.py:9-363``).  An
+"embedded" estimate reads the local error off two approximations of
+different order that were computed anyway: for SDC, consecutive sweeps
+(order grows by one per sweep, so the sweep-to-sweep difference at the last
+node has the lower order).  The embedded Runge-Kutta pairs come with the
+Runge-Kutta sweepers (ROADMAP queue 1, item 12), the collocation-switching
+estimate with the remaining convergence controllers (item 13); both raise by
+name.
+
+Every estimate is one max-norm read on the host (``float`` of a 0-d tensor).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+
+from pysdc_tpu_torch.core.convergence import ConvergenceController
+from pysdc_tpu_torch.core.state import norm_max
+
+RK_ITEM = 'ROADMAP queue 1, item 12'
+COLLOCATION_ITEM = 'ROADMAP queue 1, item 13'
+
+
+def _order_gap(level, kind, rel):
+    """The raw lower-vs-higher-order gap for one level, or None if the data
+    it needs (the previous sweep's snapshot) is absent."""
+    if kind != 'SDC':
+        raise NotImplementedError(
+            f'the embedded estimate of sweeper type {kind!r} needs the Runge-Kutta sweepers, not ported yet ({RK_ITEM})'
+        )
+    if level.state is None or level.uold is None:  # StoreUOld keeps the previous sweep
+        return None
+    gap = norm_max(level.uold[-1] - level.state.u[-1])
+    if rel:
+        gap = gap / norm_max(level.state.u[-1])
+    return float(gap)
+
+
+def _floored(value):
+    return max(value, np.finfo(float).eps)
+
+
+class EstimateEmbeddedError(ConvergenceController):
+    """Per-iteration embedded estimate -> ``level.status.error_embedded_estimate``
+    (and ``increment``, which e_tol termination reads)."""
+
+    @classmethod
+    def get_implementation(cls, flavor='standard', useMPI=False):
+        """Flavor registry (reference estimate_embedded_error.py:18-38)."""
+        flavors = {
+            'standard': EstimateEmbeddedError,
+            'linearized': EstimateEmbeddedErrorLinearized,
+            'collocation': EstimateEmbeddedErrorCollocation,
+        }
+        if flavor not in flavors:
+            raise NotImplementedError(f'no embedded-error flavor named {flavor!r}')
+        return flavors[flavor]
+
+    def setup(self, controller, params, description, **kwargs):
+        # every ported sweeper is an SDC sweeper; the 'RK' type arrives with the Runge-Kutta sweepers (item 12)
+        mine = {'control_order': -80, 'sweeper_type': 'SDC', 'rel_error': False}
+        return {**mine, **super().setup(controller, params, description, **kwargs)}
+
+    def dependencies(self, controller, description, **kwargs):
+        from pysdc_tpu_torch.convergence.store_uold import StoreUOld
+        from pysdc_tpu_torch.hooks.logging_hooks import LogEmbeddedErrorEstimate
+
+        controller.add_convergence_controller(StoreUOld, description=description)
+        controller.add_hook(LogEmbeddedErrorEstimate)
+
+    def setup_status_variables(self, controller, **kwargs):
+        self.add_status_variable_to_level('error_embedded_estimate')
+        self.add_status_variable_to_level('increment')
+
+    def _active(self, S):
+        """SDC needs a completed sweep to difference against."""
+        return S.status.iter > 0
+
+    def post_iteration_processing(self, controller, S, **kwargs):
+        if not self._active(S):
+            return
+        for level in S.levels:
+            gap = _order_gap(level, self.params.sweeper_type, self.params.rel_error)
+            if gap is None:
+                continue
+            level.status.error_embedded_estimate = _floored(gap)
+            level.status.increment = level.status.error_embedded_estimate
+
+
+class EstimateEmbeddedErrorLinearized(EstimateEmbeddedError):
+    """Block-parallel variant (reference EstimateEmbeddedErrorLinearizedNonMPI,
+    :154-229): in block Gauss-Seidel/Jacobi MSSDC the raw sweep difference on
+    step j measures the error of the whole chain up to j; differencing
+    against the predecessor's raw value recovers a per-step (local) quantity
+    so adaptivity does not collapse dt on long blocks."""
+
+    def __init__(self, controller, params, description, **kwargs):
+        super().__init__(controller, params, description, **kwargs)
+        self.buffers = SimpleNamespace(chain_gap=0.0)
+
+    def setup(self, controller, params, description, **kwargs):
+        return {'averaged': False, **super().setup(controller, params, description, **kwargs)}
+
+    def reset_buffers_nonMPI(self, controller, **kwargs):
+        self.buffers.chain_gap = 0.0
+
+    def post_iteration_processing(self, controller, S, **kwargs):
+        if len(S.levels) > 1 and len(controller.MS) > 1:
+            raise NotImplementedError(
+                'the linearized estimate supports either multiple levels or multiple steps, not both'
+            )
+        if not self._active(S):
+            return
+        scale = float(S.status.slot + 1) if self.params.averaged else 1.0
+        newest = None
+        for level in S.levels:
+            raw = _order_gap(level, self.params.sweeper_type, self.params.rel_error)
+            if raw is None:
+                continue
+            newest = raw
+            local = abs(raw - self.buffers.chain_gap) / scale
+            level.status.error_embedded_estimate = _floored(local)
+            level.status.increment = level.status.error_embedded_estimate
+        if newest is not None and not self.params.averaged:
+            self.buffers.chain_gap = newest
+
+
+class EstimateEmbeddedErrorCollocation(ConvergenceController):
+    """Embedded error from switching quadrature rules (reference
+    estimate_embedded_error.py:280-363): needs ``AdaptiveCollocation``, which
+    is not ported yet."""
+
+    def __init__(self, controller, params, description, **kwargs):
+        raise NotImplementedError(
+            f'EstimateEmbeddedErrorCollocation needs AdaptiveCollocation, not ported yet ({COLLOCATION_ITEM})'
+        )

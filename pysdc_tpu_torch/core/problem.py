@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import resolve_device
-from pysdc_tpu_torch.core.errors import ParameterError
+from pysdc_tpu_torch.core.errors import ParameterError, ProblemError
 from pysdc_tpu_torch.core.state import IMEX, Comp2, map_components
 
 
@@ -116,6 +116,24 @@ class Problem:
 
     def u_exact(self, t):
         raise NotImplementedError(f'{type(self).__name__} does not implement u_exact(t)')
+
+    def generate_scipy_reference_solution(self, eval_rhs, t, u_init, t_init, **kwargs):
+        """Accurate ODE reference via ``scipy.integrate.solve_ivp`` on the
+        flattened system (host-side, float64); ``eval_rhs(t, y)`` takes and
+        returns numpy arrays."""
+        from scipy.integrate import solve_ivp
+
+        kwargs = {'rtol': 1e-12, 'atol': 1e-12, 'method': 'DOP853', **kwargs}
+        u_init = u_init.detach().cpu().numpy() if isinstance(u_init, torch.Tensor) else np.asarray(u_init)
+        shape = u_init.shape
+
+        def rhs_flat(tt, y):
+            return np.asarray(eval_rhs(tt, y.reshape(shape))).ravel()
+
+        sol = solve_ivp(rhs_flat, (float(t_init), float(t)), u_init.ravel(), **kwargs)
+        if not sol.success:
+            raise ProblemError(f'scipy reference solve failed: {sol.message}')
+        return torch.as_tensor(sol.y[:, -1].reshape(shape), dtype=self.dtype, device=self.device)
 
     # -- batched-over-nodes variants -------------------------------------
     def eval_f_batched(self, u, t):

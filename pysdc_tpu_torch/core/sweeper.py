@@ -79,14 +79,32 @@ class Sweeper:
         return any(is_k_dependent(self.params.get(name, '')) for name in ('QI', 'QE'))
 
     def node_times(self, t, dt):
-        """Times of the M nodes: a numpy ``(M,)`` for a host ``t``; for a
-        tensor ``t`` (one step's 0-d time or a block's ``(P,)``) a tensor
-        ``(M, *t.shape)`` on its device, so that no host number is frozen
-        into a captured CUDA graph."""
+        """Times of the M nodes: a numpy ``(M,)`` for a host ``t`` and ``dt``;
+        where either is a tensor (one step's 0-d time or a block's ``(P,)``,
+        a 0-d ``dt`` on the device) a float64 tensor ``(M, *t.shape)`` on its
+        device, so that no host number is frozen into a captured CUDA graph."""
+        if isinstance(dt, torch.Tensor) and not isinstance(t, torch.Tensor):
+            t = torch.as_tensor(t, dtype=torch.float64, device=dt.device)
         if isinstance(t, torch.Tensor):
             nodes = self._coeff('nodes', lambda: self.coll.nodes, t)
             return t.unsqueeze(0) + dt * nodes.reshape((-1,) + (1,) * t.dim())
         return t + dt * self.coll.nodes
+
+    def scaled_table(self, dt, QD: np.ndarray, key):
+        """``dt * QD`` as a table to take entries from with :meth:`entry` (and,
+        for a batched solve, the per-node shifts ``.diagonal()[1:]``): numpy
+        for a host ``dt``; for a 0-d ``dt`` on the device one float64 tensor
+        there, the product of ``dt`` with a constant table (one small product
+        a sweep, its entries are views): the graphs of the fused lanes read
+        ``dt``, they do not hold it."""
+        if isinstance(dt, torch.Tensor):
+            return dt * self._coeff(('table', key), lambda: QD, dt)
+        return dt * np.asarray(QD)
+
+    @staticmethod
+    def entry(table, i: int, j: int):
+        """Entry ``(i, j)`` of a :meth:`scaled_table`: a host float, or a 0-d tensor."""
+        return table[i, j] if isinstance(table, torch.Tensor) else float(table[i, j])
 
     @staticmethod
     def node_time(ts, m: int):

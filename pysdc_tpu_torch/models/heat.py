@@ -23,6 +23,22 @@ from pysdc_tpu_torch.ops.fd import get_1d_grid
 from pysdc_tpu_torch.ops.linop import SeparableFDOperator
 
 
+def node_shift_column(op, factor, rhs):
+    """The per-node shifts ``factor`` (``(M,)``) as a column in ``rhs``'s
+    precision that broadcasts against ``rhs (M, ..., *shape)``.  Shifts on
+    the device (the product of a device ``dt`` with a constant table) are
+    used as they are: nothing of their value is kept, so one captured graph
+    serves every ``dt``.  Host shifts are copied to the device once per set
+    of values and kept (a copy from the host is not allowed inside a graph
+    capture)."""
+    if isinstance(factor, torch.Tensor):
+        shifts = factor.to(rhs.dtype)
+    else:
+        values = tuple(float(x) for x in np.asarray(factor, dtype=float))
+        shifts = op._const(('shifts', values), values, rhs.dtype, rhs.device)
+    return shifts.reshape((-1,) + (1,) * (rhs.dim() - 1))
+
+
 class HeatND(Problem):
     """u_t = nu * Laplace(u); params follow the reference problem class,
     plus ``device`` (default ``'cuda'``)."""
@@ -120,10 +136,7 @@ class HeatND(Problem):
         The sparse backend solves node by node."""
         if self.backend == 'sparse':
             return super().solve_system_batched(rhs, factor, u0, t)
-        # made once per set of shifts and kept: a copy from the host is not allowed inside a graph capture
-        values = tuple(float(x) for x in np.asarray(factor, dtype=float))
-        shifts = self.A._const(('shifts', values), values, rhs.dtype, rhs.device)
-        return self.A.solve_shifted(rhs, shifts.reshape((-1,) + (1,) * (rhs.dim() - 1)))
+        return self.A.solve_shifted(rhs, node_shift_column(self.A, factor, rhs))
 
     def _sin_product(self):
         if self.ndim == 1:

@@ -38,10 +38,15 @@ from pysdc_tpu_torch.core.state import LevelState
 from pysdc_tpu_torch.ops.qdelta import is_diagonal
 
 
-def _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat):
+def _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat, dtQI=None):
     """One generic-implicit sweep on basis coefficients uhat (M+1, *modes);
-    ``W`` is Q - QI in ``uhat``'s dtype, ``qd`` the diagonal of QI in ``lam``'s."""
+    ``W`` is Q - QI in ``uhat``'s dtype, ``qd`` the diagonal of QI in ``lam``'s,
+    ``dtQI`` the sweeper's ``scaled_table(dt, QI, ...)`` (made here for a host
+    ``dt``; a caller with ``dt`` on the device makes it once for all its sweeps)."""
     M = W.shape[0]
+    if dtQI is None:
+        dtQI = dt * np.asarray(QI)
+    entry = (lambda i, j: dtQI[i, j]) if isinstance(dtQI, torch.Tensor) else (lambda i, j: float(dtQI[i, j]))
     fhat = lam * uhat
     integral = dt * torch.tensordot(W, fhat[1:], dims=1) + uhat[0].unsqueeze(0) + tauhat
 
@@ -53,9 +58,8 @@ def _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat):
             rhs = integral[m]
             for j in range(1, m + 1):
                 if QI[m + 1, j] != 0.0:
-                    rhs = rhs + (dt * float(QI[m + 1, j])) * fs[j - 1]
-            alpha = float(QI[m + 1, m + 1])
-            us.append(rhs if alpha == 0.0 else rhs / (1.0 - dt * alpha * lam))
+                    rhs = rhs + entry(m + 1, j) * fs[j - 1]
+            us.append(rhs if QI[m + 1, m + 1] == 0.0 else rhs / (1.0 - entry(m + 1, m + 1) * lam))
             if m + 1 < M:
                 fs.append(lam * us[m])
         unew = torch.stack(us)
@@ -82,7 +86,7 @@ def diagonal_sweeps(op, sweeper, state: LevelState, t, dt, n_sweeps: int, k0: in
         # tensordot does not mix a real table with complex coefficients: W takes uhat's dtype
         W = sweeper._coeff(('q-QI', kk), lambda: q - QI[1:, 1:], uhat)
         qd = sweeper._coeff(('diag QI', kk), lambda: np.diag(QI)[1:], lam)
-        uhat = _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat)
+        uhat = _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat, sweeper.scaled_table(dt, QI, ('QI', kk)))
 
     u = op.diag_backward(uhat, state.u.dtype, real)
     f = op.diag_backward(lam * uhat, state.f.dtype, real)

@@ -17,10 +17,12 @@ buffers:
 
 - on a CUDA tensor each piece is a captured CUDA graph
   (``torch.cuda.CUDAGraph``) and a short host loop replays them.  The step
-  times, the window of active slots and ``u0`` are input buffers written
-  before a replay; ``dt`` is a host number frozen into the graphs, so another
-  ``dt`` captures again.  A capture that fails raises: there is no return to
-  eager on the card;
+  times, the window of active slots, ``u0`` and the per-level step sizes
+  ``dts`` (one float64 tensor of ``nlevels`` entries) are input buffers
+  written before a replay: the pieces read ``dt`` from the device, so ONE
+  program (three graphs) serves every step size, as the JAX program takes
+  ``dts`` as a traced array.  A capture that fails raises: there is no return
+  to eager on the card;
 - on a CPU tensor the same pieces run eagerly (that is what the tests drive).
 
 The host reads one device value while a block runs: ``cont``, after every
@@ -44,8 +46,18 @@ Eligibility is checked (ineligible raises ControllerError so callers fall
 back to the stage-machine path), including the registered hooks: only hooks
 whose entries the fused lane actually produces are allowed.  Per-sweep
 residual/timing entries are not recorded — the device loop does not compute
-them.  The adaptive lane (``run_fused_adaptive``) is not ported yet (ROADMAP
-queue 1, item 6b) and raises by name.
+them.
+
+The adaptive lane (``run_fused_adaptive``) runs the embedded-error adaptivity
+stack.  ``Adaptivity`` needs ``restol < 0``, so every step runs exactly
+``maxiter`` iterations and a block is ``start``, ``maxiter`` x (``check``,
+``work``) and a final ``check`` with no ``cont`` read at all, then ONE fetch
+of the residual history, the error-estimate history and the problems' Newton
+flags.  The hook points and the genuine IT_CHECK policy sequence (dt
+proposal, limiters, restart cascade) are then replayed on the host from the
+fetched histories through the same policy objects as the stage machine.  The
+final check's estimator reads its own norm (one small read per step of the
+block, counted under ``ctrl.host_reads['estimate']``).
 """
 
 from __future__ import annotations
@@ -62,7 +74,6 @@ from pysdc_tpu_torch.convergence.check_convergence import CheckConvergence
 from pysdc_tpu_torch.convergence.spread_step_sizes import SpreadStepSizesBlockwise
 from pysdc_tpu_torch.core.errors import ControllerError
 
-ADAPTIVE_ITEM = 'ROADMAP queue 1, item 6b'
 
 
 class _Carry(NamedTuple):
@@ -80,6 +91,21 @@ def _plain_hook_allowlist():
     from pysdc_tpu_torch.hooks.logging_hooks import LogRestarts
 
     return (DefaultHooks, CPUTimings, LogRestarts)
+
+
+class _AdaptiveCarry(NamedTuple):
+    states: tuple  # LevelState per level, leaves (M+1, P, *shape)
+    uends: tuple  # (P, *shape_l) per level
+    res_hist: torch.Tensor  # (maxiter+1, P) residuals at each IT_CHECK
+    e_hist: torch.Tensor  # (maxiter+1, P) embedded estimates at each IT_CHECK
+    prev_last: torch.Tensor  # (P, *shape): the last node's value before the latest iteration's work
+    k: torch.Tensor  # scalar int32: IT_CHECK counter
+
+
+def _adaptive_hook_allowlist():
+    from pysdc_tpu_torch.hooks.logging_hooks import LogEmbeddedErrorEstimate, LogSolution, LogStepSize
+
+    return _plain_hook_allowlist() + (LogEmbeddedErrorEstimate, LogStepSize, LogSolution)
 
 
 def _check_hooks(ctrl, allowed, lane):
@@ -127,22 +153,60 @@ def check_fused_eligibility(ctrl):
     _check_hooks(ctrl, _plain_hook_allowlist(), 'fused')
 
 
-def _adaptive_not_ported(*args, **kwargs):
-    raise ControllerError(
-        f'the adaptive fused lane (run_fused_adaptive with Adaptivity, EstimateEmbeddedError, the step-size '
-        f'limiters and StoreUOld) is not ported yet ({ADAPTIVE_ITEM}); this configuration runs on the '
-        f'stage-machine path'
+def check_fused_adaptive_eligibility(ctrl):
+    """Eligibility of the device-resident adaptive lane.
+
+    Supported: the embedded-error production stack — ``Adaptivity`` (both
+    estimator flavors) + ``EstimateEmbeddedError`` + ``StoreUOld`` +
+    ``BasicRestarting``/``SpreadStepSizesBlockwise`` + the step-size
+    limiter/rounding family — under maxiter-only termination (``Adaptivity``
+    itself enforces restol < 0).  Everything else raises and runs the stage
+    machine.
+    """
+    from pysdc_tpu_torch.convergence.adaptivity import Adaptivity
+    from pysdc_tpu_torch.convergence.estimate_embedded_error import (
+        EstimateEmbeddedError,
+        EstimateEmbeddedErrorLinearized,
     )
+    from pysdc_tpu_torch.convergence.step_size_limiter import (
+        StepSizeLimiter,
+        StepSizeRounding,
+        StepSizeSlopeLimiter,
+    )
+    from pysdc_tpu_torch.convergence.store_uold import StoreUOld
 
-
-#: the adaptive lane of ``pysdc_tpu/parallel/fused.py``: each of its entry
-#: points raises, naming the ROADMAP item, so ``run(lane='auto')`` takes the
-#: stage machine for an adaptive configuration as the JAX package would for an
-#: ineligible one
-check_fused_adaptive_eligibility = _adaptive_not_ported
-build_fused_adaptive_block = _adaptive_not_ported
-advance_fused_adaptive = _adaptive_not_ported
-run_fused_adaptive = _adaptive_not_ported
+    # the JAX package's list also has AdaptivityRK (embedded Runge-Kutta pairs); its class here raises on
+    # construction until the Runge-Kutta sweepers are ported (ROADMAP queue 1, item 12), so the name cannot appear
+    allowed = (
+        CheckConvergence,
+        BasicRestarting,
+        SpreadStepSizesBlockwise,
+        Adaptivity,
+        EstimateEmbeddedError,
+        EstimateEmbeddedErrorLinearized,
+        StoreUOld,
+        StepSizeLimiter,
+        StepSizeSlopeLimiter,
+        StepSizeRounding,
+    )
+    for C in ctrl.convergence_controllers:
+        # exact-type matching: subclasses carry different semantics the device program does not implement
+        if type(C) not in allowed:
+            raise ControllerError(
+                f'{type(C).__name__} is not supported by the adaptive fused lane; '
+                f'this configuration runs on the stage-machine path'
+            )
+    lvl0 = ctrl.MS[0].levels[0]
+    if float(lvl0.params.restol) >= 0:
+        raise ControllerError(
+            'the adaptive fused lane runs a fixed-depth device loop and needs '
+            'maxiter-only termination (restol < 0)'
+        )
+    e_tol = getattr(lvl0.params, 'e_tol', None)
+    if e_tol is not None and e_tol > 0:
+        raise ControllerError('the adaptive fused lane does not support e_tol termination')
+    _shared_eligibility(ctrl)
+    _check_hooks(ctrl, _adaptive_hook_allowlist(), 'adaptive fused')
 
 
 def _build_parts(ctrl):
@@ -339,26 +403,31 @@ def _rebuild(template, leaves):
 
 
 class _BlockProgram:
-    """The three pieces of one block for one ``dt``, state dtype and device,
+    """The three pieces of one block for one state dtype, shape and device,
     over static buffers: captured CUDA graphs on the card, the plain
-    functions on the CPU."""
+    functions on the CPU.  ``inputs`` are ``(u0, t_arr, window, dts)``:
+    ``start`` takes them all, ``check`` and ``work`` the carry and all but
+    ``u0``.  The caller writes the input buffers before it runs a piece."""
 
-    def __init__(self, pieces, u0, t_arr, window):
+    def __init__(self, pieces, *inputs):
         self.pieces = pieces
-        self.u0 = u0.clone()
-        self.t_arr = t_arr.clone()
-        self.window = window.clone()
-        self.on_card = u0.device.type == 'cuda'
+        self.inputs = tuple(x.clone() for x in inputs)
+        self.u0, self.t_arr, self.window, self.dts = self.inputs
+        self.on_card = self.u0.device.type == 'cuda'
         self.carry = None
         if self.on_card:
             self._capture()
+
+    def write(self, *inputs):
+        for buf, value in zip(self.inputs, inputs):
+            buf.copy_(value)
 
     def _capture(self):
         """Warm up on a side stream (FFT plans, launch plans and the constant
         tables are made at first use, which a capture does not allow), give
         the carry its buffers, then capture each piece into a graph that
         computes from the buffers and copies its results back into them."""
-        inputs = (self.u0, self.t_arr, self.window)
+        inputs = self.inputs
         side = torch.cuda.Stream(device=self.u0.device)
         side.wait_stream(torch.cuda.current_stream(self.u0.device))
         with torch.cuda.stream(side):
@@ -381,11 +450,13 @@ class _BlockProgram:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool):
                 new = fn(*inputs) if name == 'start' else fn(self.carry, *inputs[1:])
-                for old, leaf in zip(buffers, _leaves(new)):
-                    if leaf is old:
-                        continue  # passed through untouched
-                    if leaf.untyped_storage().data_ptr() in owned:
-                        leaf = leaf.clone()  # a view of a buffer: read it before any buffer is written
+                # results that are views of a buffer are read before any buffer is written
+                pairs = [
+                    (old, leaf.clone() if leaf.untyped_storage().data_ptr() in owned else leaf)
+                    for old, leaf in zip(buffers, _leaves(new))
+                    if leaf is not old  # else: passed through untouched
+                ]
+                for old, leaf in pairs:
                     old.copy_(leaf)
             self.graphs[name] = graph
 
@@ -393,13 +464,14 @@ class _BlockProgram:
         if self.on_card:
             self.graphs[piece].replay()
         elif piece == 'start':
-            self.carry = self.pieces.start(self.u0, self.t_arr, self.window)
+            self.carry = self.pieces.start(*self.inputs)
         else:
-            self.carry = getattr(self.pieces, piece)(self.carry, self.t_arr, self.window)
+            self.carry = getattr(self.pieces, piece)(self.carry, *self.inputs[1:])
 
 
-class _FusedBlock:
-    """``fused(u0, t_arr, dt, window)`` of :func:`build_fused_block`."""
+class _Programs:
+    """The block programs of one controller, one per state dtype, shape and
+    device: the step sizes are inputs, so nothing of ``dt`` is in the key."""
 
     def __init__(self, ctrl):
         self.ctrl = ctrl
@@ -407,20 +479,42 @@ class _FusedBlock:
         self.maxiter = int(ctrl.MS[0].params.maxiter)
         self._programs = {}
 
-    def _pieces(self, dt):
-        """start / check / work for one ``dt``: the body of the JAX package's
+    def _program(self, u0, t_arr, window, dts):
+        key = (u0.dtype, u0.device, tuple(u0.shape))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _BlockProgram(self._pieces(), u0, t_arr, window, dts)
+        return prog
+
+    def _inputs(self, u0, t_arr, window, dts):
+        """The inputs as tensors on ``u0``'s device; ``dts`` a host number (one
+        ``dt`` on every level), a sequence of per-level numbers or a tensor."""
+        device = u0.device
+        nlevels = self.ctrl.nlevels
+        t_arr = torch.as_tensor(t_arr, dtype=torch.float64, device=device)
+        window = torch.as_tensor(window, dtype=torch.bool, device=device)
+        if not isinstance(dts, torch.Tensor):
+            dts = np.broadcast_to(np.asarray(dts, dtype=np.float64), (nlevels,)).copy()
+        dts = torch.as_tensor(dts, dtype=torch.float64, device=device).expand(nlevels)
+        return u0, t_arr, window, dts
+
+
+class _FusedBlock(_Programs):
+    """``fused(u0, t_arr, dt, window)`` of :func:`build_fused_block`."""
+
+    def _pieces(self):
+        """start / check / work: the body of the JAX package's
         ``lax.while_loop`` cut at the point where the host may look."""
         ctrl, parts = self.ctrl, self.parts
         blocks = ctrl.blocks
         P = ctrl.num_procs
-        nlevels = ctrl.nlevels
         restol = float(ctrl.MS[0].levels[0].params.restol)
         maxiter = self.maxiter
         all_to_done = bool(ctrl.params.all_to_done)
-        dts = [dt] * nlevels  # plain lane: one dt on every level
         rows = torch.arange(maxiter + 2, device=ctrl.device).unsqueeze(1)
 
-        def start(u0, t_arr, window):
+        def start(u0, t_arr, window, dts):
+            dts = dts.unbind(0)  # per level, 0-d views of the input buffer (the plain lane: one dt on every level)
             states, uends = parts.spread(u0, t_arr, dts)
             states, uends = parts.predict(states, uends, t_arr, dts, window)
             return _Carry(
@@ -433,14 +527,15 @@ class _FusedBlock:
                 cont=torch.ones((), dtype=torch.bool, device=u0.device),
             )
 
-        def check(c, t_arr, window):
+        def check(c, t_arr, window, dts):
             # IT_CHECK: exchange + residual + convergence flags
+            dts = dts.unbind(0)
             active = window & ~c.done
             prev_done = parts.shifted(c.done)
             states = list(c.states)
             uends = list(c.uends)
             states[0], uends[0] = parts.exchange(0, states[0], uends[0], t_arr, dts, active, prev_done)
-            res = blocks[0].raw.residual(states[0], dt)
+            res = blocks[0].raw.residual(states[0], dts[0])
             # row k of the history, active steps only (k lives on the device)
             res_hist = torch.where((rows == c.k) & active, res.to(c.res_hist.dtype), c.res_hist)
 
@@ -455,32 +550,22 @@ class _FusedBlock:
             # a check replayed after the loop has ended counts nothing
             return _Carry(tuple(states), tuple(uends), done, iters, res_hist, c.k + c.cont.to(torch.int32), cont)
 
-        def work(c, t_arr, window):
+        def work(c, t_arr, window, dts):
             # the JAX package runs this under lax.cond(cont, ...); here it is
             # always enqueued and masked: with every step done it changes nothing
             active = window & ~c.done
-            states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts, active, parts.shifted(c.done))
+            states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts.unbind(0), active,
+                                                 parts.shifted(c.done))
             return c._replace(states=states, uends=uends)
 
         return SimpleNamespace(start=start, check=check, work=work)
 
-    def _program(self, u0, t_arr, dt, window):
-        key = (float(dt), u0.dtype, u0.device, tuple(u0.shape))
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = _BlockProgram(self._pieces(float(dt)), u0, t_arr, window)
-        return prog
-
     def __call__(self, u0, t_arr, dt, window):
         """One block from ``u0``: ``(uend_block, iters, res_hist, n_checks)``,
         tensors on ``u0``'s device (copies: the next call reuses the buffers)."""
-        device = u0.device
-        t_arr = torch.as_tensor(t_arr, dtype=torch.float64, device=device)
-        window = torch.as_tensor(window, dtype=torch.bool, device=device)
-        prog = self._program(u0, t_arr, dt, window)
-        prog.u0.copy_(u0)
-        prog.t_arr.copy_(t_arr)
-        prog.window.copy_(window)
+        inputs = self._inputs(u0, t_arr, window, dt)
+        prog = self._program(*inputs)
+        prog.write(*inputs)
 
         prog.run('start')
         reads = self.ctrl.host_reads
@@ -502,9 +587,116 @@ def build_fused_block(ctrl):
 
     Returns ``fused(u0, t_arr, dt, window) -> (uend_block, iters, res_hist,
     n_checks)`` where ``window`` is the (P,) prefix mask of active slots.  On
-    the card the first call for a ``dt`` captures the block's graphs.
+    the card the first call captures the block's graphs; they serve every
+    ``dt`` (a host number or a 0-d tensor).
     """
     return _FusedBlock(ctrl)
+
+
+class _FusedAdaptiveBlock(_Programs):
+    """``fused_adaptive(u0, t_arr, dts, window)`` of :func:`build_fused_adaptive_block`."""
+
+    def __init__(self, ctrl):
+        super().__init__(ctrl)
+        from pysdc_tpu_torch.convergence.estimate_embedded_error import EstimateEmbeddedError
+
+        self.rel_error = False
+        for C in ctrl.convergence_controllers:
+            if isinstance(C, EstimateEmbeddedError):
+                self.rel_error = bool(C.params.rel_error)
+        #: the device flags "a Newton solve was cut by the capture's fixed depth", one per problem that has one
+        self.newton_flags = [
+            blk.level.prob.newton_failed for blk in ctrl.blocks if hasattr(blk.level.prob, 'newton_failed')
+        ]
+
+    def _pieces(self):
+        ctrl, parts = self.ctrl, self.parts
+        blocks = ctrl.blocks
+        P = ctrl.num_procs
+        maxiter = self.maxiter
+        rel_error = self.rel_error
+        flags = self.newton_flags
+        rows = torch.arange(maxiter + 1, device=ctrl.device).unsqueeze(1)
+        no_prev = torch.zeros((P,), dtype=torch.bool, device=ctrl.device)
+
+        def step_norm(x):
+            """Per-step max-abs over everything but the leading (P,) axis."""
+            return x.abs().flatten(1).amax(dim=1) if x.dim() > 1 else x.abs()
+
+        def start(u0, t_arr, window, dts):
+            for flag in flags:
+                flag.zero_()
+            dts = dts.unbind(0)
+            states, uends = parts.spread(u0, t_arr, dts)
+            states, uends = parts.predict(states, uends, t_arr, dts, window)
+            hist = torch.zeros((maxiter + 1, P), dtype=u0.dtype, device=u0.device)
+            return _AdaptiveCarry(
+                states=tuple(states),
+                uends=tuple(uends),
+                res_hist=hist,
+                e_hist=hist.clone(),
+                prev_last=states[0].u[-1].clone(),
+                k=torch.zeros((), dtype=torch.int32, device=u0.device),
+            )
+
+        def check(c, t_arr, window, dts):
+            dts = dts.unbind(0)
+            states = list(c.states)
+            uends = list(c.uends)
+            states[0], uends[0] = parts.exchange(0, states[0], uends[0], t_arr, dts, window, no_prev)
+            res = blocks[0].raw.residual(states[0], dts[0])
+            row = (rows == c.k) & window
+            res_hist = torch.where(row, res.to(c.res_hist.dtype), c.res_hist)
+            cur = states[0].u[-1]
+            e = step_norm(cur - c.prev_last)
+            if rel_error:
+                # an inactive step's norm may be 0: mask before dividing
+                e = e / torch.where(window, step_norm(cur), torch.ones_like(e))
+            e_hist = torch.where(row, e.to(c.e_hist.dtype), c.e_hist)
+            return c._replace(states=tuple(states), uends=tuple(uends), res_hist=res_hist, e_hist=e_hist, k=c.k + 1)
+
+        def work(c, t_arr, window, dts):
+            # prev_last entering the final check = u^{maxiter-1}[-1]: the host injects it as L.uold so the
+            # genuine EstimateEmbeddedError policy computes the final estimate itself (advance_fused_adaptive)
+            prev_last = c.states[0].u[-1]
+            states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts.unbind(0), window, no_prev)
+            return c._replace(states=states, uends=uends, prev_last=prev_last)
+
+        return SimpleNamespace(start=start, check=check, work=work)
+
+    def __call__(self, u0, t_arr, dts, window):
+        """One block of exactly ``maxiter`` iterations from ``u0``:
+        ``(fine_state, uend_block, res_hist, e_hist, prev_last, newton_flags)``.
+        No host read; the tensors are the program's own buffers, valid until
+        the next call."""
+        inputs = self._inputs(u0, t_arr, window, dts)
+        prog = self._program(*inputs)
+        prog.write(*inputs)
+        prog.run('start')
+        for _ in range(self.maxiter):
+            prog.run('check')
+            prog.run('work')
+        prog.run('check')
+        c = prog.carry
+        return c.states[0], c.uends[0], c.res_hist, c.e_hist, c.prev_last, self.newton_flags
+
+
+def build_fused_adaptive_block(ctrl):
+    """Fixed-depth whole-block program for the adaptive stack.
+
+    With restol disabled (Adaptivity's contract) every step runs exactly
+    ``maxiter`` iterations, so the block is a loop of fixed depth — no
+    convergence flags, no early exit, no ``cont`` read.  Besides the residual
+    history the program tracks the embedded error estimate on the device: at
+    IT_CHECK k the sweep-to-sweep difference at the last collocation node
+    ``|u^k[-1] - u^{k-1}[-1]|`` (the reference's ``EstimateEmbeddedError``
+    from ``StoreUOld`` snapshots, estimate_embedded_error.py:9-150).
+
+    Returns ``fused_adaptive(u0, t_arr, dts, window) -> (fine_state,
+    uend_block, res_hist, e_hist, prev_last, newton_flags)`` with histories
+    shaped (maxiter+1, P) and ``dts`` the per-level step sizes.
+    """
+    return _FusedAdaptiveBlock(ctrl)
 
 
 def build_fused_many(ctrl, fused):
@@ -609,3 +801,140 @@ def run_fused(ctrl, u0, t0, Tend):
 
     ctrl._fused_converged = converged
     return uend, ctrl.return_stats()
+
+
+def advance_fused_adaptive(ctrl, block):
+    """One whole-block device call replacing the entire stage machine.
+
+    Runs the fixed-depth adaptive block program, then replays the hook
+    points and the genuine IT_CHECK policy sequence on the shadow steps from
+    the fetched histories — adaptivity's dt proposal, limiter clamping,
+    restart cascading and stats entries all run through the SAME policy
+    objects as the stage machine (``nonmpi.py _route_after_check``).
+    Returns True (the block is complete) for the inherited ``run`` loop.
+    """
+    from pysdc_tpu_torch.convergence.estimate_embedded_error import EstimateEmbeddedErrorLinearized
+
+    stages = {s.status.stage for s in block}
+    if stages != {'SPREAD'}:
+        raise ControllerError(f'adaptive fused block must start at SPREAD, got {sorted(stages)}')
+
+    for step in block:
+        ctrl._fire('pre_step', step, 0)
+        for policy in ctrl._policies():
+            policy.post_spread_processing(ctrl, step, MS=block)
+
+    # per-level dts: after adaptive restarts only the finest level carries
+    # the new dt; coarser levels keep theirs (reference per-level spreading,
+    # spread_step_sizes.py:133-154)
+    dts = [ctrl._block_dt(block, l) for l in range(ctrl.nlevels)]
+    fine_state, uend_block, res_hist, e_hist, prev_last, flags = ctrl._fused_adaptive_fn(
+        block[0].u0, ctrl._block_times(), dts, ctrl._mask_of(block)
+    )
+    ctrl.blocks[0].state = fine_state
+    ctrl.blocks[0].uend = uend_block
+    # the ONE fetch of the block: both histories and the Newton flags in one transfer
+    ctrl.host_reads['fetch'] += 1
+    parts = [res_hist.flatten(), e_hist.flatten()] + [f.to(res_hist.dtype).reshape(1) for f in flags]
+    fetched = torch.cat(parts).cpu().numpy().astype(np.float64)
+    n = res_hist.numel()
+    res_h = fetched[:n].reshape(tuple(res_hist.shape))
+    e_h = fetched[n:2 * n].reshape(tuple(e_hist.shape))
+    if fetched[2 * n:].any():
+        raise ControllerError(
+            'a Newton solve of the adaptive fused block did not reach newton_tol within the fixed depth that a '
+            'CUDA graph runs (models/odes.py: CAPTURE_DEPTH); run this configuration with lane=\'stage\''
+        )
+
+    maxiter = int(ctrl.MS[0].params.maxiter)
+    nsw = ctrl.nsweeps[0]
+    eps = np.finfo(float).eps
+
+    # the linearized flavor displays the chain-differenced estimate
+    # |raw_j - raw_{j-1}| per check (estimate_embedded_error.py); raws come
+    # straight from the device history, the differencing is host arithmetic
+    linearized = next(
+        (C for C in ctrl.convergence_controllers if type(C) is EstimateEmbeddedErrorLinearized), None
+    )
+
+    def displayed_estimates(k):
+        raws = e_h[k]
+        if linearized is None:
+            return raws
+        out = np.empty_like(raws)
+        prev = 0.0
+        for j in range(len(raws)):
+            scale = (j + 1) if linearized.params.averaged else 1.0
+            out[j] = abs(raws[j] - prev) / scale
+            if not linearized.params.averaged:
+                prev = raws[j]
+        return out
+
+    def set_check_status(step, k):
+        j = step.status.slot
+        step.status.iter = k
+        L = step.levels[0]
+        L.status.sweep = nsw
+        if 'IT_CHECK' in L.sweep.skip_residual_computation:
+            # sweepers that skip residuals; mirror _set_residuals
+            if L.status.residual is None:
+                L.status.residual = 0.0
+        else:
+            L.status.residual = float(res_h[k, j])
+            L.status.updated = False
+
+    # replay iterations 1..maxiter-1 (hook entries only; no policy acts
+    # before the final iteration in this stack).  The embedded-error status
+    # is updated AFTER firing post_iteration — the stage machine's hook
+    # logs the previous check's estimate because the estimator policy runs
+    # after the hook (nonmpi.py _route_after_check ordering).
+    for k in range(1, maxiter):
+        shown = displayed_estimates(k)
+        for step in block:
+            set_check_status(step, k)
+            ctrl._fire('pre_iteration', step, 0)
+            ctrl._fire('post_iteration', step, 0)
+            L = step.levels[0]
+            L.status.error_embedded_estimate = max(float(shown[step.status.slot]), eps)
+            L.status.increment = L.status.error_embedded_estimate
+
+    # final IT_CHECK through the genuine hook + policy sequence: the shadow
+    # levels get live state views plus an uold whose last node is the
+    # device-tracked pre-final-iteration snapshot, so EstimateEmbeddedError
+    # itself computes the estimate Adaptivity acts on (one norm read per step)
+    ctrl._sync_level(block, 0)
+    for step in block:
+        set_check_status(step, maxiter)
+        L = step.levels[0]
+        L.uold = torch.cat([L.state.u[:-1], prev_last[step.status.slot].unsqueeze(0)])
+    ctrl.host_reads['estimate'] += len(block)
+    ctrl._route_after_check(block)
+    if not all(s.status.done for s in block):
+        raise ControllerError('adaptive fused block did not complete at maxiter')
+    return True
+
+
+def run_fused_adaptive(ctrl, u0, t0, Tend):
+    """Device-resident run loop for adaptive configurations.
+
+    Reuses the inherited loop over blocks (``ControllerNonMPI.run``: restart
+    cuts, window bookkeeping, prepare_next_block ordering, Tend landing)
+    verbatim; only the inner stage machine is replaced by
+    :func:`advance_fused_adaptive` via the ``_fused_adaptive`` mode flag.
+    One device program + one fetch per block instead of per-sweep syncs; on
+    the card the program's three graphs are captured once and serve every
+    step size the march takes.
+    """
+    from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI
+
+    check_fused_adaptive_eligibility(ctrl)
+    if getattr(ctrl, '_fused_adaptive_fn', None) is None:
+        ctrl._fused_adaptive_fn = build_fused_adaptive_block(ctrl)
+    ctrl.host_reads = {'cont': 0, 'fetch': 0, 'estimate': 0}
+    ctrl._fused_adaptive = True
+    try:
+        uend, stats = ControllerNonMPI.run(ctrl, u0, t0, Tend)
+    finally:
+        ctrl._fused_adaptive = False
+    # uend is a view of the program's buffers, which the next run overwrites
+    return uend.clone(), stats

@@ -30,9 +30,12 @@ overridden: each one runs the batched functions and then refreshes per-step
 hooks and policies read.  Iteration counts and the stats dictionary match the
 virtual controller entry for entry (gated in tests/test_torch_sharded.py).
 
+Per-step problem scalars (``newton_tol``, which a policy may write per step)
+enter the batched functions as ``(P,)`` tensors on the device (``overrides``).
+
 Not ported: the mesh half (a ``mesh`` other than ``None``, the owner-computes
-chain, per-step problem overrides) waits for ROADMAP queue 1, item 10b, and
-raises by name.
+chain) waits for ROADMAP queue 1, item 10b, the ``t_switch`` override for the
+switch estimator (item 13); both raise by name.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from pysdc_tpu_torch.core.state import LevelState, map_components
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI
 
 MESH_ITEM = 'ROADMAP queue 1, item 10b'
+SWITCH_ITEM = 'ROADMAP queue 1, item 13'
 
 
 def _where_mask(mask, new, old, axis=0):
@@ -101,17 +105,25 @@ class _BlockLevel:
         def predict(u0_block, t_arr, dt):
             return sweep.predict(prob, u0_block, t_arr, dt, 0.0)
 
-        # per-step problem scalars (newton_tol, t_switch) enter the JAX
-        # package's batched kernels as (P,) arguments; no ported problem has one
+        # mutable problem scalars (newton_tol, written per step by policies such as the JAX package's
+        # NewtonInexactness) enter the batched functions as (P,)-shaped arguments: the problem reads them
+        # where it would read its own attribute (the batched Newton takes one tolerance per step)
         self.traced_keys = tuple(k for k in ('newton_tol', 't_switch') if hasattr(prob, k))
 
-        def _no_overrides(overrides):
-            if overrides:
-                raise ControllerError(f'per-step problem overrides {sorted(overrides)} are not ported yet ({MESH_ITEM})')
+        def _with_ov(fn, ov):
+            if 't_switch' in ov:
+                raise ControllerError(f'the per-step override t_switch is not ported yet ({SWITCH_ITEM})')
+            old = {key: getattr(prob, key) for key in ov}
+            for key, val in ov.items():
+                setattr(prob, key, val)
+            try:
+                return fn()
+            finally:
+                for key, val in old.items():
+                    setattr(prob, key, val)
 
         def do_sweep(states, t_arr, dt, active, k, overrides=None):
-            _no_overrides(overrides)
-            new = sweep.update_nodes(prob, states, t_arr, dt, k)
+            new = _with_ov(lambda: sweep.update_nodes(prob, states, t_arr, dt, k), overrides or {})
             return _where_mask(active, new, states, axis=1)
 
         def residual(states, dt):
@@ -144,13 +156,13 @@ class _BlockLevel:
             end point its predecessor just produced, sweeps, hands forward.
             Inactive steps keep their data (the sweep is computed and masked:
             under a CUDA graph there is no branch to skip it)."""
-            _no_overrides(overrides)
             carry = states.u[0, 0]
             new_u, new_f, new_uend = [], [], []
             for q in range(P):
                 t_q, act_q = t_arr[q], active[q]
                 s_q = set_u0_one(_step_of(states, q), carry, t_q, recv_mask[q] & act_q)
-                s_sw = sweep.update_nodes(prob, s_q, t_q, dt, k)
+                ov_q = {key: v[q] for key, v in (overrides or {}).items()}
+                s_sw = _with_ov(lambda: sweep.update_nodes(prob, s_q, t_q, dt, k), ov_q)
                 ue_sw = sweep.compute_end_point(s_sw, t_q, dt)
                 new_u.append(torch.where(act_q, s_sw.u, s_q.u))
                 new_f.append(map_components(lambda a, b: torch.where(act_q, a, b), s_sw.f, s_q.f))
@@ -188,6 +200,10 @@ class _BlockLevel:
             qd = sweep._coeff(('diag QI', 0), lambda: np.diag(QI)[1:], lam)
             return uhat, tauhat, lam, (QI, W, qd)
 
+        def _dt_table(dt, k):
+            """``dt * QI`` once for all links of a chain (one product where ``dt`` is on the device)."""
+            return sweep.scaled_table(dt, sweep._qi(k), ('QI', 0))
+
         def _endpoint_hat(uh, th, lam, dt):
             """compute_end_point in the diagonal basis (linear in uhat)."""
             if sweep.coll.right_is_node and not sweep.do_coll_update:
@@ -211,13 +227,14 @@ class _BlockLevel:
             diag chain is an exact linear solve (no Newton, no switching)."""
             uhat, tauhat, lam, (QI, W, qd) = _hat_setup(states, k)
             uendhat = diag_op.diag_forward(uend)
+            dtQI = _dt_table(dt, k)
             carry = uhat[0, 0]
             new_uhat, new_uendhat = [], []
             for q in range(P):
                 act_q, th = active[q], tauhat[:, q]
                 uh = uhat[:, q]
                 uh = torch.cat([torch.where(recv_mask[q] & act_q, carry, uh[0]).unsqueeze(0), uh[1:]])
-                uh_new = torch.where(act_q, _one_sweep_diag(uh, lam, dt, QI, W, qd, th), uh)
+                uh_new = torch.where(act_q, _one_sweep_diag(uh, lam, dt, QI, W, qd, th, dtQI), uh)
                 carry = torch.where(act_q, _endpoint_hat(uh_new, th, lam, dt), uendhat[q])
                 new_uhat.append(uh_new)
                 new_uendhat.append(carry)
@@ -242,9 +259,10 @@ class _BlockLevel:
             """The same wavefront with ALL rounds in the diagonal basis."""
             uhat, tauhat, lam, (QI, W, qd) = _hat_setup(states, 0)
             uendhat = diag_op.diag_forward(uend)
+            dtQI = _dt_table(dt, 0)
             for q in range(n_rounds):
                 m = (ar >= q) & window
-                uhat = _where_mask(m, _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat), uhat, axis=1)
+                uhat = _where_mask(m, _one_sweep_diag(uhat, lam, dt, QI, W, qd, tauhat, dtQI), uhat, axis=1)
                 uendhat = _where_mask(m, _endpoint_hat(uhat, tauhat, lam, dt), uendhat)
                 recv = ((ar >= q + 1) & window).reshape((-1,) + (1,) * (uendhat.dim() - 1))
                 u0c = torch.cat([uhat[0, :1], uendhat[:-1]])
@@ -355,8 +373,8 @@ class ShardedController(ControllerNonMPI):
         ]
         #: resolved Gauss-Seidel chain strategy on the coarsest level
         self.coarse_mode = self.blocks[-1].select_coarse_impl(coarse_mode)
-        #: device values read on the host by the fused lane's last run:
-        #: ``cont`` flags and fetches of (uend, iters, res_hist), by kind
+        #: device values read on the host by a fused lane's last run: ``cont`` flags and fetches (of iteration
+        #: counts and residual histories; on the adaptive lane one per block, with the error estimates), by kind
         self.host_reads = {'cont': 0, 'fetch': 0}
 
     @property
@@ -371,12 +389,12 @@ class ShardedController(ControllerNonMPI):
         """Single entry point, like the reference's one ``run()``
         (controller_nonMPI.py:85).  ``lane='auto'`` (default) picks the
         fastest eligible execution path: the fused device-resident block
-        runner (parallel/fused.py) or the stage machine as the general
-        fallback (the adaptive fused lane is not ported yet and is never
-        eligible).  The chosen lane is logged and recorded in stats as a
-        ``type='lane'`` entry.  Pass ``lane='stage'`` to force the stage
-        machine (e.g. for per-sweep diagnostics) or ``lane='fused'`` to
-        require the fast lane."""
+        runner (parallel/fused.py), its adaptive sibling (embedded-error
+        adaptivity + restarts, one host read per block), or the stage
+        machine as the general fallback.  The chosen lane is logged and
+        recorded in stats as a ``type='lane'`` entry.  Pass ``lane='stage'``
+        to force the stage machine (e.g. for per-sweep diagnostics) or
+        ``lane='fused'``/``'fused_adaptive'`` to require a fast lane."""
         from pysdc_tpu_torch.parallel import fused
 
         if lane == 'auto':
@@ -384,8 +402,11 @@ class ShardedController(ControllerNonMPI):
                 fused.check_fused_eligibility(self)
                 lane = 'fused'
             except ControllerError:
-                # the JAX package tries its adaptive fused lane here; that lane is not ported (item 6b)
-                lane = 'stage'
+                try:
+                    fused.check_fused_adaptive_eligibility(self)
+                    lane = 'fused_adaptive'
+                except ControllerError:
+                    lane = 'stage'
 
         if lane == 'fused':
             uend, _ = fused.run_fused(self, u0, t0, Tend)
@@ -401,25 +422,35 @@ class ShardedController(ControllerNonMPI):
         )
         return uend, self.return_stats()
 
+    def _advance(self, block):
+        if getattr(self, '_fused_adaptive', False):
+            from pysdc_tpu_torch.parallel.fused import advance_fused_adaptive
+
+            return advance_fused_adaptive(self, block)
+        return super()._advance(block)
+
     def run_fused(self, u0, t0, Tend):
         """Whole-block device-resident run (parallel/fused.py): on the card
         the PFASST iterate-until-converged loop of a block is a few captured
         CUDA graphs replayed by a short host loop.  Same uend and iteration
         counts as :meth:`run` (gated in tests/test_torch_fused.py); stats
-        carry the default entries only.  Raises ControllerError for
+        carry the default entries only.  Adaptive configurations route to
+        the device-resident adaptive lane.  Raises ControllerError for
         configurations needing the stage machine (k-dependent
-        preconditioners, hooks needing per-sweep data, ...) and for adaptive
-        ones (the adaptive lane is ROADMAP queue 1, item 6b)."""
+        preconditioners, hooks needing per-sweep data, ...)."""
         from pysdc_tpu_torch.parallel import fused
 
         try:
             fused.check_fused_eligibility(self)
-        except ControllerError:
-            # raise the error for whichever lane the config is shaped for:
-            # maxiter-only termination is the adaptive lane's, which raises by name
-            if float(self.MS[0].levels[0].params.restol) < 0:
+        except ControllerError as plain_err:
+            try:
                 fused.check_fused_adaptive_eligibility(self)
-            raise
+            except ControllerError as adaptive_err:
+                # raise the error for whichever lane the config is shaped for
+                if float(self.MS[0].levels[0].params.restol) < 0:
+                    raise adaptive_err
+                raise plain_err
+            return fused.run_fused_adaptive(self, u0, t0, Tend)
         return fused.run_fused(self, u0, t0, Tend)
 
     # -- helpers ----------------------------------------------------------
@@ -457,12 +488,19 @@ class ShardedController(ControllerNonMPI):
         return dts.pop()
 
     def _block_overrides(self, lvl_idx):
-        """Per-step problem scalars (newton_tol, t_switch) of the JAX
-        package's batched kernels: no ported problem has them."""
+        """(P,)-shaped per-step problem scalars (newton_tol) read from the
+        shadow steps, as tensors on the device: policies write them per
+        step, the batched functions consume them as arguments."""
         keys = getattr(self.blocks[lvl_idx], 'traced_keys', ())
-        if keys:
-            raise ControllerError(f'per-step problem overrides {list(keys)} are not ported yet ({MESH_ITEM})')
-        return None
+        if not keys:
+            return None
+        if 't_switch' in keys:
+            raise ControllerError(f'the per-step override t_switch is not ported yet ({SWITCH_ITEM})')
+        return {
+            key: torch.as_tensor([float(getattr(S.levels[lvl_idx].prob, key)) for S in self.MS],
+                                 dtype=torch.float64, device=self.device)
+            for key in keys
+        }
 
     def _sync_level(self, running, lvl_idx):
         """Refresh shadow views: each step's Level points at its slice of the

@@ -49,11 +49,12 @@ class GenericImplicit(Sweeper):
         # (M, *shape): any tensor-valued RHS; problems with split RHS
         # (imex/comp2) pair with their dedicated sweepers
         ft = state.f[1:]
-        W = self._coeff(('q-QI', k if self.k_dependent else 0), lambda: self.coll.q - QI[1:, 1:], ft)
+        kk = k if self.k_dependent else 0
+        W = self._coeff(('q-QI', kk), lambda: self.coll.q - QI[1:, 1:], ft)
         integral = dt * torch.tensordot(W, ft, dims=1) + state.u[0].unsqueeze(0) + state.tau
 
         if is_diagonal(QI):
-            u_new = prob.solve_system_batched(integral, dt * np.diag(QI)[1:], state.u[1:], ts)
+            u_new = prob.solve_system_batched(integral, self.scaled_table(dt, QI, ('QI', kk)).diagonal()[1:], state.u[1:], ts)
             f_new = prob.eval_f_batched(u_new, ts)
             u = torch.cat([state.u[:1], u_new])
             f = torch.cat([state.f[:1], f_new])
@@ -62,19 +63,20 @@ class GenericImplicit(Sweeper):
         # sequential Gauss-Seidel-style sweep over the M nodes
         u_list = list(state.u.unbind(0))
         f_list = list(state.f.unbind(0))
+        dtQI = self.scaled_table(dt, QI, ('QI', kk))
         for m in range(M):
             rhs = integral[m]
             for j in range(1, m + 1):
                 if QI[m + 1, j] != 0.0:
-                    rhs = rhs + dt * float(QI[m + 1, j]) * f_list[j]
-            alpha = float(QI[m + 1, m + 1])
-            if alpha == 0.0:
+                    rhs = rhs + self.entry(dtQI, m + 1, j) * f_list[j]
+            shift = self.entry(dtQI, m + 1, m + 1)
+            if QI[m + 1, m + 1] == 0.0:
                 u_list[m + 1] = rhs
             elif prob.accepts_node_index:
                 # the node index selects the prepared factorization
-                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], self.node_time(ts, m), node=m)
+                u_list[m + 1] = prob.solve_system(rhs, shift, u_list[m + 1], self.node_time(ts, m), node=m)
             else:
-                u_list[m + 1] = prob.solve_system(rhs, dt * alpha, u_list[m + 1], self.node_time(ts, m))
+                u_list[m + 1] = prob.solve_system(rhs, shift, u_list[m + 1], self.node_time(ts, m))
             f_list[m + 1] = prob.eval_f(u_list[m + 1], self.node_time(ts, m))
 
         return LevelState(u=torch.stack(u_list), f=torch.stack(f_list), tau=state.tau)

@@ -61,7 +61,7 @@ class IMEXSweeper(Sweeper):
         )
 
         if is_diagonal(QI) and not np.any(QE[1:, 1:]):
-            u_new = prob.solve_system_batched(integral, dt * np.diag(QI)[1:], state.u[1:], ts)
+            u_new = prob.solve_system_batched(integral, self.scaled_table(dt, QI, ('QI', kk)).diagonal()[1:], state.u[1:], ts)
             f_new = prob.eval_f_batched(u_new, ts)
             u = torch.cat([state.u[:1], u_new])
             f = map_components(lambda old, new: torch.cat([old[:1], new]), state.f, f_new)
@@ -71,14 +71,15 @@ class IMEXSweeper(Sweeper):
         u_list = list(state.u.unbind(0))
         fi_list = list(state.f.impl.unbind(0))
         fe_list = list(state.f.expl.unbind(0))
+        dtQI, dtQE = self.scaled_table(dt, QI, ('QI', kk)), self.scaled_table(dt, QE, ('QE', kk))
         for m in range(M):
             rhs = integral[m]
             for j in range(1, m + 1):
                 if QI[m + 1, j] != 0.0:
-                    rhs = rhs + dt * float(QI[m + 1, j]) * fi_list[j]
+                    rhs = rhs + self.entry(dtQI, m + 1, j) * fi_list[j]
                 if QE[m + 1, j] != 0.0:
-                    rhs = rhs + dt * float(QE[m + 1, j]) * fe_list[j]
-            alpha = dt * float(QI[m + 1, m + 1])
+                    rhs = rhs + self.entry(dtQE, m + 1, j) * fe_list[j]
+            alpha = self.entry(dtQI, m + 1, m + 1)
             if prob.accepts_node_index:
                 # the node index selects the prepared factorization
                 u_list[m + 1] = prob.solve_system(rhs, alpha, u_list[m + 1], self.node_time(ts, m), node=m)

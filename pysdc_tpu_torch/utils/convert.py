@@ -7,9 +7,14 @@ back.  RHS containers are matched by their field names, so the JAX
 package's ``IMEX``/``Comp2`` become the port's.
 
 ``step_to_numpy`` / ``step_to_torch`` carry a whole multi-level step across:
-the first reads every level's ``(u, f, tau)``, ``uold`` and ``fold`` of a
-step of either package as numpy, the second writes such a list into the
-levels of a step of the port, each on its problem's device.
+the first reads every level's ``(u, f, tau)``, ``uold`` (the previous sweep's
+``u`` that ``StoreUOld`` keeps, or what a restriction left), ``fold`` and step
+size ``dt`` of a step of either package as numpy, the second writes such a
+list into the levels of a step of the port, each on its problem's device: a
+block that adaptivity rejected (the new ``dt`` on the finest level, the old
+one below) reaches both packages in the same state.  ``dts_to_torch`` /
+``dts_to_numpy`` carry a block's per-level step sizes as the float64 tensor
+the fused lanes read them from.
 
 ``dia_to_torch`` / ``bsr_to_torch`` carry sparse operators across: the
 fields of the JAX package's ``DIA`` and ``BSR`` containers, as numpy arrays,
@@ -64,12 +69,13 @@ def state_to_numpy(state) -> LevelState:
 
 def step_to_numpy(step) -> list[dict]:
     """Per level of ``step`` (of either package): ``state`` as a numpy
-    :class:`LevelState`, ``uold`` and ``fold`` as numpy (None where unset)."""
+    :class:`LevelState`, ``uold`` and ``fold`` as numpy (None where unset), ``dt`` as a float."""
     return [
         dict(
             state=None if lvl.state is None else state_to_numpy(lvl.state),
             uold=None if lvl.uold is None else to_numpy(lvl.uold),
             fold=None if lvl.fold is None else _rhs(lvl.fold, to_numpy),
+            dt=None if lvl.params.dt is None else float(lvl.params.dt),
         )
         for lvl in step.levels
     ]
@@ -87,7 +93,19 @@ def step_to_torch(levels: list[dict], step, dtype=None):
         lvl.uold = None if data['uold'] is None else conv(data['uold'])
         lvl.fold = None if data['fold'] is None else _rhs(data['fold'], conv)
         lvl.status.unlocked = lvl.state is not None
+        if data.get('dt') is not None:
+            lvl.params.dt = float(data['dt'])
     return step
+
+
+def dts_to_torch(dts, device) -> torch.Tensor:
+    """A block's per-level step sizes (finest first) as the float64 tensor of
+    ``nlevels`` entries that the fused lanes' programs take as an input."""
+    return torch.as_tensor(np.asarray(dts, dtype=np.float64).reshape(-1).copy(), dtype=torch.float64, device=device)
+
+
+def dts_to_numpy(dts) -> np.ndarray:
+    return to_numpy(dts).astype(np.float64).reshape(-1)
 
 
 def dia_to_torch(data, offsets, shape, grid=None, device='cuda') -> DIA:

@@ -9,6 +9,7 @@ run to 1e-10 and with the port's stage machine to 1e-11.
 """
 
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -240,8 +241,9 @@ def test_run_fused_over_an_empty_horizon_marches_nothing():
 
 
 def test_fused_programs_follow_dt_and_times():
-    """One controller, run twice: a second march from another start time reuses the program (times are
-    inputs), another ``dt`` makes a new one."""
+    """One controller, one program: a second march from another start time and a march at another ``dt`` reuse it
+    (times and step sizes are inputs that the pieces read from the device), and each result equals a fresh
+    controller's that was built for that ``dt``."""
     name = 'imex-forced-jacobi-P2'
     parts, num_procs, controller_params, Tend = RUNS[name]
     pkg, desc = _description('torch', parts)
@@ -254,9 +256,25 @@ def test_fused_programs_follow_dt_and_times():
     for step in ctrl.MS:
         step.levels[0].params.dt = 0.025
     half, stats = ctrl.run_fused(prob.u_exact(0.0), 0.0, 0.1)
-    assert len(ctrl._fused_fn._programs) == 2
+    assert len(ctrl._fused_fn._programs) == 1
     assert [round(k.time, 10) for k in stats if k.type == 'niter'] == [0.0, 0.025, 0.05, 0.075]
     assert float((half - mid).abs().max()) < 1e-6  # both converged to the collocation solution of their dt
+
+    fresh = {}
+    for dt in (0.05, 0.025):
+        _, desc_dt = _description('torch', dict(parts, level_params=dict(restol=1e-10, dt=dt)))
+        other = pkg.ShardedController(num_procs, {'logger_level': 40}, desc_dt)
+        fresh[dt] = other.run_fused(prob.u_exact(0.0), 0.0, 0.1)
+        assert len(other._fused_fn._programs) == 1
+    np.testing.assert_allclose(to_numpy(mid), to_numpy(fresh[0.05][0]), rtol=0, atol=1e-14)
+    np.testing.assert_allclose(to_numpy(half), to_numpy(fresh[0.025][0]), rtol=0, atol=1e-14)
+    niter = lambda st: [v for _, v in pkg.get_sorted(st, type='niter', sortby='time')]  # noqa: E731
+    assert niter(stats) == niter(fresh[0.025][1])
+    # the same through the block function itself, dt as a host number and as a tensor on the device
+    t_arr, window = [0.0, 0.025], [True, True]
+    a = ctrl._fused_fn(prob.u_exact(0.0), t_arr, 0.025, window)
+    b = ctrl._fused_fn(prob.u_exact(0.0), t_arr, torch.tensor(0.025, dtype=torch.float64), window)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and len(ctrl._fused_fn._programs) == 1
 
 
 class _PerSweepHook(Hooks):
@@ -323,10 +341,23 @@ def test_lane_stats_contract():
 @pytest.mark.parametrize('entry', ['check_fused_adaptive_eligibility', 'run_fused_adaptive',
                                    'advance_fused_adaptive', 'build_fused_adaptive_block'])
 def test_adaptive_lane_raises_naming_the_roadmap(entry):
+    """The adaptive lane is ported: nothing of it names a ROADMAP item any more.  On this plain configuration
+    (restol >= 0) its entry points raise what the lane needs, and ``build_fused_adaptive_block`` captures nothing yet."""
     ctrl = _block('pfasst-P2', 'fused')['ctrl']
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 6b'):
-        getattr(fused, entry)(ctrl)
-    with pytest.raises(ControllerError, match='item 6b'):
+    fn = getattr(fused, entry)
+    if entry == 'build_fused_adaptive_block':
+        program = fn(ctrl)
+        assert callable(program) and program._programs == {} and program.maxiter == 50
+    elif entry == 'advance_fused_adaptive':
+        with pytest.raises(ControllerError, match='must start at SPREAD') as err:
+            fn(ctrl, [SimpleNamespace(status=SimpleNamespace(stage='IT_CHECK'))])
+        assert 'ROADMAP' not in str(err.value)
+    else:
+        args = (ctrl,) if entry.startswith('check') else (ctrl, None, 0.0, 1.0)
+        with pytest.raises(ControllerError, match='restol < 0') as err:
+            fn(*args)
+        assert 'ROADMAP' not in str(err.value)
+    with pytest.raises(ControllerError, match='maxiter-only termination'):
         ctrl.run(None, 0.0, 1.0, lane='fused_adaptive')
 
 
@@ -335,7 +366,7 @@ def test_run_fused_of_an_adaptive_shape_names_the_adaptive_lane():
     pkg, desc = _description('torch', _step6(level_params=dict(restol=-1.0, dt=0.125), step_params=dict(maxiter=3),
                                              convergence_controllers={_OtherCheck: {}}))
     ctrl = pkg.ShardedController(2, {'logger_level': 40, **BURNIN}, desc)
-    with pytest.raises(ControllerError, match='item 6b'):
+    with pytest.raises(ControllerError, match='_OtherCheck is not supported by the adaptive fused lane'):
         ctrl.run_fused(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.25)
 
 
@@ -348,15 +379,29 @@ def test_mesh_and_owner_chain_raise_naming_the_roadmap():
 
 
 def test_per_step_overrides_raise_naming_the_roadmap():
-    """``newton_tol`` / ``t_switch`` on a problem would be per-step arguments of the batched functions."""
+    """``newton_tol`` on a problem is a per-step ``(P,)`` argument of the batched functions; ``t_switch`` waits
+    for the switch estimator and raises naming its item."""
     pkg, desc = _description('torch', _single())
     ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
     assert ctrl._block_overrides(0) is None
-    for step in ctrl.MS:
-        step.levels[0].prob.newton_tol = 1e-9
-    ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
+    for step, tol in zip(ctrl.MS, (1e-9, 1e-7)):
+        step.levels[0].prob.newton_tol = tol
     ctrl.blocks[0].traced_keys = ('newton_tol',)
-    with pytest.raises(ControllerError, match='item 10b'):
+    ov = ctrl._block_overrides(0)
+    assert ov['newton_tol'].tolist() == [1e-9, 1e-7] and ov['newton_tol'].dtype == torch.float64
+
+    # a sweep under overrides: the problem reads them as its attribute while the sweep runs, and gets its own back
+    prob = ctrl.blocks[0].level.prob
+    u0 = prob.u_exact(0.0)
+    t_arr = torch.zeros(2, dtype=torch.float64)
+    state = ctrl.blocks[0].predict(torch.stack([u0, u0]), t_arr, 0.1)
+    mask = torch.ones(2, dtype=torch.bool)
+    plain = ctrl.blocks[0].sweep(state, t_arr, 0.1, mask, 0)
+    with_ov = ctrl.blocks[0].sweep(state, t_arr, 0.1, mask, 0, ov)
+    assert torch.equal(plain.u, with_ov.u) and prob.newton_tol == 1e-9
+
+    ctrl.blocks[0].traced_keys = ('newton_tol', 't_switch')
+    with pytest.raises(ControllerError, match='item 13'):
         ctrl._block_overrides(0)
-    with pytest.raises(ControllerError, match='item 10b'):
-        ctrl.blocks[0].sweep(None, None, 0.1, None, 0, {'newton_tol': 1.0})
+    with pytest.raises(ControllerError, match='item 13'):
+        ctrl.blocks[0].sweep(None, None, 0.1, None, 0, {'t_switch': 1.0})

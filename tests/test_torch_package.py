@@ -33,6 +33,9 @@ _NO_JAX = (
     'pysdc_tpu_torch.ops.diag_sdc',
     'import pysdc_tpu_torch.parallel.sharded, pysdc_tpu_torch.parallel.fused; '
     'from pysdc_tpu_torch import ShardedController',
+    'import pysdc_tpu_torch.convergence.adaptivity, pysdc_tpu_torch.convergence.estimate_embedded_error, '
+    'pysdc_tpu_torch.convergence.step_size_limiter, pysdc_tpu_torch.convergence.store_uold, '
+    'pysdc_tpu_torch.hooks.logging_hooks, pysdc_tpu_torch.models.odes, pysdc_tpu_torch.models.allen_cahn',
     'import chip_smoke',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
@@ -63,20 +66,53 @@ def test_unported_parts_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         sparse.A.solve_shifted_gmres(u, 0.1, u)
 
-    # the block controller: a mesh, the owner-computes chain and the adaptive fused lane
+    # the block controller: a mesh and the owner-computes chain
     from pysdc_tpu_torch import GenericImplicit, ShardedController
     from pysdc_tpu_torch.core.errors import ControllerError
-    from pysdc_tpu_torch.parallel import fused
 
     desc = dict(problem_class=HeatND, problem_params=dict(nvars=8, device='cpu'), sweeper_class=GenericImplicit,
                 sweeper_params=dict(num_nodes=2), level_params=dict(dt=0.1))
     for kwargs in (dict(mesh='a mesh'), dict(coarse_mode='owner')):
         with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
             ShardedController(2, {'logger_level': 40}, desc, **kwargs)
+
+    # the adaptivity classes that wait for their sweepers or estimators, and the fully implicit Allen-Cahn solve
+    import pysdc_tpu_torch.convergence as conv
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
+
+    for name, item in (('AdaptivityRK', 'item 12'), ('AdaptivityResidual', 'item 13'),
+                       ('EstimateEmbeddedErrorCollocation', 'item 13')):
+        with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1, {item}'):
+            getattr(conv, name)(None, {}, desc)
+    prob = AllenCahnPeriodicND(nvars=(8, 8), device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item 9'):
+        prob.solve_system(prob.u_exact(0.0), 0.1, None, 0.0)
+
+
+def test_adaptive_lane_and_e_tol_run():
+    """What raised "not ported" until the adaptive slice now runs: ``CheckConvergence(e_tol=...)`` registers its
+    estimator, and an ``Adaptivity`` configuration goes to the adaptive fused lane through ``run()``."""
+    from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit, ShardedController, get_sorted
+    from pysdc_tpu_torch.convergence import Adaptivity
+    from pysdc_tpu_torch.models.odes import VanDerPol
+    from pysdc_tpu_torch.parallel import fused
+
+    desc = dict(problem_class=VanDerPol, problem_params=dict(newton_tol=1e-10, device='cpu'),
+                sweeper_class=GenericImplicit, sweeper_params=dict(num_nodes=3, QI='LU'),
+                level_params=dict(dt=1e-2, restol=-1.0, e_tol=1e-8), step_params=dict(maxiter=10))
+    ctrl = ControllerNonMPI(1, {'logger_level': 40}, desc)
+    assert 'EstimateEmbeddedError' in [type(C).__name__ for C in ctrl.convergence_controllers]
+    _, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.02)
+    assert all(0 < v < 10 for _, v in get_sorted(stats, type='niter'))
+
+    desc = dict(desc, level_params=dict(dt=1e-2, restol=-1.0), step_params=dict(maxiter=4),
+                convergence_controllers={Adaptivity: {'e_tol': 1e-6}})
     ctrl = ShardedController(2, {'logger_level': 40}, desc)
-    for entry in (fused.check_fused_adaptive_eligibility, fused.run_fused_adaptive):
-        with pytest.raises(ControllerError, match='ROADMAP queue 1, item 6b'):
-            entry(ctrl)
+    fused.check_fused_adaptive_eligibility(ctrl)
+    uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.03)
+    assert [v for k, v in stats.items() if k.type == 'lane'] == ['fused_adaptive']
+    assert torch.isfinite(uend).all() and ctrl.host_reads['cont'] == 0 and ctrl.host_reads['fetch'] >= 1
+    assert len(ctrl._fused_adaptive_fn._programs) == 1
 
 
 def test_chip_smoke_fails_without_a_card_and_alone():
