@@ -106,6 +106,34 @@ raises and the script exits nonzero without printing the final line:
    clock, kernels and busy time by the profiler, idle share, host reads, ms a
    graph.
 
+24. implicit kernels — K1 against its plain version at the shapes and taps of
+   the Newton-Krylov paths (the fully implicit Allen-Cahn operator at 1024^2
+   and 128^2, HeatND's CG / GMRES runs), float32 and float64, both paths.
+25. implicit — the slice's main path: ``AllenCahnPeriodicND`` 1024^2 float64
+   (eps 0.04, newton_tol 1e-10; bench.py:899 and :209 in the fully implicit
+   splitting of examples/step_20_allen_cahn_campaign.py:34), ``GenericImplicit``
+   M=3 RADAU-RIGHT LU, dt 2e-4, restol 1e-8, maxiter 12, 4 steps, through
+   ``ControllerNonMPI``: every step converges, every Newton solve reaches
+   newton_tol, the K1 launch count equals the eval_f applies plus what the
+   Newton / PCG traces imply (1 + sum(3 + PCG steps computed) a solve), all on
+   bands at shapes phase 24 covered; host reads exactly ceil(k / R) + 1 a
+   loop; against the same run through the plain apply: equal ``niter`` and
+   traces, ``uend`` to 1e-10.
+26. implicit parity — the same at 128^2 on the card against the CPU: equal
+   ``niter`` and traces, ``uend`` to 1e-11.
+27. implicit fused — the 128^2 problem through ``ShardedController(4).run``:
+   ``'auto'`` takes the fused lane (Newton and PCG captured as fixed-depth
+   masked loops) and equals the stage lane (``niter``, ``uend`` to 1e-10,
+   Newton flags clear); a replayed block passes the K1 wrapper 0 times.
+28. krylov and spectral — HeatND 512^2 float64 with CG and GMRES (lintol
+   1e-10) against the direct solve, and at 128^2 card against CPU (equal counts
+   a solve); each spectral model at 64^2 card against CPU; the multi-implicit
+   Gray-Scott problems' pointwise Newton.
+29. implicit times — one sweep of the main path by kind of work (K1, cuFFT,
+   the rest, idle); the sweep at 1024^2 and 128^2 and the 1024^2 sparse sweep
+   with ``READ_EVERY`` 1 (the module's value) and 2 in 10 alternating pairs,
+   host reads and work a sweep.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +145,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -175,6 +204,19 @@ ADAPTIVE_PARITY_TOL = 1e-10  # fp64, card against CPU: dt (relative) and uend
 # differently: relative 1e-7 at worst, a fourth of it in dt.  This script measured a dt gap of 3.3e-9 (uend 6.6e-11)
 ADAPTIVE_PARITY_DT_TOL_AC = 1e-7
 DIAG_SWEEPS_BOUND = 5e-4  # |uend(diagonal_sweeps) - uend(8 x update_nodes)| at 2048^2, the float32 floor above
+# the Newton-Krylov slice: the fully implicit Allen-Cahn problem of bench_campaign_ac_1024 (bench.py:899) and
+# bench_tpu_allen_cahn (bench.py:209), the 'fully_implicit' entry of examples/step_20_allen_cahn_campaign.py:34, in
+# float64: newton_pde's lin_tol of 1e-13 and the newton_tol sit below float32 roundoff at this width
+N_FI, M_FI, DT_FI, RESTOL_FI, MAXITER_FI, STEPS_FI, NEWTON_TOL_FI = 1024, 3, 2e-4, 1e-8, 12, 4, 1e-10
+NEWTON_MAXITER_FI, LIN_MAXITER_FI = 100, 50  # AllenCahnPeriodicND's default and newton_pde's fixed PCG depth
+N_FI_SMALL, P_FI = 128, 4  # card against CPU, and the fused lane (ShardedController(4), one block)
+FI_PLAIN_BOUND = 1e-10  # |uend - uend through the plain apply|, float64, equal traces
+FI_FUSED_BOUND = 1e-10  # |uend(fused lane) - uend(stage lane)|, float64
+# CG / GMRES: HeatND 512^2 periodic float64 with lintol 1e-10 (restol 1e-8: an iterative solve to lintol relative
+# leaves a residual floor near lintol); against the direct solve a CPU run measured 2.0e-11 (CG) and 2.7e-13 (GMRES)
+N_KRYLOV, N_KRYLOV_PARITY, KRYLOV_LINTOL, KRYLOV_RESTOL, KRYLOV_STEPS = 512, 128, 1e-10, 1e-8, 2
+KRYLOV_DIRECT_BOUND = 1e-9
+N_SPECTRAL = 64
 
 
 def _card():
@@ -1969,6 +2011,496 @@ def phase_adaptive_times(runs, card):
               + f'; a block replays start, {MAXITER_AD} x (check, work), check = {replayed:.3f} ms [{card}]')
 
 
+# -- the Newton-Krylov slice ---------------------------------------------------------------------------------------
+def _implicit_description(n, dtype, device, **problem):
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
+
+    return dict(
+        problem_class=AllenCahnPeriodicND,
+        problem_params=dict(nvars=(n, n), eps=0.04, radius=0.25, newton_tol=NEWTON_TOL_FI, dtype=dtype, device=device,
+                            **problem),
+        sweeper_class=GenericImplicit,
+        sweeper_params=dict(num_nodes=M_FI, quad_type='RADAU-RIGHT', QI='LU'),
+        level_params=dict(dt=DT_FI, restol=RESTOL_FI),
+        step_params=dict(maxiter=MAXITER_FI),
+    )
+
+
+def _loop_steps(k, maxiter, R):
+    """Iterations a masked loop computes for a count of ``k``: up to the next read, at most ``maxiter``."""
+    return min(maxiter, R * math.ceil(k / R))
+
+
+def _newton_budget(trace, R):
+    """(operator applies, host reads) that the Newton solves of ``trace`` make with ``READ_EVERY = R``: per solve
+    ``G(u0)``, then per Newton step computed ``G(u)``, ``J(x0)``, one a PCG step computed and ``G`` of the update;
+    a loop of ``k`` iterations reads ``ceil(k / R) + 1`` times, a masked Newton step's PCG once."""
+    applies = reads = 0
+    for k_newton, pcg in trace:
+        masked = _loop_steps(k_newton, NEWTON_MAXITER_FI, R) - k_newton
+        applies += 1 + sum(3 + _loop_steps(k, LIN_MAXITER_FI, R) for k in pcg) + 3 * masked
+        reads += math.ceil(k_newton / R) + 1 + sum(math.ceil(k / R) + 1 for k in pcg) + masked
+    return applies, reads
+
+
+def _implicit_k1_cases():
+    """(name, taps, shapes): what the Newton-Krylov paths give K1 (the fused lane's block of P_FI steps, its node
+    stacks and one field of the serial chain; the main path's field and node stack; HeatND's CG / GMRES runs)."""
+    import torch
+
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    def taps(cls, n, **kw):
+        return cls(nvars=(n, n), dtype=torch.float64, device='cuda', **kw).A._cross_terms
+
+    n, m = N_FI_SMALL, M_FI
+    return [
+        (f'implicit allen-cahn {N_FI}', taps(AllenCahnPeriodicND, N_FI, eps=0.04), [(N_FI, N_FI), (m, N_FI, N_FI)]),
+        (f'implicit allen-cahn {n}', taps(AllenCahnPeriodicND, n, eps=0.04),
+         [(n, n), (m, n, n), (P_FI, n, n), (m, P_FI, n, n)]),
+        (f'krylov heat {N_KRYLOV}', taps(HeatND, N_KRYLOV, nu=0.1, freq=2, bc='periodic'),
+         [(N_KRYLOV, N_KRYLOV), (m, N_KRYLOV, N_KRYLOV)]),
+        (f'krylov heat {N_KRYLOV_PARITY}', taps(HeatND, N_KRYLOV_PARITY, nu=0.1, freq=2, bc='periodic'),
+         [(N_KRYLOV_PARITY, N_KRYLOV_PARITY), (m, N_KRYLOV_PARITY, N_KRYLOV_PARITY)]),
+    ]
+
+
+def phase_implicit_kernels():
+    """K1 against its plain version at the Newton-Krylov paths' shapes and taps, float32 and float64, on the bands
+    path the wrapper picks and with the general path forced.  Returns name -> (taps, shapes covered)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path
+
+    gen = torch.Generator(device='cuda').manual_seed(2718)
+    covered = {}
+    for name, terms, shapes in _implicit_k1_cases():
+        covered[name] = (terms, set(shapes))
+        for dtype in (torch.float32, torch.float64):
+            tol = _stencil_tolerance(terms, dtype)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            worst, worst_abs = 0.0, 0.0
+            for shape in shapes:
+                if choose_path(shape, terms, itemsize) != 'bands':
+                    raise AssertionError(f'K1 {name} {dtype} {shape}: the wrapper does not pick the bands path')
+                u = torch.rand(shape, generator=gen, device='cuda', dtype=dtype)  # a phase field lies in [0, 1]
+                err, rel = _k1_both_paths(name, terms, u, 'bands', tol)
+                worst, worst_abs = max(worst, rel), max(worst_abs, err)
+            print(f'implicit kernels: K1 {name:24s} {str(dtype):13s} max rel err {worst:.3e} <= tol {tol:.3e} (max abs '
+                  f'{worst_abs:.3e} on bands), on bands and with the general path forced, at {shapes}')
+    return covered
+
+
+def _covered_by(covered, terms, shapes, label):
+    names = [name for name, (t, _) in covered.items() if t == terms]
+    checked = set().union(*(covered[name][1] for name in names)) if names else set()
+    if not names or not shapes <= checked:
+        raise AssertionError(f'{label}: K1 ran at shapes {sorted(shapes)} or taps the kernel check did not cover '
+                             f'({sorted(checked)} under {names})')
+
+
+def _implicit_run(desc, plain=False):
+    """The fully implicit description through ``ControllerNonMPI(1, ...)`` from the initial circle, every operator
+    apply counted with its shape.  Returns a namespace of what the gates read."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    if plain:
+        prob.A.disable_pallas()
+    prob.solver_trace = []
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    launches0, paths0 = cross_stencil_2d.launches, dict(cross_stencil_2d.paths)
+    start = time.perf_counter()
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, STEPS_FI * DT_FI)
+    if uend.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return SimpleNamespace(
+        ctrl=ctrl, prob=prob, uend=uend, wall=wall, shapes=shapes, applies=applies[0], trace=list(prob.solver_trace),
+        niter=[v for _, v in get_sorted(stats, type='niter', sortby='time')],
+        residuals=[v for _, v in get_sorted(stats, type='residual_post_step', sortby='time')],
+        launches=cross_stencil_2d.launches - launches0,
+        paths={k: v - paths0[k] for k, v in cross_stencil_2d.paths.items()},
+    )
+
+
+def phase_implicit(card, covered):
+    """The slice's main path at full width: the fully implicit Allen-Cahn problem at 1024^2, float64, through
+    ``ControllerNonMPI``, with K1 and through the plain apply.  Returns (the K1 run, K1 launches)."""
+    import torch
+
+    from pysdc_tpu_torch.ops import loops
+
+    R = loops.READ_EVERY
+    desc = _implicit_description(N_FI, torch.float64, 'cuda')
+    run = _implicit_run(desc)
+    prob, niter, trace = run.prob, run.niter, run.trace
+    label = f'implicit: AllenCahnPeriodicND {N_FI}^2 fp64 eps 0.04, newton_tol {NEWTON_TOL_FI:g}, GenericImplicit ' \
+            f'M={M_FI} LU, dt {DT_FI:g}, restol {RESTOL_FI:g}, {STEPS_FI} steps'
+    if len(niter) != STEPS_FI or not all(0 < k < MAXITER_FI for k in niter) \
+            or not all(r <= RESTOL_FI for r in run.residuals):
+        raise AssertionError(f'{label}: niter {niter}, final residuals {run.residuals} against restol {RESTOL_FI}')
+    if len(trace) != M_FI * sum(niter) or not all(k < NEWTON_MAXITER_FI for k, _ in trace) \
+            or not all(1 <= k < LIN_MAXITER_FI for _, pcg in trace for k in pcg):
+        raise AssertionError(f'{label}: Newton solves {len(trace)} for niter {niter}, or a solve that did not reach '
+                             f'newton_tol / lin_tol: {trace}')
+    applies, reads = _newton_budget(trace, R)
+    evals = sum(2 + M_FI * k for k in niter)  # per step f(u0) and one batched f over the spread nodes, then M a sweep
+    if prob.solver_applies != applies or run.launches != evals + applies or run.applies != run.launches:
+        raise AssertionError(f'{label}: K1 launches {run.launches}, operator applies {run.applies}, expected {evals} '
+                             f'eval_f + {applies} in the Newton solves (the solves counted {prob.solver_applies})')
+    if run.paths != {'bands': run.launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches by path {run.paths}, expected all on bands')
+    _covered_by(covered, prob.A._cross_terms, run.shapes, label)
+    if prob.host_reads != reads or bool(prob.newton_failed):
+        raise AssertionError(f'{label}: host reads {prob.host_reads}, expected {reads} = ceil(k / {R}) + 1 a loop')
+    if run.uend.shape != (N_FI, N_FI) or run.uend.dtype != torch.float64 or not bool(torch.isfinite(run.uend).all()):
+        raise AssertionError(f'{label}: uend is not a finite float64 field of the grid shape')
+
+    plain = _implicit_run(desc, plain=True)
+    diff = (run.uend - plain.uend).abs().max().item()
+    if plain.launches != 0 or plain.niter != niter or plain.trace != trace or not diff <= FI_PLAIN_BOUND:
+        raise AssertionError(f'{label}: against the plain apply: niter {plain.niter}, traces equal {plain.trace == trace}, '
+                             f'|uend - uend_plain| {diff:.3e}, K1 launches {plain.launches}')
+    pcg = [k for _, ks in trace for k in ks]
+    per_pcg = [math.ceil(k / R) + 1 for k in pcg]
+    print(f'{label}: niter {niter}, final residuals {[float(f"{r:.3e}") for r in run.residuals]} <= {RESTOL_FI:g}; '
+          f'{len(trace)} Newton solves, Newton iterations per solve {sorted(set(k for k, _ in trace))} (all to newton_tol), '
+          f'PCG iterations per Newton step {min(pcg)}-{max(pcg)} (mean {sum(pcg) / len(pcg):.2f}); K1 launches '
+          f'{run.launches} = {evals} eval_f + {applies} in the solves (1 + sum(3 + PCG steps computed) a solve, with '
+          f'READ_EVERY {R}), all on bands at {sorted(run.shapes)}; host reads {prob.host_reads} = ceil(k/{R}) + 1 a '
+          f'loop ({prob.host_reads / sum(niter):.1f} a sweep; a PCG solve {min(per_pcg)}-{max(per_pcg)} reads for '
+          f'{min(pcg)}-{max(pcg)} iterations); Newton flag clear; through the plain apply: niter and every trace '
+          f'equal, |uend - uend_plain_apply| {diff:.3e} <= {FI_PLAIN_BOUND}; wall {run.wall:.3f} s (K1) / '
+          f'{plain.wall:.3f} s (plain) [{card}]')
+    print(f'implicit: Newton and PCG iterations per solve, the first 12 solves: {trace[:12]}')
+    return run, run.launches
+
+
+def phase_implicit_parity():
+    """Float64, the fully implicit path at 128^2 on the card against the CPU: equal niter and traces."""
+    import torch
+
+    card, cpu = (_implicit_run(_implicit_description(N_FI_SMALL, torch.float64, device)) for device in ('cuda', 'cpu'))
+    diff = (card.uend.cpu() - cpu.uend).abs().max().item()
+    if card.niter != cpu.niter or card.trace != cpu.trace or not diff <= PARITY_UEND_TOL:
+        raise AssertionError(f'implicit parity: niter card {card.niter} cpu {cpu.niter}, traces equal '
+                             f'{card.trace == cpu.trace}, uend diff {diff:.3e}')
+    print(f'implicit parity: AllenCahnPeriodicND {N_FI_SMALL}^2 fp64, {STEPS_FI} steps: niter {card.niter} and all '
+          f'{len(card.trace)} Newton / PCG traces equal on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+
+def phase_implicit_fused(card, covered):
+    """The fully implicit path through ``ShardedController(4).run``: ``'auto'`` must take the fused lane (Newton
+    and PCG captured as fixed-depth masked loops) and agree with the stage lane.  Returns the K1 launches of the
+    wrapper in the first run (warm-up and capture)."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    desc = _implicit_description(N_FI_SMALL, torch.float64, 'cuda')
+    ctrl = ShardedController(P_FI, {'logger_level': 30}, desc)
+    stage = ShardedController(P_FI, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    u0, Tend = prob.u_exact(0.0), STEPS_FI * DT_FI
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, stats = ctrl.run(u0, 0.0, Tend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, by_path, reads = cross_stencil_2d.launches, dict(cross_stencil_2d.paths), dict(ctrl.host_reads)
+    uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+    label = f'implicit fused: ShardedController({P_FI}) AllenCahnPeriodicND {N_FI_SMALL}^2 fp64, one block'
+    lane = [v for k, v in stats.items() if k.type == 'lane']
+    niter, niter_s = _niter(stats), _niter(stats_s)
+    diff = (uend - uend_s).abs().max().item()
+    flags = [bool(blk.level.prob.newton_failed) for blk in ctrl.blocks]
+    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= FI_FUSED_BOUND or any(flags):
+        raise AssertionError(f'{label}: lane {lane}, niter {niter} against the stage lane\'s {niter_s}, |uend_fused - '
+                             f'uend_stage| {diff:.3e}, Newton flags {flags}')
+    if launches < 1 or launches != sum(applies.values()) or by_path != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches {launches} by path {by_path}, operator applies {applies}')
+    _covered_by(covered, prob.A._cross_terms, shapes, label)
+    if reads['fetch'] != 1 or reads['cont'] > max(niter):
+        raise AssertionError(f'{label}: host reads {reads}')
+    # a replayed block (no profiler here: the graphs hold some 10^5 kernels, whose trace takes a minute)
+    cross_stencil_2d.launches = 0
+    start = time.perf_counter()
+    uend2, stats2 = ctrl.run_fused(u0, 0.0, Tend)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - start
+    if cross_stencil_2d.launches != 0 or _niter(stats2) != niter or not torch.equal(uend2, uend):
+        raise AssertionError(f'{label}: a replayed block passed the wrapper {cross_stencil_2d.launches} times or '
+                             f'differs from the first')
+    print(f'{label}: lane {lane[0]}, niter {niter} = the stage lane\'s, |uend_fused - uend_stage| {diff:.3e} <= '
+          f'{FI_FUSED_BOUND}, Newton flags clear (depth {ctrl.MS[0].levels[0].prob.newton_maxiter} eager, '
+          f'min(newton_maxiter, CAPTURE_DEPTH) x {LIN_MAXITER_FI} masked PCG iterations a solve in the graphs); K1 '
+          f'through the wrapper {launches} (warm-up and capture; = applies) at {sorted(shapes)}, all on bands; a replayed '
+          f'block passes the wrapper 0 times and equals the first bit for bit; host reads {reads}; wall {wall:.3f} s incl. '
+          f'capture, {replay_s:.3f} s a replayed block [{card}]')
+    return launches
+
+
+def _krylov_description(n, device, solver_type):
+    import torch
+
+    desc = _heat_description(n, torch.float64, device, restol=KRYLOV_RESTOL, maxiter=20)
+    desc['problem_params'] = dict(desc['problem_params'], solver_type=solver_type, lintol=KRYLOV_LINTOL)
+    desc['sweeper_params'] = dict(desc['sweeper_params'], num_nodes=M_FI)
+    return desc
+
+
+def _krylov_run(n, device, solver_type):
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, _krylov_description(n, device, solver_type))
+    prob = ctrl.MS[0].levels[0].prob
+    prob.A.krylov_trace = []
+    launches = cross_stencil_2d.launches
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, KRYLOV_STEPS * DT)
+    return SimpleNamespace(uend=uend.cpu(), niter=[v for _, v in get_sorted(stats, type='niter', sortby='time')],
+                           trace=list(prob.A.krylov_trace), reads=prob.A.host_reads,
+                           launches=cross_stencil_2d.launches - launches, prob=prob)
+
+
+def _spectral_cases(device):
+    """name -> (problem class, params, dt, steps): each spectral model at N_SPECTRAL^2 (1D: N_SPECTRAL points)."""
+    import torch
+
+    from pysdc_tpu_torch import models
+
+    n2 = (N_SPECTRAL, N_SPECTRAL)
+    f64 = dict(dtype=torch.float64, device=device)
+    return {
+        'AdvectionDiffusion1D': (models.AdvectionDiffusion1D, dict(nvars=N_SPECTRAL, **f64), 0.01, 3),
+        'Brusselator': (models.Brusselator, dict(nvars=n2, **f64), 0.01, 2),
+        'GrayScott': (models.GrayScott, dict(nvars=n2, num_blobs=3, **f64), 1.0, 2),
+        'GrayScottLinearIMEX': (models.GrayScottLinearIMEX, dict(nvars=n2, **f64), 1.0, 2),
+        'NonlinearSchroedinger': (models.NonlinearSchroedinger, dict(nvars=n2, dtype=torch.complex128, device=device),
+                                  0.01, 2),
+        'AllenCahnSpectralND': (models.AllenCahnSpectralND, dict(nvars=n2, eps=0.04, dw=-0.5, **f64), 1e-4, 2),
+        'AllenCahnSpectralND circle_rand': (models.AllenCahnSpectralND, dict(nvars=n2, eps=0.1, L=2.0,
+                                                                            init_type='circle_rand', **f64), 1e-3, 2),
+        'AllenCahnSpectralTimeForcing': (models.AllenCahnSpectralTimeForcing, dict(nvars=n2, eps=0.04, **f64), 1e-4, 2),
+        'AllenCahn2DSpectral': (models.AllenCahn2DSpectral, dict(nvars=n2, eps=0.04, **f64), 1e-4, 2),
+        'AllenCahn2DSpectralStab': (models.AllenCahn2DSpectralStab, dict(nvars=n2, eps=0.04, **f64), 1e-4, 2),
+        'AllenCahnTempSpectralND': (models.AllenCahnTempSpectralND, dict(nvars=n2, eps=0.04, dw=-0.5, **f64), 1e-4, 2),
+    }
+
+
+def phase_krylov_spectral(card, covered):
+    """CG and GMRES (HeatND 512^2 float64, lintol 1e-10) against the direct solve on the card and, at 128^2,
+    against the CPU (equal counts a solve); each spectral model at 64^2 on the card against the CPU.  Returns the
+    K1 launches of the CG and GMRES runs at 512^2."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, IMEXSweeper, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    direct = _krylov_run(N_KRYLOV, 'cuda', 'direct')
+    launches = 0
+    for kind in ('CG', 'GMRES'):
+        paths0 = dict(cross_stencil_2d.paths)
+        run = _krylov_run(N_KRYLOV, 'cuda', kind)
+        diff = (run.uend - direct.uend).abs().max().item()
+        n_solves = M_FI * sum(run.niter)
+        if run.niter != direct.niter or len(run.trace) != n_solves or not diff <= KRYLOV_DIRECT_BOUND:
+            raise AssertionError(f'krylov: HeatND {N_KRYLOV}^2 {kind}: niter {run.niter} against the direct solve\'s '
+                                 f'{direct.niter}, {len(run.trace)} solves, |uend - uend_direct| {diff:.3e}')
+        # per step f(u0) and the spread, M a sweep; per solve one apply for r0 and one a step computed
+        iters = [k for _, k, _ in run.trace]
+        by_path = {k: v - paths0[k] for k, v in cross_stencil_2d.paths.items()}
+        if by_path != {'bands': run.launches, 'general': 0} or run.launches < n_solves:
+            raise AssertionError(f'krylov: {kind}: K1 launches {run.launches} by path {by_path}')
+        _covered_by(covered, run.prob.A._cross_terms, {(N_KRYLOV, N_KRYLOV), (M_FI, N_KRYLOV, N_KRYLOV)}, 'krylov')
+        # a converged sweep starts each solve from a node value that already meets lintol to roundoff: whether
+        # that solve takes 0 or 1 iterations is the card's or the CPU's rounding, so counts are reported, not held
+        on_card, on_cpu = (_krylov_run(N_KRYLOV_PARITY, device, kind) for device in ('cuda', 'cpu'))
+        pdiff = (on_card.uend - on_cpu.uend).abs().max().item()
+        differ = sum(a != b for a, b in zip(on_card.trace, on_cpu.trace))
+        if on_card.niter != on_cpu.niter or len(on_card.trace) != len(on_cpu.trace) or not pdiff <= KRYLOV_DIRECT_BOUND:
+            raise AssertionError(f'krylov: {kind} {N_KRYLOV_PARITY}^2 card against CPU: niter {on_card.niter} / '
+                                 f'{on_cpu.niter}, uend diff {pdiff:.3e}')
+        launches += run.launches
+        detail = (f'restarts a solve {min(iters)}-{max(iters)}, Arnoldi steps a restart '
+                  f'{sorted(set(a for _, _, ar in run.trace for a in ar))}' if kind == 'GMRES'
+                  else f'CG iterations a solve {min(iters)}-{max(iters)}')
+        print(f'krylov: HeatND {N_KRYLOV}^2 periodic fp64 solver_type={kind!r} lintol {KRYLOV_LINTOL:g}, M={M_FI} LU, '
+              f'{KRYLOV_STEPS} steps, restol {KRYLOV_RESTOL:g}: niter {run.niter} = the direct solve\'s, |uend - '
+              f'uend_direct| {diff:.3e} <= {KRYLOV_DIRECT_BOUND}; {n_solves} solves, {detail}; host reads {run.reads}; '
+              f'K1 launches {run.launches}, all on bands; at {N_KRYLOV_PARITY}^2 card against CPU: niter '
+              f'{on_card.niter} equal, {differ} of {len(on_card.trace)} solves with other counts, uend diff {pdiff:.3e} '
+              f'<= {KRYLOV_DIRECT_BOUND} [{card}]')
+
+    for name, (cls, params, dt, steps) in _spectral_cases('cuda').items():
+        out = []
+        for device in ('cuda', 'cpu'):
+            desc = dict(problem_class=cls, problem_params=dict(params, device=device), sweeper_class=IMEXSweeper,
+                        sweeper_params=dict(num_nodes=M_FI, quad_type='RADAU-RIGHT', QI='LU', QE='EE'),
+                        level_params=dict(dt=dt, restol=1e-10), step_params=dict(maxiter=20))
+            ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+            prob = ctrl.MS[0].levels[0].prob
+            u0 = prob.u_exact(0.0)
+            uend, stats = ctrl.run(u0, 0.0, steps * dt)
+            out.append((u0.cpu(), uend.cpu(), [v for _, v in get_sorted(stats, type='niter', sortby='time')]))
+        (u0_card, u_card, it_card), (u0_cpu, u_cpu, it_cpu) = out
+        scale = max(1.0, u_cpu.abs().max().item())
+        diff = (u_card - u_cpu).abs().max().item()
+        moved = (u_cpu - u0_cpu).abs().max().item()
+        if it_card != it_cpu or not max(it_card) < 20 or not diff <= PARITY_UEND_TOL * scale or not moved > 1e-8 \
+                or u_card.dtype != params['dtype']:
+            raise AssertionError(f'spectral: {name}: niter card {it_card} cpu {it_cpu}, uend diff {diff:.3e}, moved {moved:.3e}')
+        print(f'spectral: {name} {tuple(u_card.shape)} {u_card.dtype}, IMEX M={M_FI} LU/EE, dt {dt:g}, {steps} steps: niter '
+              f'{it_card} on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL * scale:.1e}')
+
+    # the multi-implicit Gray-Scott problems (their sweeper is ROADMAP item 12): the pointwise Newton on the card
+    from pysdc_tpu_torch import models
+
+    for cls in (models.GrayScottMultiImplicit, models.GrayScottMultiImplicitLinear):
+        got = []
+        for device in ('cuda', 'cpu'):
+            prob = cls(nvars=(N_SPECTRAL, N_SPECTRAL), newton_tol=1e-12, dtype=torch.float64, device=device)
+            u = prob.u_exact(0.0)
+            prob.newton_trace = []
+            got.append((prob.solve_system_2(u, 0.5, u, 0.0).cpu(), prob.newton_trace))
+        (x_card, it_card), (x_cpu, it_cpu) = got
+        diff = (x_card - x_cpu).abs().max().item()
+        if it_card != it_cpu or not diff <= PARITY_UEND_TOL:
+            raise AssertionError(f'spectral: {cls.__name__}.solve_system_2: Newton {it_card} / {it_cpu}, diff {diff:.3e}')
+        print(f'spectral: {cls.__name__} {N_SPECTRAL}^2 fp64 solve_system_2 (pointwise Newton): {it_card} '
+              f'iterations on card and CPU, diff {diff:.3e} <= {PARITY_UEND_TOL}')
+    return launches
+
+
+def _kernel_split(fn):
+    """ms the card spent over one call of ``fn()`` by kind of kernel (profiler): K1, cuFFT, the rest (elementwise
+    passes, reductions, copies), and the number of kernels."""
+    def device_us(e):
+        return getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0)
+
+    split = {'K1': 0.0, 'cuFFT': 0.0, 'other': 0.0}
+    n = 0
+    for e in _profiled(fn):
+        key = e.key.lower()
+        kind = 'K1' if 'cross_stencil' in key else 'cuFFT' if 'fft' in key else 'other'
+        split[kind] += device_us(e) / 1e3
+        n += e.count
+    if not sum(split.values()) > 0:
+        raise AssertionError('times: the profiler saw no device time')
+    return split, n
+
+
+def _read_every_pairs(fn, counters, pairs=10):
+    """``fn()`` timed with ``READ_EVERY`` at its value (1) and at 2, in ``pairs`` pairs of alternating order (CUDA
+    events and the host clock, ms a call, 3 calls a sample after one untimed).  ``counters()`` gives two counts so
+    far (host reads, and the work the loops computed).  Returns R -> (card ms, host ms, reads a call, work a call)
+    per sample, and the module value's wins."""
+    from pysdc_tpu_torch.ops import loops
+
+    chosen = loops.READ_EVERY
+    other = 2 if chosen == 1 else 1
+    samples = {chosen: [], other: []}
+    wins = 0
+    try:
+        for p in range(pairs):
+            pair = {}
+            for R in ((chosen, other) if p % 2 == 0 else (other, chosen)):
+                loops.READ_EVERY = R
+                before = counters()
+                ms, host_ms = _event_ms(lambda i: fn(), 3, warmup=1, host=True)
+                after = counters()
+                pair[R] = ms
+                samples[R].append((ms, host_ms) + tuple((a - b) / 4 for a, b in zip(after, before)))
+            wins += pair[chosen] < pair[other]
+    finally:
+        loops.READ_EVERY = chosen
+    return samples, wins
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return 0.5 * (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2])
+
+
+def _pairs_line(label, samples, wins, card, counted):
+    from pysdc_tpu_torch.ops import loops
+
+    parts = []
+    for R, rows in samples.items():
+        card_ms, host_ms = [r[0] for r in rows], [r[1] for r in rows]
+        parts.append(f'READ_EVERY {R}: median {_median(card_ms):.3f} ms on the card ({min(card_ms):.3f}-{max(card_ms):.3f}), '
+                     f'{_median(host_ms):.3f} ms host clock, {rows[0][2]:.1f} host reads and {rows[0][3]:.1f} '
+                     f'{counted} a call')
+    pairs = len(samples[loops.READ_EVERY])
+    print(f'times: {label}, {pairs} pairs in alternating order: ' + '; '.join(parts)
+          + f'; READ_EVERY {loops.READ_EVERY} faster in {wins} of {pairs} pairs [{card}]')
+
+
+def phase_implicit_times(implicit, sparse_ctrl, card):
+    """One sweep of the main path at 1024^2 from the spread state (the first sweep of a step: Newton from the
+    initial value) by kind of work; the sweep at 1024^2 and at 128^2 and the 1024^2 sparse sweep (from its spread
+    state: PCG iterates) with READ_EVERY at 1 (the module's value) and at 2, in pairs."""
+    import torch
+
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
+    from pysdc_tpu_torch.ops import loops
+
+    lvl = implicit.ctrl.MS[0].levels[0]
+    prob, sweep = lvl.prob, lvl.sweep
+    state0 = sweep.predict(prob, prob.u_exact(0.0), 0.0, DT_FI)
+
+    def one_sweep(prob=prob, sweep=sweep, state0=state0, dt=DT_FI):
+        state = sweep.update_nodes(prob, state0, 0.0, dt, 0)
+        return sweep.compute_residual(state, dt)[1]
+
+    prob.solver_trace = []
+    one_sweep()
+    trace = list(prob.solver_trace)
+    prob.solver_trace = None
+    card_ms, host_ms = _event_ms(lambda i: one_sweep(), 3, warmup=0, host=True)
+    split, n_kernels = _kernel_split(one_sweep)
+    pcg = [k for _, ks in trace for k in ks]
+    steps = sum(_loop_steps(k, LIN_MAXITER_FI, loops.READ_EVERY) + 1 for k in pcg)  # PCG iterations and setups
+    print(f'times: implicit sweep {N_FI}^2 fp64 M={M_FI} LU from the spread state: {card_ms:.3f} ms on the card, '
+          f'{host_ms:.3f} ms host clock; Newton iterations per solve {[k for k, _ in trace]}, PCG iterations {pcg}; '
+          f'by kind (profiler): K1 {split["K1"]:.3f} ms, cuFFT {split["cuFFT"]:.3f} ms, elementwise / reductions / '
+          f'copies {split["other"]:.3f} ms, {n_kernels} kernels (about {n_kernels / steps:.0f} a PCG iteration), the '
+          f'card idle the rest, {card_ms - sum(split.values()):.3f} ms ({100 * (1 - sum(split.values()) / card_ms):.0f}%: '
+          f'the host enqueues the kernels) [{card}]')
+    samples, wins = _read_every_pairs(one_sweep, lambda: (prob.host_reads, prob.solver_applies))
+    _pairs_line(f'implicit sweep {N_FI}^2 fp64', samples, wins, card, 'operator applies')
+
+    small = AllenCahnPeriodicND(nvars=(N_FI_SMALL, N_FI_SMALL), eps=0.04, newton_tol=NEWTON_TOL_FI,
+                                dtype=torch.float64, device='cuda')
+    small_sweep = GenericImplicit(dict(num_nodes=M_FI, quad_type='RADAU-RIGHT', QI='LU'))
+    small_state = small_sweep.predict(small, small.u_exact(0.0), 0.0, DT_FI)
+    samples, wins = _read_every_pairs(lambda: one_sweep(small, small_sweep, small_state),
+                                      lambda: (small.host_reads, small.solver_applies))
+    _pairs_line(f'implicit sweep {N_FI_SMALL}^2 fp64', samples, wins, card, 'operator applies')
+
+    # the 1024^2 sparse sweep (PCG lane, float32) from its spread state, where the PCG solves iterate
+    slvl = sparse_ctrl.MS[0].levels[0]
+    sprob, ssweep = slvl.prob, slvl.sweep
+    X, Y = sprob.grids
+    sstate = ssweep.predict(sprob, torch.sin(math.pi * X) * torch.sin(math.pi * Y), 0.0, DT_SPARSE)
+    A = sprob.A
+    samples, wins = _read_every_pairs(lambda: one_sweep(sprob, ssweep, sstate, DT_SPARSE),
+                                      lambda: (A.host_reads, A.pcg_steps))
+    _pairs_line(f'sparse sweep {N_SPARSE}^2 fp32 from the spread state', samples, wins, card, 'PCG iterations computed')
+
 def main():
     import torch
 
@@ -2013,10 +2545,18 @@ def main():
     phase(phase_adaptive_times, {f'HeatND {N_AD}^2/{NC_AD}^2': adaptive_runs[N_AD],
                                  f'HeatND {N_AD_BIG}^2/{NC_AD_BIG}^2': adaptive_runs[N_AD_BIG],
                                  f'Allen-Cahn {N_AC}^2/{NC_AC}^2': ac_run}, card)
+    covered_fi = phase(phase_implicit_kernels)
+    implicit, implicit_launches = phase(phase_implicit, card, covered_fi)
+    phase(phase_implicit_parity)
+    implicit_fused_launches = phase(phase_implicit_fused, card, covered_fi)
+    krylov_launches = phase(phase_krylov_spectral, card, covered_fi)
+    phase(phase_implicit_times, implicit, sparse_ctrl, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
-               'adaptive allen-cahn': ac_launches, 'allen-cahn sweeps': ac_sweep_launches}
+               'adaptive allen-cahn': ac_launches, 'allen-cahn sweeps': ac_sweep_launches,
+               'implicit allen-cahn': implicit_launches, 'implicit fused': implicit_fused_launches,
+               'krylov': krylov_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

@@ -16,7 +16,12 @@ steps in tensors with a time axis (one card, no mesh yet) and runs it on the
 stage machine or, by default where eligible, on the fused lane or, for the
 step-size adaptivity stack of :mod:`pysdc_tpu_torch.convergence`, on the
 adaptive fused lane (:mod:`pysdc_tpu_torch.parallel.fused`: replayed CUDA
-graphs on the card that read ``dt`` from the device).
+graphs on the card that read ``dt`` from the device).  Nonlinear PDEs solve
+with the shared Newton-Krylov solver of :mod:`pysdc_tpu_torch.ops.solvers`,
+iterative linear solves with ``jax.scipy``'s CG and GMRES rewritten in
+:mod:`pysdc_tpu_torch.ops.krylov`; every such loop is a masked loop
+(:mod:`pysdc_tpu_torch.ops.loops`) whose stopping test stays on the device.
+The problem classes are exported from :mod:`pysdc_tpu_torch.models`.
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
 

@@ -57,8 +57,8 @@ class Problem:
     def __init__(self, shape, dtype=None, device='cuda'):
         self.shape = tuple(shape)
         self.dtype = torch.float64 if dtype is None else dtype
-        if self.dtype not in (torch.float32, torch.float64):
-            raise ParameterError(f'dtype must be torch.float32 or torch.float64, got {dtype!r}')
+        if self.dtype not in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+            raise ParameterError(f'dtype must be torch.float32, float64, complex64 or complex128, got {dtype!r}')
         self.device = resolve_device(device)
         self.work_counters: dict[str, WorkCounter] = {}
         self.params: dict[str, Any] = {}
@@ -106,6 +106,13 @@ class Problem:
         shifts = [float(dt) * float(q) for q in np.atleast_1d(qd_diag)]
         if A.prepare_node_shifts(shifts):
             self.accepts_node_index = True
+
+    @property
+    def graph_capture_blocker(self):
+        """Why the fused lanes' CUDA graphs cannot hold this problem's solves, or None where they can: the
+        operator ``A``'s own reason (an iterative solve to a tolerance would be captured as ``maxiter`` masked
+        iterations)."""
+        return getattr(getattr(self, 'A', None), 'graph_capture_blocker', None)
 
     # -- protocol ------------------------------------------------------
     def eval_f(self, u, t):

@@ -1,0 +1,40 @@
+"""Problem classes of the port, under the JAX package's names."""
+
+from pysdc_tpu_torch.models.advdiff import AdvectionDiffusion1D
+from pysdc_tpu_torch.models.advection import AdvectionND
+from pysdc_tpu_torch.models.allen_cahn import (
+    AllenCahnFront1D,
+    AllenCahnFront1DFinel,
+    AllenCahnFront1DSemiImplicit,
+    AllenCahnPeriodicMultiImplicitND,
+    AllenCahnPeriodicND,
+    AllenCahnPeriodicSemiImplicitND,
+)
+from pysdc_tpu_torch.models.allen_cahn_spectral import (
+    AllenCahn2DSpectral,
+    AllenCahn2DSpectralStab,
+    AllenCahnSpectralND,
+    AllenCahnSpectralTimeForcing,
+    AllenCahnTempSpectralND,
+)
+from pysdc_tpu_torch.models.brusselator import Brusselator
+from pysdc_tpu_torch.models.fisher import GeneralizedFisher1D
+from pysdc_tpu_torch.models.gray_scott import (
+    GrayScott,
+    GrayScottLinearIMEX,
+    GrayScottMultiImplicit,
+    GrayScottMultiImplicitLinear,
+)
+from pysdc_tpu_torch.models.heat import HeatND, HeatNDForced
+from pysdc_tpu_torch.models.nls import NonlinearSchroedinger
+from pysdc_tpu_torch.models.odes import VanDerPol
+from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion1D, VarCoeffDiffusion2D, VarCoeffDiffusionForced1D
+
+__all__ = [
+    'AdvectionDiffusion1D', 'AdvectionND', 'AllenCahn2DSpectral', 'AllenCahn2DSpectralStab', 'AllenCahnFront1D',
+    'AllenCahnFront1DFinel', 'AllenCahnFront1DSemiImplicit', 'AllenCahnPeriodicMultiImplicitND',
+    'AllenCahnPeriodicND', 'AllenCahnPeriodicSemiImplicitND', 'AllenCahnSpectralND', 'AllenCahnSpectralTimeForcing',
+    'AllenCahnTempSpectralND', 'Brusselator', 'GeneralizedFisher1D', 'GrayScott', 'GrayScottLinearIMEX',
+    'GrayScottMultiImplicit', 'GrayScottMultiImplicitLinear', 'HeatND', 'HeatNDForced', 'NonlinearSchroedinger',
+    'VanDerPol', 'VarCoeffDiffusion1D', 'VarCoeffDiffusion2D', 'VarCoeffDiffusionForced1D',
+]

@@ -8,6 +8,10 @@ periodic Laplacian applies through kernel K1.  ``backend='sparse'`` assembles
 the Laplacian as a CSR matrix instead (:mod:`pysdc_tpu_torch.ops.sparse_op`):
 its apply is the DIA SpMV (kernel K2 on the card), its solves are structured
 factorizations or PCG with the eigen operator as the exact preconditioner.
+``solver_type='CG'|'GMRES'`` solves iteratively with ``jax.scipy``'s CG and
+GMRES (:mod:`pysdc_tpu_torch.ops.krylov`) from the previous node value, to
+``lintol`` in at most ``liniter`` iterations (GMRES: restarts), counted in the
+``'CG'`` / ``'GMRES'`` work counter.
 """
 
 from __future__ import annotations
@@ -21,6 +25,18 @@ from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX
 from pysdc_tpu_torch.ops.fd import get_1d_grid
 from pysdc_tpu_torch.ops.linop import SeparableFDOperator
+
+
+def per_system(solve, rhs, factor, u0, shape):
+    """``solve(rhs, factor, u0)`` for one system of ``shape``, applied to each
+    system of the leading batch axes of ``rhs`` in turn (the time steps of a
+    block: an iterative solve's stopping test is per system, as under
+    ``jax.vmap``)."""
+    if rhs.dim() == len(shape):
+        return solve(rhs, factor, u0)
+    lead = rhs.shape[: rhs.dim() - len(shape)]
+    out = [solve(r, factor, u) for r, u in zip(rhs.reshape((-1,) + tuple(shape)), u0.reshape((-1,) + tuple(shape)))]
+    return torch.stack(out).reshape(lead + tuple(shape))
 
 
 def node_shift_column(op, factor, rhs):
@@ -61,10 +77,6 @@ class HeatND(Problem):
     ):
         if backend not in ('eigen', 'sparse'):
             raise ValueError(f"unknown backend {backend!r}: 'eigen' or 'sparse'")
-        if solver_type != 'direct':
-            raise NotImplementedError(
-                f"HeatND(solver_type={solver_type!r}) is not ported yet (ROADMAP queue 1, item 9: iterative solves)"
-            )
         nvars = (nvars,) if isinstance(nvars, int) else tuple(nvars)
         freq = (freq,) * len(nvars) if isinstance(freq, int) else tuple(freq)
         if len(nvars) > 1 and len(set(nvars)) > 1:
@@ -94,10 +106,20 @@ class HeatND(Problem):
         )
         self.xvals = xvals
         self.work_counters['rhs'] = WorkCounter()
+        if solver_type != 'direct':
+            self.work_counters[solver_type] = WorkCounter()
 
     @property
     def ndim(self):
         return len(self.nvars)
+
+    @property
+    def graph_capture_blocker(self):
+        """Why the fused lanes' CUDA graphs cannot hold this problem's solves (None where they can)."""
+        if self.solver_type != 'direct':
+            return (f'HeatND(solver_type={self.solver_type!r}) iterates to lintol; inside a CUDA graph it would run '
+                    f'liniter masked iterations: this configuration runs on the stage-machine path')
+        return super().graph_capture_blocker
 
     @property
     def diagonalizable_operator(self):
@@ -126,15 +148,26 @@ class HeatND(Problem):
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
-        if node is not None and self.backend == 'sparse':
-            return self.A.solve_shifted(rhs, factor, node=node)
-        return self.A.solve_shifted(rhs, factor)
+        if self.solver_type == 'direct':
+            if node is not None and self.backend == 'sparse':
+                return self.A.solve_shifted(rhs, factor, node=node)
+            return self.A.solve_shifted(rhs, factor)
+        if self.solver_type == 'CG':
+            self.work_counters['CG']()
+            solve = self.A.solve_shifted_cg
+        elif self.solver_type == 'GMRES':
+            self.work_counters['GMRES']()
+            solve = self.A.solve_shifted_gmres
+        else:
+            raise ValueError(f'unknown solver_type {self.solver_type!r}')
+        return per_system(lambda r, f, u: solve(r, f, u, tol=self.lintol, maxiter=self.liniter), rhs, factor, u0,
+                          self.shape)
 
     def solve_system_batched(self, rhs, factor, u0, t):
         """One transform pair for all nodes; ``factor`` holds one shift per
         node (``rhs`` may carry a block's time axis behind the node axis).
-        The sparse backend solves node by node."""
-        if self.backend == 'sparse':
+        The sparse backend and the iterative solves go node by node."""
+        if self.backend == 'sparse' or self.solver_type != 'direct':
             return super().solve_system_batched(rhs, factor, u0, t)
         return self.A.solve_shifted(rhs, node_shift_column(self.A, factor, rhs))
 

@@ -17,9 +17,8 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
-
-#: Newton iterations a solve runs while a CUDA graph is being captured (see :func:`newton_solve`)
-CAPTURE_DEPTH = 8
+from pysdc_tpu_torch.ops import loops
+from pysdc_tpu_torch.ops.loops import CAPTURE_DEPTH, masked_loop
 
 
 def _behind(x, like: torch.Tensor, trailing: int):
@@ -57,11 +56,6 @@ def eliminate(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def _capturing(u: torch.Tensor) -> bool:
-    """True while a CUDA graph is being captured on ``u``'s card."""
-    return u.is_cuda and torch.cuda.is_current_stream_capturing()
-
-
 def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
     """Solve ``u - factor * f(u) = rhs`` with Newton for a batch of systems.
 
@@ -74,20 +68,17 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
     Each system carries its own stopping flag: it iterates while the 2-norm of
     its residual is above ``tol`` and fewer than ``maxiter`` iterations are
     done, and does not change after that (what ``jax.vmap`` of the JAX
-    package's ``lax.while_loop`` does).  Eager, the loop reads one device flag
-    ("is any system still iterating") per iteration and stops with the last
-    system.
+    package's ``lax.while_loop`` does): the loop is a
+    :func:`~pysdc_tpu_torch.ops.loops.masked_loop`, which reads the flags on
+    the host every ``READ_EVERY`` iterations and stops with the last system.
 
     While a CUDA graph is being captured the host cannot read: the loop then
     runs ``min(maxiter, CAPTURE_DEPTH)`` masked iterations and solves its
-    linear systems with :func:`eliminate`.  ``CAPTURE_DEPTH``
-    is 8: Newton from the previous sweep's node value converges quadratically,
-    the sweeps of this package's ODE runs take 2 to 4 iterations to a
-    tolerance of 1e-10, and twice that leaves room without making the graph
-    long.  A system that is still above ``tol`` when the fixed depth ends,
-    and that the eager loop would have gone on iterating, sets the device
-    flag ``failed`` (a 0-d bool tensor made before the capture); the block's
-    one host read fetches it and raises.
+    linear systems with :func:`eliminate` (``torch.linalg.solve`` reads its
+    error flag on the host).  A system that is still above ``tol`` when the
+    fixed depth ends, and that the eager loop would have gone on iterating,
+    sets the device flag ``failed`` (a 0-d bool tensor made before the
+    capture); the block's one host read fetches it and raises.
     """
     n = u0.shape[-1]
     factor = _behind(factor, u0, 1)
@@ -99,29 +90,19 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
     def g(u):
         return u - factor * f(u) - rhs
 
-    def norm(G):
-        return torch.linalg.vector_norm(G, dim=-1)
-
     fac = factor.unsqueeze(-1) if isinstance(factor, torch.Tensor) and factor.dim() > 0 else factor  # against (n, n)
-    capturing = _capturing(u0)
-    depth = min(int(maxiter), CAPTURE_DEPTH) if capturing else int(maxiter)
+    capture = loops.capturing(u0)
 
-    u = u0
-    G = g(u)
-    active = norm(G) > tol
-    for _ in range(depth):
-        if not capturing and not bool(active.any()):
-            break
+    def body(carry, flags):
+        u, G = carry
         J = eye - fac * jac(u)
-        du = eliminate(J, G) if capturing else torch.linalg.solve(J, G.unsqueeze(-1)).squeeze(-1)
-        u = torch.where(active.unsqueeze(-1), u - du, u)
-        G = g(u)
-        active = active & (norm(G) > tol)
-    if capturing and depth < int(maxiter):
-        if failed is None:
-            raise RuntimeError('a Newton solve inside a CUDA graph capture needs the device flag `failed`')
-        failed.logical_or_(active.any())
-    return u
+        du = eliminate(J, G) if capture else torch.linalg.solve(J, G.unsqueeze(-1)).squeeze(-1)
+        u = u - du
+        return u, g(u)
+
+    out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1], dim=-1) > tol, (u0, g(u0)), int(maxiter),
+                      depth=CAPTURE_DEPTH, failed=failed)
+    return out.carry[0]
 
 
 class NewtonODE(Problem):

@@ -16,9 +16,12 @@ structure is used directly:
 
 ``(I - factor*A) x = rhs`` for any scalar ``factor`` (including 0) is thus
 one transform, one elementwise divide, one inverse transform.  Constant
-tensors are made once per (dtype, device) and kept.  The iterative CG/GMRES
-paths and ``SpectralOperator`` wait for a later slice (ROADMAP queue 1,
-item 9), the halo apply for the mesh half of the sharded controller (item 10b).
+tensors are made once per (dtype, device) and kept.  The iterative solves of
+``solver_type='CG'|'GMRES'`` are ``jax.scipy``'s CG and GMRES
+(:mod:`pysdc_tpu_torch.ops.krylov`) on the shifted apply.
+:class:`SpectralOperator` is the exact Fourier operator of the spectral
+models (cuFFT on the card).  The halo apply waits for the mesh half of the
+sharded controller (ROADMAP queue 1, item 10b).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from pysdc_tpu_torch.core.device import complex_dtype
 from pysdc_tpu_torch.core.errors import ProblemError
 from pysdc_tpu_torch.ops.fd import fd_matrix_1d, get_finite_difference_stencil, stencil_symbol
+from pysdc_tpu_torch.ops.krylov import cg, gmres
 
 
 class SeparableFDOperator:
@@ -44,6 +48,9 @@ class SeparableFDOperator:
         global prefactor (e.g. diffusion coefficient nu).
 
     Constant tensors follow the device and dtype of the fields they meet.
+    ``krylov_trace``, when set to a list, receives ``(kind, iterations,
+    Arnoldi steps per restart)`` of each CG / GMRES solve; ``host_reads``
+    counts their loops' reads.
     """
 
     def __init__(self, per_dim: list[dict], scale: float = 1.0):
@@ -53,6 +60,8 @@ class SeparableFDOperator:
         self._dims = []
         self._consts: dict = {}
         self.bc_rhs = None  # inhomogeneous-BC vector (sum over dims, scaled), numpy
+        self.krylov_trace = None
+        self.host_reads = 0
         nnz = 0
 
         bc_vec_total = np.zeros(self.shape)
@@ -237,6 +246,21 @@ class SeparableFDOperator:
             x = x.real
         return x.to(rhs.dtype).contiguous()
 
+    def _krylov(self, kind, solve, rhs, factor, x0, tol, maxiter):
+        x, info = solve(lambda x: x - factor * self.apply(x), rhs, x0, tol=tol, maxiter=maxiter)
+        self.host_reads += info.reads
+        if self.krylov_trace is not None:
+            self.krylov_trace.append((kind, info.iterations, info.arnoldi))
+        return x
+
+    def solve_shifted_cg(self, rhs, factor, x0, tol=1e-12, maxiter=10000):
+        """Iterative CG path (parity with reference solver_type='CG')."""
+        return self._krylov('CG', cg, rhs, factor, x0, tol, maxiter)
+
+    def solve_shifted_gmres(self, rhs, factor, x0, tol=1e-12, maxiter=100):
+        """GMRES, restart 20, ``maxiter`` restarts (parity with reference solver_type='GMRES')."""
+        return self._krylov('GMRES', gmres, rhs, factor, x0, tol, maxiter)
+
     @property
     def eigenvalues(self):
         """Full ND symbol (scaled) — useful for exact solutions/tests."""
@@ -271,5 +295,105 @@ class SeparableFDOperator:
             return torch.fft.irfftn(xhat, s=self.shape, dim=axes).to(dtype)
         x = self._backward(xhat)
         if real and x.is_complex():
+            x = x.real
+        return x.to(dtype)
+
+
+class SpectralOperator:
+    """Exact spectral differential operator on a periodic box.
+
+    The counterpart of ``pysdc_tpu/ops/linop.py:SpectralOperator`` (reference
+    ``generic_MPIFFT_Laplacian.py:10-177``): ``apply`` multiplies by the
+    symbol in Fourier space, ``solve_shifted`` divides by ``1 - factor*symbol``
+    (``torch.fft``, cuFFT on the card).  The symbol is kept in float64 (or
+    complex128) on the host and meets a field in the field's own precision:
+    float64 / complex128 on the CPU tests, the field's dtype on the card.
+
+    Parameters
+    ----------
+    shape:     spatial grid shape.
+    lengths:   box lengths per dimension (default 1.0 each).
+    symbol_fn: maps the wavenumber grids (k_0, ..., k_{d-1}) to the symbol
+               array (default the Laplacian, ``-sum k_i^2``).  Wavenumbers
+               include the 2*pi/L factor.
+    scale:     global prefactor.
+    """
+
+    def __init__(self, shape, symbol_fn=None, lengths=None, scale: float = 1.0):
+        self.shape = tuple(shape)
+        self.ndim = len(self.shape)
+        self.scale = float(scale)
+        self._consts: dict = {}
+        lengths = (1.0,) * self.ndim if lengths is None else tuple(lengths)
+        ks = [2.0 * np.pi * np.fft.fftfreq(n, d=1.0 / n) / L for n, L in zip(self.shape, lengths)]
+        grids = np.meshgrid(*ks, indexing='ij')
+        if symbol_fn is None:
+            symbol_fn = lambda *k: -sum(ki**2 for ki in k)  # noqa: E731
+        self.symbol = np.asarray(symbol_fn(*grids)) * self.scale
+        self.nnz_per_dof = 2 * self.ndim + 1  # FD-equivalent accounting
+
+    @property
+    def symbol(self) -> np.ndarray:
+        return self._symbol
+
+    @symbol.setter
+    def symbol(self, value):
+        """A new symbol (a problem may shift it after construction) drops the tensors made of the old one."""
+        self._symbol = np.asarray(value)
+        self._consts = {}
+
+    def _axes(self, u):
+        return tuple(range(u.dim() - self.ndim, u.dim()))
+
+    def _const(self, name, arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        """``arr`` as a tensor of ``dtype`` on ``device``, made once and kept (the per-node shifts of a sweep)."""
+        key = (name, dtype, device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(np.asarray(arr), dtype=dtype, device=device)
+        return t
+
+    def symbol_on(self, x: torch.Tensor) -> torch.Tensor:
+        """The symbol on ``x``'s device in ``x``'s precision (complex where the symbol is), made once and kept."""
+        if np.iscomplexobj(self._symbol):
+            dtype = complex_dtype(x.dtype)
+        else:
+            dtype = torch.float32 if x.dtype in (torch.float32, torch.complex64) else torch.float64
+        key = (dtype, x.device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(self._symbol, dtype=dtype, device=x.device)
+        return t
+
+    @staticmethod
+    def _back(x, like):
+        return (x.real if not like.is_complex() else x).to(like.dtype)
+
+    def apply(self, u):
+        axes = self._axes(u)
+        out = torch.fft.ifftn(torch.fft.fftn(u, dim=axes) * self.symbol_on(u), dim=axes)
+        return self._back(out, u)
+
+    def solve_shifted(self, rhs, factor):
+        """Exact solve of ``(I - factor * symbol) x = rhs``; ``factor`` a number or a tensor that broadcasts
+        against the grid (one shift per leading batch entry)."""
+        axes = self._axes(rhs)
+        xhat = torch.fft.fftn(rhs, dim=axes) / (1.0 - factor * self.symbol_on(rhs))
+        return self._back(torch.fft.ifftn(xhat, dim=axes), rhs)
+
+    # -- diagonal-basis interface (ops/diag_sdc.py) --
+    @property
+    def diag_symbol(self):
+        return self._symbol
+
+    def diag_symbol_on(self, xhat):
+        return self.symbol_on(xhat)
+
+    def diag_forward(self, x):
+        return torch.fft.fftn(x, dim=self._axes(x))
+
+    def diag_backward(self, xhat, dtype, real: bool):
+        x = torch.fft.ifftn(xhat, dim=self._axes(xhat))
+        if real:
             x = x.real
         return x.to(dtype)

@@ -25,9 +25,12 @@ does with scipy CSR + cached ``splu`` (``generic_ND_FD.py:17-240``):
     one (adaptive dt).
 
 Where the JAX package runs a ``lax.while_loop`` (CG, PCG, refinement), the
-port runs a Python loop whose condition is one read of a device scalar on
-the host per iteration: a PCG solve of k iterations reads the host k + 1
-times.  Neither a CUDA graph nor ``torch.cond`` is used yet.
+port runs a :func:`~pysdc_tpu_torch.ops.loops.masked_loop`: the stopping test
+stays on the device and the host reads it once every ``READ_EVERY``
+iterations (a PCG solve of k iterations reads ``ceil(k / READ_EVERY) + 1``
+times; ``host_reads`` counts them).  Inside a CUDA graph capture the loops
+would unroll to their ``maxiter``, so the fused lanes refuse an operator whose
+solve iterates (:attr:`SparseOperator.graph_capture_blocker`).
 
 The DIA SpMV default differs from the JAX package on purpose: the JAX
 package keeps XLA's fused rolls as the default and the Pallas kernel as an
@@ -48,6 +51,8 @@ from pysdc_tpu_torch.ops import banded
 from pysdc_tpu_torch.ops.fd import fd_matrix_1d
 from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
 from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+from pysdc_tpu_torch.ops.krylov import cg, gmres
+from pysdc_tpu_torch.ops.loops import masked_loop
 from pysdc_tpu_torch.ops.sparse import BSR, CSR, DIA, ELL
 
 
@@ -70,9 +75,12 @@ class SparseOperator:
                 raises); fields on another device get a copy made once and kept.
 
     Counters: ``spmv_count`` counts every SpMV the operator makes (eval_f,
-    Krylov matvecs, residuals); ``pcg_solves`` / ``pcg_iterations`` count the
-    PCG solves and their iterations; ``pcg_trace``, when set to a list,
-    receives the iteration count of each PCG solve.
+    Krylov matvecs, residuals, masked iterations included); ``pcg_solves`` /
+    ``pcg_iterations`` count the PCG solves and their iterations, ``pcg_steps``
+    the iterations computed (the masked ones past a stop included);
+    ``pcg_trace``, when set to a list, receives the iteration count of each
+    PCG solve; ``host_reads`` counts the reads of the Krylov and refinement
+    loops.
     """
 
     def __init__(self, A: CSR, grid_shape=None, bc_rhs=None, block=None, solver='auto', precond=None,
@@ -99,7 +107,9 @@ class SparseOperator:
         self.spmv_count = 0
         self.pcg_solves = 0
         self.pcg_iterations = 0
+        self.pcg_steps = 0
         self.pcg_trace = None
+        self.host_reads = 0
 
         lower, upper = A.bandwidths()
         self._solver = solver
@@ -209,7 +219,7 @@ class SparseOperator:
         When ``factor`` equals the prepared shift (fixed dt) the refinement
         loop exits after one residual check; when adaptivity moved dt, the
         stale factorization acts as a preconditioner and the loop iterates to
-        tolerance.  Each check reads one device scalar on the host."""
+        tolerance (at most 50 times)."""
         fac_m = self._prepared_factor(node, flat)
         nb = self.n // self._block
         shaped = flat.reshape(flat.shape[:-1] + (nb, self._block))
@@ -221,16 +231,15 @@ class SparseOperator:
             xf = x.reshape(flat.shape)
             return shaped - (xf - factor * self._mv(xf)).reshape(shaped.shape)
 
+        def body(carry, flags):
+            x = carry[0] + direct(carry[1])
+            return x, residual(x)
+
         x = direct(shaped)
-        r = residual(x)
-        rhs_norm = torch.linalg.vector_norm(flat) + 1e-30
-        tol = 50 * torch.finfo(flat.dtype).eps
-        it = 0
-        while bool(torch.linalg.vector_norm(r) > tol * rhs_norm) and it < 50:
-            x = x + direct(r)
-            r = residual(x)
-            it += 1
-        return x.reshape(flat.shape)
+        bound = 50 * torch.finfo(flat.dtype).eps * (torch.linalg.vector_norm(flat) + 1e-30)
+        out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1]) > bound, (x, residual(x)), 50)
+        self.host_reads += out.reads
+        return out.carry[0].reshape(flat.shape)
 
     # -- apply -----------------------------------------------------------
     def enable_pallas_dia(self):
@@ -309,32 +318,17 @@ class SparseOperator:
             x0f = None if x0 is None else x0.reshape(batch_shape + (self.n,))
             # floor the tolerance at the dtype's reachable residual level:
             # the 1e-12 default would spin f32 solves to maxiter
-            tol = max(tol, 50 * torch.finfo(rhs.dtype).eps)
-            x = self._cg(flat, factor, tol, maxiter, x0f)
+            x = self._cg(flat, factor, max(tol, 50 * torch.finfo(rhs.dtype).eps), maxiter, x0f)
         return x.reshape(rhs.shape)
 
-    def _cg(self, b, factor, tol, maxiter, x0=None):
-        """Unpreconditioned CG on ``(I - factor*A) x = b``, with the stopping
-        rule of ``jax.scipy.sparse.linalg.cg`` (``r.r > tol^2 b.b`` over the
-        whole flattened batch), so iteration counts match."""
-        def mv(v):
-            return v - factor * self._mv(v)
+    def _shifted_mv(self, factor):
+        return lambda v: v - factor * self._mv(v)
 
-        x = torch.zeros_like(b) if x0 is None else x0
-        atol2 = tol**2 * torch.sum(b * b)
-        r = b - mv(x)
-        p = r
-        gamma = torch.sum(r * r)
-        k = 0
-        while bool(gamma > atol2) and k < maxiter:
-            Ap = mv(p)
-            alpha = gamma / torch.sum(p * Ap)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            gamma_new = torch.sum(r * r)
-            p = r + (gamma_new / gamma) * p
-            gamma = gamma_new
-            k += 1
+    def _cg(self, b, factor, tol, maxiter, x0=None):
+        """Unpreconditioned CG on ``(I - factor*A) x = b``: ``jax.scipy``'s CG
+        (:func:`pysdc_tpu_torch.ops.krylov.cg`) over the whole flattened batch."""
+        x, info = cg(self._shifted_mv(factor), b, x0, tol=tol, maxiter=maxiter)
+        self.host_reads += info.reads
         return x
 
     def _pcg(self, flat, factor, tol, maxiter, x0=None):
@@ -345,11 +339,10 @@ class SparseOperator:
         grid.  Deferred-z order as in the JAX package: the preconditioner
         solve runs at the top of each iteration, so k iterations cost k
         solves; the inner products and the stopping norm run over the whole
-        flattened batch.  Returns ``(x, iterations)``."""
+        flattened batch.  Returns ``(x, iterations)`` (``None`` inside a CUDA
+        graph capture, which reads nothing)."""
         tol = max(tol, 50 * torch.finfo(flat.dtype).eps)
-
-        def mv(v):
-            return v - factor * self._mv(v)
+        mv = self._shifted_mv(factor)
 
         def M(r):
             grid = r.reshape(r.shape[:-1] + self.grid_shape)
@@ -361,25 +354,31 @@ class SparseOperator:
         else:
             x = x0.reshape(flat.shape)
             r = flat - mv(x)
-        b_norm = torch.linalg.vector_norm(flat)
-        p = torch.zeros_like(flat)
-        rz_prev = None
-        k = 0
-        while k < maxiter and bool(torch.linalg.vector_norm(r) > tol * b_norm):
+        bound = tol * torch.linalg.vector_norm(flat)
+        step = [0]
+
+        def body(carry, flags):
+            x, r, p, rz_prev = carry
             z = M(r)
             rz = torch.sum(r * z)
-            p = z if k == 0 else z + (rz / rz_prev) * p
+            p = z if step[0] == 0 else z + (rz / rz_prev) * p
+            step[0] += 1
             Ap = mv(p)
             alpha = rz / torch.sum(p * Ap)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rz_prev = rz
-            k += 1
+            return x + alpha * p, r - alpha * Ap, p, rz
+
+        out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1]) > bound,
+                          (x, r, torch.zeros_like(flat), torch.ones((), dtype=flat.dtype, device=flat.device)),
+                          maxiter)
+        self.host_reads += out.reads
+        k = None if out.host_counts is None else out.host_counts[0]
         self.pcg_solves += 1
-        self.pcg_iterations += k
-        if self.pcg_trace is not None:
-            self.pcg_trace.append(k)
-        return x, k
+        self.pcg_steps += out.steps
+        if k is not None:
+            self.pcg_iterations += k
+            if self.pcg_trace is not None:
+                self.pcg_trace.append(k)
+        return out.carry[0], k
 
     def solve_shifted_info(self, rhs, factor, tol=1e-12, maxiter=1000):
         """Like :meth:`solve_shifted` but also returns the Krylov iteration
@@ -394,6 +393,18 @@ class SparseOperator:
     @property
     def solver_kind(self):
         return self._solver
+
+    @property
+    def graph_capture_blocker(self):
+        """Why a CUDA graph cannot hold this operator's solves (None where it can): an iterative solve to a
+        tolerance would be captured as ``maxiter`` masked iterations."""
+        if self._solver in ('pcg', 'cg'):
+            return (f"SparseOperator(solver={self._solver!r}) iterates to a tolerance; inside a CUDA graph it would "
+                    f"run its maxiter masked iterations: this configuration runs on the stage-machine path")
+        if self._prep is not None:
+            return ('the prepared block-tridiagonal solve refines to a tolerance (up to 50 masked iterations inside '
+                    'a CUDA graph): this configuration runs on the stage-machine path')
+        return None
 
 
 def assemble_ndim_fd(per_dim: list[dict], scale: float = 1.0):
@@ -453,9 +464,13 @@ class SparseFDOperator(SparseOperator):
         return self.solve_shifted(rhs, factor, x0=x0, tol=tol, maxiter=maxiter)
 
     def solve_shifted_gmres(self, rhs, factor, x0, tol=1e-12, maxiter=100):
-        raise NotImplementedError(
-            'SparseFDOperator.solve_shifted_gmres is not ported yet (ROADMAP queue 1, item 9: iterative solves)'
-        )
+        """GMRES (``jax.scipy``'s, restart 20, ``maxiter`` restarts) on ``(I - factor*A) x = rhs`` over the
+        whole flattened batch, from ``x0``."""
+        batch_shape = rhs.shape[: rhs.dim() - len(self.grid_shape)]
+        flat = rhs.reshape(batch_shape + (self.n,))
+        x, info = gmres(self._shifted_mv(factor), flat, x0.reshape(flat.shape), tol=tol, maxiter=maxiter)
+        self.host_reads += info.reads
+        return x.reshape(rhs.shape)
 
 
 def variable_diffusion_matrix(a_faces, dx, bc='dirichlet'):

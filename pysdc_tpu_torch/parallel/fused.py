@@ -129,6 +129,10 @@ def _shared_eligibility(ctrl):
             )
     if ctrl.params.predict_type not in (None, 'fine_only', 'pfasst_burnin', 'fmg'):
         raise ControllerError(f'unknown predict_type {ctrl.params.predict_type!r}')
+    for lvl in ctrl.MS[0].levels:
+        reason = lvl.prob.graph_capture_blocker
+        if reason is not None:
+            raise ControllerError(f'fused block execution captures the solves into CUDA graphs: {reason}')
 
 
 def check_fused_eligibility(ctrl):
@@ -742,6 +746,11 @@ def run_fused(ctrl, u0, t0, Tend):
         hook.reset_stats()
     hooks0 = ctrl.hooks[0]
     ctrl.host_reads = {'cont': 0, 'fetch': 0}
+    # the device flags "a Newton solve was cut by the capture's fixed depth", cleared for the march and read
+    # with its one fetch
+    flags = [blk.level.prob.newton_failed for blk in ctrl.blocks if hasattr(blk.level.prob, 'newton_failed')]
+    for flag in flags:
+        flag.zero_()
 
     P = ctrl.num_procs
     dt = float(ctrl.MS[0].levels[0].params.dt)
@@ -792,10 +801,19 @@ def run_fused(ctrl, u0, t0, Tend):
         uend = uend_block[n_active - 1]
         t += n_active * dt
 
-    if marched:  # the one fetch of the march
+    if marched:  # the one fetch of the march: counts, histories and the Newton flags in one transfer
         ctrl.host_reads['fetch'] += 1
-        iters_h = torch.stack([b[1] for b in marched]).cpu().numpy()
-        res_h = torch.stack([b[2] for b in marched]).cpu().numpy()
+        iters = torch.stack([b[1] for b in marched])
+        res = torch.stack([b[2] for b in marched])
+        parts = [iters.flatten().to(res.dtype), res.flatten()] + [f.to(res.dtype).reshape(1) for f in flags]
+        fetched = torch.cat(parts).cpu().numpy()
+        iters_h = fetched[:iters.numel()].reshape(tuple(iters.shape)).astype(np.int64)
+        res_h = fetched[iters.numel():iters.numel() + res.numel()].reshape(tuple(res.shape))
+        if fetched[iters.numel() + res.numel():].any():
+            raise ControllerError(
+                'a Newton solve of the fused march did not reach newton_tol within the fixed depth that a CUDA '
+                'graph capture allows (CAPTURE_DEPTH); run this configuration on the stage lane'
+            )
         for (t_block, _, _, n_active), it_b, res_b in zip(marched, iters_h, res_h):
             emit_stats(t_block, it_b, res_b, n_active)
 
@@ -843,7 +861,7 @@ def advance_fused_adaptive(ctrl, block):
     if fetched[2 * n:].any():
         raise ControllerError(
             'a Newton solve of the adaptive fused block did not reach newton_tol within the fixed depth that a '
-            'CUDA graph runs (models/odes.py: CAPTURE_DEPTH); run this configuration with lane=\'stage\''
+            'CUDA graph runs (ops/loops.py: CAPTURE_DEPTH); run this configuration with lane=\'stage\''
         )
 
     maxiter = int(ctrl.MS[0].params.maxiter)

@@ -6,7 +6,9 @@ tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
 back.  RHS containers are matched by their field names, so the JAX
 package's ``IMEX``/``Comp2`` become the port's.
 
-``step_to_numpy`` / ``step_to_torch`` carry a whole multi-level step across:
+Complex fields (the nonlinear Schroedinger state) keep their imaginary part:
+a real ``dtype`` asked of a complex array gives the complex dtype of its
+precision.  ``step_to_numpy`` / ``step_to_torch`` carry a whole multi-level step across:
 the first reads every level's ``(u, f, tau)``, ``uold`` (the previous sweep's
 ``u`` that ``StoreUOld`` keeps, or what a restriction left), ``fold`` and step
 size ``dt`` of a step of either package as numpy, the second writes such a
@@ -27,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pysdc_tpu_torch.core.device import complex_dtype
 from pysdc_tpu_torch.core.state import IMEX, Comp2, LevelState
 from pysdc_tpu_torch.ops.sparse import BSR, DIA
 
@@ -38,6 +41,8 @@ def to_torch(x, device, dtype=None) -> torch.Tensor:
     arr = np.asarray(x)
     if not arr.flags.writeable:  # arrays of the JAX package are read-only views
         arr = arr.copy()
+    if dtype is not None and np.iscomplexobj(arr) and not dtype.is_complex:
+        dtype = complex_dtype(dtype)
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 

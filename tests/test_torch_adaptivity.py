@@ -31,6 +31,7 @@ from pysdc_tpu.sweepers.imex import IMEXSweeper as JaxIMEX
 from pysdc_tpu_torch.core.errors import ControllerError, ParameterError
 from pysdc_tpu_torch.hooks import logging_hooks as thooks
 from pysdc_tpu_torch.models import odes
+from pysdc_tpu_torch.ops import loops
 from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND, AllenCahnPeriodicSemiImplicitND
 from pysdc_tpu_torch.models.odes import NewtonODE, VanDerPol, newton_solve
 from pysdc_tpu_torch.utils.convert import (
@@ -374,7 +375,7 @@ def test_newton_under_capture_runs_a_fixed_depth_and_flags(monkeypatch):
     prob = VanDerPol(device='cpu', newton_tol=1e-12)
     rhs = torch.as_tensor(rng.uniform(-2, 2, (4, 2)))
     eager = prob.solve_system(rhs, 0.05, rhs, 0.0)
-    monkeypatch.setattr(odes, '_capturing', lambda u: True)
+    monkeypatch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
     fixed = prob.solve_system(rhs, 0.05, rhs, 0.0)
     np.testing.assert_allclose(fixed.numpy(), eager.numpy(), rtol=0, atol=1e-14)
     assert not bool(prob.newton_failed)
@@ -413,8 +414,9 @@ def test_allen_cahn_matches(nvars):
                                np.asarray(jprob.solve_system(u, 0.02, u, 0.0)), rtol=0, atol=1e-13)
     full_j, full_t = JaxAllenCahn(nvars=nvars, eps=0.1), AllenCahnPeriodicND(nvars=nvars, eps=0.1, device='cpu')
     np.testing.assert_allclose(full_t.eval_f(tu, 0.0).numpy(), np.asarray(full_j.eval_f(u, 0.0)), rtol=0, atol=1e-10)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item 9'):
-        full_t.solve_system(tu, 0.02, tu, 0.0)
+    # the fully implicit solve (Newton-Krylov, ported with the nonlinear slice) against the JAX package's
+    np.testing.assert_allclose(full_t.solve_system(tu, 0.02, tu, 0.0).numpy(),
+                               np.asarray(full_j.solve_system(u, 0.02, u, 0.0)), rtol=0, atol=1e-11)
     assert hasattr(prob, 'newton_tol') and prob.f_kind == 'imex'
 
 

@@ -19,6 +19,7 @@ import pysdc_tpu_torch
 from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.core.hooks import Hooks
 from pysdc_tpu_torch.models import odes
+from pysdc_tpu_torch.ops import loops
 from pysdc_tpu_torch.parallel import fused
 from pysdc_tpu_torch.utils.convert import dts_to_torch, to_numpy, to_torch
 from test_torch_adaptivity import (
@@ -372,7 +373,7 @@ def test_newton_flag_of_a_captured_block_raises(monkeypatch):
     pkg, desc = description('torch', parts)
     ctrl = pkg.ShardedController(num_procs, {'logger_level': 40, **cp}, desc)
     u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
-    monkeypatch.setattr(odes, '_capturing', lambda u: True)
+    monkeypatch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
     uend, _ = ctrl.run(u0, 0.0, 0.04)  # depth 8 is enough: the flag stays clear
     assert torch.isfinite(uend).all() and not bool(ctrl.blocks[0].level.prob.newton_failed)
     monkeypatch.setattr(odes, 'CAPTURE_DEPTH', 1)

@@ -36,6 +36,8 @@ _NO_JAX = (
     'import pysdc_tpu_torch.convergence.adaptivity, pysdc_tpu_torch.convergence.estimate_embedded_error, '
     'pysdc_tpu_torch.convergence.step_size_limiter, pysdc_tpu_torch.convergence.store_uold, '
     'pysdc_tpu_torch.hooks.logging_hooks, pysdc_tpu_torch.models.odes, pysdc_tpu_torch.models.allen_cahn',
+    'import pysdc_tpu_torch.models, pysdc_tpu_torch.ops.solvers, pysdc_tpu_torch.ops.krylov, '
+    'pysdc_tpu_torch.ops.loops, pysdc_tpu_torch.models.allen_cahn_spectral, pysdc_tpu_torch.models.gray_scott',
     'import chip_smoke',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
@@ -58,13 +60,15 @@ def test_problem_without_device_needs_a_card(monkeypatch):
 def test_unported_parts_raise_naming_the_roadmap():
     from pysdc_tpu_torch.models.heat import HeatND
 
+    # the iterative solves are ported (item 9): they solve where they raised
     for kwargs in (dict(solver_type='CG'), dict(solver_type='GMRES'), dict(backend='sparse', solver_type='CG')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            HeatND(nvars=8, device='cpu', **kwargs)
+        prob = HeatND(nvars=8, device='cpu', **kwargs)
+        u = prob.u_exact(0.0)
+        x = prob.solve_system(u, 0.01, u, 0.0)
+        assert torch.allclose(x, HeatND(nvars=8, device='cpu').solve_system(u, 0.01, u, 0.0), atol=1e-10)
     sparse = HeatND(nvars=8, device='cpu', backend='sparse')
     u = sparse.u_exact(0.0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        sparse.A.solve_shifted_gmres(u, 0.1, u)
+    assert torch.allclose(sparse.A.solve_shifted_gmres(u, 0.1, u), sparse.A.solve_shifted(u, 0.1), atol=1e-10)
 
     # the block controller: a mesh and the owner-computes chain
     from pysdc_tpu_torch import GenericImplicit, ShardedController
@@ -76,7 +80,8 @@ def test_unported_parts_raise_naming_the_roadmap():
         with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
             ShardedController(2, {'logger_level': 40}, desc, **kwargs)
 
-    # the adaptivity classes that wait for their sweepers or estimators, and the fully implicit Allen-Cahn solve
+    # the adaptivity classes that wait for their sweepers or estimators; the fully implicit Allen-Cahn solve
+    # (item 9) solves now, and nothing of the package names item 9 any more
     import pysdc_tpu_torch.convergence as conv
     from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
 
@@ -84,9 +89,16 @@ def test_unported_parts_raise_naming_the_roadmap():
                        ('EstimateEmbeddedErrorCollocation', 'item 13')):
         with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1, {item}'):
             getattr(conv, name)(None, {}, desc)
-    prob = AllenCahnPeriodicND(nvars=(8, 8), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item 9'):
-        prob.solve_system(prob.u_exact(0.0), 0.1, None, 0.0)
+    prob = AllenCahnPeriodicND(nvars=(8, 8), eps=0.2, device='cpu')
+    u = prob.u_exact(0.0)
+    x = prob.solve_system(u, 1e-3, u, 0.0)
+    assert float((x - 1e-3 * (prob.A.apply(x) + prob._reaction(x)) - u).abs().max()) <= prob.newton_tol
+    package = os.path.join(ROOT, 'pysdc_tpu_torch')
+    for folder, _, files in os.walk(package):
+        for name in files:
+            if name.endswith('.py'):
+                with open(os.path.join(folder, name)) as f:
+                    assert 'item 9' not in f.read(), name
 
 
 def test_adaptive_lane_and_e_tol_run():

@@ -95,9 +95,13 @@ def test_sparse_sdc_matches_jax(case):
 def test_spmv_count_covers_eval_f_and_pcg():
     """On the PCG lane every SpMV goes through the operator's counter: per
     step u0 and the batched spread (2), per sweep M eval_f plus, per solve,
-    one warm-start residual and one matvec per PCG iteration."""
+    one warm-start residual and one matvec per PCG iteration computed (the
+    masked loop computes up to READ_EVERY - 1 past the stop, unread)."""
+    from pysdc_tpu_torch.ops.loops import READ_EVERY
+
     _, niter, prob = _run('torch', 'vc2d-32-pcg')
     A = prob.A
     n_solves = M * sum(niter)
     assert A.pcg_solves == n_solves
-    assert A.spmv_count == sum(2 + M * k for k in niter) + n_solves + A.pcg_iterations
+    assert A.pcg_iterations <= A.pcg_steps <= A.pcg_iterations + n_solves * (READ_EVERY - 1)
+    assert A.spmv_count == sum(2 + M * k for k in niter) + n_solves + A.pcg_steps
