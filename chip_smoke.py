@@ -134,6 +134,49 @@ raises and the script exits nonzero without printing the final line:
    with ``READ_EVERY`` 1 (the module's value) and 2 in 10 alternating pairs,
    host reads and work a sweep.
 
+30. multi-implicit — the slice's main path: the multi-implicit splitting of
+   examples/step_20_allen_cahn_campaign.py:65, ``AllenCahnPeriodicMultiImplicitND``
+   1024^2 float64 (eps 0.04, newton_tol 1e-10), ``MultiImplicitSweeper`` M=3
+   RADAU-RIGHT Q1=Q2=LU, dt 2e-4, restol 1e-8, maxiter 12, 4 steps, through
+   ``ControllerNonMPI``: every step converges, every pointwise Newton solve
+   reaches newton_tol (flag clear), the K1 launch count (counts set to 0 just
+   before) equals the eval_f applies, all on bands at shapes phase 24 covered;
+   against the same run through the plain apply: equal ``niter``, ``uend`` to
+   1e-10.
+31. multi-implicit parity — the same at 128^2 on the card against the CPU:
+   equal ``niter``, ``uend`` to 1e-11.
+32. multi-implicit fused — the 128^2 problem through ``ShardedController(4).run``:
+   ``'auto'`` takes the fused lane (as the JAX package does) and equals the
+   stage lane (``niter``, ``uend`` to 1e-10); a replayed block passes the K1
+   wrapper 0 times.
+33. rk — ``ESDIRK43`` on HeatND 2048^2 float32 (dt 0.01, 4 steps) and
+   ``ARK548L2SA`` on HeatNDForced 2048^2 float32 (2 steps) through
+   ``ControllerNonMPI``: K1 launches equal the eval_f calls the tableau implies
+   (the predictor's and each stage the sweep evaluates), all on bands;
+   ``uend`` against the plain apply and ``u_exact`` to 5e-4 (ARK548L2SA, whose
+   end point contracts the stages' ``A u``: to the float32 floor that this
+   implies, stated; in float64 to 1e-10 and 5e-4); ESDIRK43 in float64 on the
+   card within twice the time error that a float64 CPU run at 256^2 measures.
+34. rk parity — float64 card against CPU: ESDIRK43 on HeatND 256^2 to 1e-11,
+   all 27 tableaus on Dahlquist (16 complex lambdas, complex128; the IMEX pairs
+   on DahlquistIMEX) to 1e-13.
+35. rk adaptive — Cash-Karp with ``AdaptivityRK`` on VanDerPol through
+   ``ShardedController(1).run``: ``'auto'`` takes the adaptive fused lane, held
+   against ``lane='stage'`` and against the CPU (equal steps and restarts,
+   accepted ``dt`` to 1e-7, ``uend`` to 1e-10), one program of three graphs
+   over every ``dt``; ESDIRK43 with ``AdaptivityRK(e_tol=1e-5)`` on HeatND
+   2048^2 float32 (to 1e-3: the float32 estimate is rounding there) and float64
+   (to 0.1), steps, restarts, ``dt``, K1 launches; at 256^2 float64 card against
+   CPU (``dt`` to 1e-6: the rounding of A u that reaches the estimate, stated).
+36. sweepers parity — float64 card against CPU: ``ExplicitSweeper`` on HeatND
+   256^2, ``LinearizedImplicitParallel`` in its three configurations on
+   Fisher 255 (examples/step_14_sdc_showdown.py:56), each multistep class on
+   Logistic, the multi-implicit Gray-Scott classes at 64^2: equal ``niter``,
+   ``uend`` to 1e-11.
+37. sweeper times — one multi-implicit sweep at 1024^2 by kind of work (K1,
+   cuFFT, the pointwise Newton solves, the rest, idle) beside the fully
+   implicit sweep; one ESDIRK43 step at 2048^2 beside the main path's sweep.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -217,6 +260,23 @@ FI_FUSED_BOUND = 1e-10  # |uend(fused lane) - uend(stage lane)|, float64
 N_KRYLOV, N_KRYLOV_PARITY, KRYLOV_LINTOL, KRYLOV_RESTOL, KRYLOV_STEPS = 512, 128, 1e-10, 1e-8, 2
 KRYLOV_DIRECT_BOUND = 1e-9
 N_SPECTRAL = 64
+# the first-order sweepers: the multi-implicit splitting of the fully implicit path's problem (its sizes above), in
+# float64 for the same reason (the pointwise Newton's newton_tol of 1e-10 against float32 roundoff of 6e-8 at |u| <= 1)
+MI_PLAIN_BOUND = 1e-10  # |uend - uend through the plain apply|, float64, equal niter
+MI_FUSED_BOUND = 1e-10  # |uend(fused lane) - uend(stage lane)|, float64
+# Runge-Kutta on the main path's problem: ESDIRK43 (4 steps) and ARK548L2SA on HeatNDForced (2 steps) at dt DT
+RK_STEPS, RK_IMEX_STEPS, N_RK_PARITY = 4, 2, 256
+RK_DAHLQUIST_TOL = 1e-13  # every tableau on Dahlquist, card against CPU
+RK_FP64_PLAIN_BOUND = 1e-10  # ARK548L2SA float64 at 2048^2, K1 against the plain apply
+VDP_TEND, RK_AD_TEND, RK_AD_TEND_FP32 = 0.5, 0.1, 1e-3  # Cash-Karp on VanDerPol (tests/test_fused.py:363); ESDIRK43
+RK_AD_DT_FP32 = 1e-4  # the float32 ESDIRK43 adaptive run's first dt (see phase_rk_adaptive)
+RK_DT_RTOL = 1e-7  # accepted dt of the adaptive fused lane against the stage lane and the CPU (tests/test_fused.py)
+# card against CPU, ESDIRK43 + AdaptivityRK on HeatND 256^2 float64: the estimate (2.6e-7 at dt 0.01) is the gap
+# between two end points of size 1, one of which contracts the stages' f = A u; K1 and the CPU's rolls round f
+# differently by 1e-16 times A's row sum (5.2e4 at 256^2), dt * sum|b| = 0.01 of that reaches the gap: 6e-14 of 2.6e-7,
+# a fourth of it in dt.  This script measured 1.0e-7 on an H100 80GB HBM3
+RK_AD_PARITY_DT_RTOL = 1e-6
+DT_EXPLICIT = 5e-6  # ExplicitSweeper on HeatND 256^2: dt |lambda_max| = 0.26, inside explicit SDC's region
 
 
 def _card():
@@ -2501,6 +2561,536 @@ def phase_implicit_times(implicit, sparse_ctrl, card):
                                       lambda: (A.host_reads, A.pcg_steps))
     _pairs_line(f'sparse sweep {N_SPARSE}^2 fp32 from the spread state', samples, wins, card, 'PCG iterations computed')
 
+# -- the first-order sweepers -----------------------------------------------------------------------------------------
+def _multi_implicit_description(n, dtype, device):
+    """The multi-implicit splitting of examples/step_20_allen_cahn_campaign.py:65 on the fully implicit path's
+    problem and step (bench.py:899 at 1024^2)."""
+    from pysdc_tpu_torch import MultiImplicitSweeper
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicMultiImplicitND
+
+    return dict(_implicit_description(n, dtype, device), problem_class=AllenCahnPeriodicMultiImplicitND,
+                sweeper_class=MultiImplicitSweeper,
+                sweeper_params=dict(num_nodes=M_FI, quad_type='RADAU-RIGHT', Q1='LU', Q2='LU'))
+
+
+def _pointwise_solves_converged(prob, trace, niter):
+    """Every pointwise Newton solve (one a node and sweep) reached newton_tol, and its PCG steps their lin_tol."""
+    return (len(trace) == M_FI * sum(niter) and all(k < prob.newton_maxiter for k, _ in trace)
+            and all(k < LIN_MAXITER_FI for _, pcg in trace for k in pcg) and not bool(prob.newton_failed))
+
+
+def phase_multi_implicit(card, covered):
+    """The slice's main path at full width: the multi-implicit Allen-Cahn splitting at 1024^2, float64, through
+    ``ControllerNonMPI``, with K1 (the counts set to 0 just before) and through the plain apply.  Returns
+    (the K1 run, K1 launches)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    desc = _multi_implicit_description(N_FI, torch.float64, 'cuda')
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    run = _implicit_run(desc)
+    launches = cross_stencil_2d.launches
+    prob, niter, trace = run.prob, run.niter, run.trace
+    label = f'multi-implicit: AllenCahnPeriodicMultiImplicitND {N_FI}^2 fp64 eps 0.04, newton_tol {NEWTON_TOL_FI:g}, ' \
+            f'MultiImplicitSweeper M={M_FI} Q1=Q2=LU, dt {DT_FI:g}, restol {RESTOL_FI:g}, {STEPS_FI} steps'
+    if len(niter) != STEPS_FI or not all(0 < k < MAXITER_FI for k in niter) \
+            or not all(r <= RESTOL_FI for r in run.residuals):
+        raise AssertionError(f'{label}: niter {niter}, final residuals {run.residuals} against restol {RESTOL_FI}')
+    if not _pointwise_solves_converged(prob, trace, niter):
+        raise AssertionError(f'{label}: {len(trace)} pointwise Newton solves for niter {niter}, or one that did not '
+                             f'reach newton_tol (flag {bool(prob.newton_failed)}): {trace}')
+    evals = sum(2 + M_FI * k for k in niter)  # per step f(u0) and one batched f over the spread nodes, then M a sweep
+    if launches != evals or run.applies != launches or run.launches != launches:
+        raise AssertionError(f'{label}: K1 launches {launches}, operator applies {run.applies}, expected {evals} eval_f')
+    if run.paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches by path {run.paths}, expected all on bands')
+    _covered_by(covered, prob.A._cross_terms, run.shapes, label)
+    if run.uend.shape != (N_FI, N_FI) or run.uend.dtype != torch.float64 or not bool(torch.isfinite(run.uend).all()):
+        raise AssertionError(f'{label}: uend is not a finite float64 field of the grid shape')
+
+    plain = _implicit_run(desc, plain=True)
+    diff = (run.uend - plain.uend).abs().max().item()
+    if plain.launches != 0 or plain.niter != niter or not diff <= MI_PLAIN_BOUND:
+        raise AssertionError(f'{label}: against the plain apply: niter {plain.niter}, |uend - uend_plain| {diff:.3e}, '
+                             f'K1 launches {plain.launches}')
+    newton = [k for k, _ in trace]
+    pcg = [k for _, ks in trace for k in ks]
+    print(f'{label}: niter {niter}, final residuals {[float(f"{r:.3e}") for r in run.residuals]} <= {RESTOL_FI:g}; '
+          f'{len(trace)} pointwise Newton solves of {min(newton)}-{max(newton)} iterations (all to newton_tol, flag '
+          f'clear), PCG iterations a Newton step {min(pcg)}-{max(pcg)} (mean {sum(pcg) / len(pcg):.2f}); K1 launches '
+          f'{launches} = {evals} eval_f applies, all on bands at {sorted(run.shapes)}; host reads {prob.host_reads} '
+          f'({prob.host_reads / sum(niter):.1f} a sweep); through the plain apply: niter equal, traces equal '
+          f'{plain.trace == trace}, |uend - uend_plain_apply| {diff:.3e} <= {MI_PLAIN_BOUND}; wall {run.wall:.3f} s '
+          f'(K1) / {plain.wall:.3f} s (plain) [{card}]')
+    return run, launches
+
+
+def phase_multi_implicit_parity():
+    """Float64, the multi-implicit path at 128^2 on the card against the CPU: equal niter, uend to 1e-11."""
+    import torch
+
+    card, cpu = (_implicit_run(_multi_implicit_description(N_FI_SMALL, torch.float64, device))
+                 for device in ('cuda', 'cpu'))
+    diff = (card.uend.cpu() - cpu.uend).abs().max().item()
+    if card.niter != cpu.niter or not diff <= PARITY_UEND_TOL:
+        raise AssertionError(f'multi-implicit parity: niter card {card.niter} cpu {cpu.niter}, uend diff {diff:.3e}')
+    print(f'multi-implicit parity: AllenCahnPeriodicMultiImplicitND {N_FI_SMALL}^2 fp64, {STEPS_FI} steps: niter '
+          f'{card.niter} on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}; Newton / PCG traces equal '
+          f'{card.trace == cpu.trace} ({len(card.trace)} solves)')
+
+
+def phase_multi_implicit_fused(card, covered):
+    """The multi-implicit path at 128^2 through ``ShardedController(4).run``: ``'auto'`` takes the fused lane, the
+    lane the JAX package takes for it (the pointwise Newton and its PCG captured as fixed-depth masked loops),
+    equal to the stage lane.  Returns the K1 launches of the wrapper in the first run (warm-up and capture)."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    desc = _multi_implicit_description(N_FI_SMALL, torch.float64, 'cuda')
+    ctrl = ShardedController(P_FI, {'logger_level': 30}, desc)
+    stage = ShardedController(P_FI, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    u0, Tend = prob.u_exact(0.0), STEPS_FI * DT_FI
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    start = time.perf_counter()
+    uend, stats = ctrl.run(u0, 0.0, Tend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, by_path, reads = cross_stencil_2d.launches, dict(cross_stencil_2d.paths), dict(ctrl.host_reads)
+    uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+    label = f'multi-implicit fused: ShardedController({P_FI}) AllenCahnPeriodicMultiImplicitND {N_FI_SMALL}^2 fp64'
+    lane = [v for k, v in stats.items() if k.type == 'lane']
+    niter, niter_s = _niter(stats), _niter(stats_s)
+    diff = (uend - uend_s).abs().max().item()
+    flags = [bool(blk.level.prob.newton_failed) for blk in ctrl.blocks]
+    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= MI_FUSED_BOUND or any(flags):
+        raise AssertionError(f'{label}: lane {lane}, niter {niter} against the stage lane\'s {niter_s}, |uend_fused - '
+                             f'uend_stage| {diff:.3e}, Newton flags {flags}')
+    if launches < 1 or launches != sum(applies.values()) or by_path != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches {launches} by path {by_path}, operator applies {applies}')
+    _covered_by(covered, prob.A._cross_terms, shapes, label)
+    cross_stencil_2d.launches = 0
+    start = time.perf_counter()
+    uend2, stats2 = ctrl.run_fused(u0, 0.0, Tend)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - start
+    if cross_stencil_2d.launches != 0 or _niter(stats2) != niter or not torch.equal(uend2, uend):
+        raise AssertionError(f'{label}: a replayed block passed the wrapper {cross_stencil_2d.launches} times or '
+                             f'differs from the first')
+    print(f'{label}: lane {lane[0]} (the JAX package\'s lane for it), niter {niter} = the stage lane\'s, |uend_fused - '
+          f'uend_stage| {diff:.3e} <= {MI_FUSED_BOUND}, Newton flags clear; K1 through the wrapper {launches} (warm-up '
+          f'and capture; = applies) at {sorted(shapes)}, all on bands; a replayed block passes the wrapper 0 times and '
+          f'equals the first bit for bit; host reads {reads}; wall {wall:.3f} s incl. capture, {replay_s:.3f} s a '
+          f'replayed block [{card}]')
+    return launches
+
+
+def _rk_description(tableau, n, dtype, device, forced=False, controllers=None, **level):
+    from pysdc_tpu_torch.models.heat import HeatND, HeatNDForced
+    from pysdc_tpu_torch.sweepers import runge_kutta
+
+    return dict(problem_class=HeatNDForced if forced else HeatND,
+                problem_params=dict(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=dtype, device=device),
+                sweeper_class=getattr(runge_kutta, tableau), sweeper_params={}, level_params=dict(dt=DT, **level),
+                step_params=dict(maxiter=1), convergence_controllers=controllers or {})
+
+
+def _rk_run(desc, Tend, plain=False):
+    """The description through ``ControllerNonMPI(1, ...)`` from the exact solution, the K1 launches of the run and
+    every operator apply counted with its shape."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    if plain:
+        prob.A.disable_pallas()
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    launches0, paths0 = cross_stencil_2d.launches, dict(cross_stencil_2d.paths)
+    start = time.perf_counter()
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, Tend)
+    if uend.is_cuda:
+        torch.cuda.synchronize()
+    return SimpleNamespace(
+        ctrl=ctrl, prob=prob, uend=uend, stats=stats, shapes=shapes, applies=applies[0],
+        wall=time.perf_counter() - start, launches=cross_stencil_2d.launches - launches0,
+        paths={k: v - paths0[k] for k, v in cross_stencil_2d.paths.items()},
+        dts=[v for _, v in get_sorted(stats, type='dt', sortby='time')],
+        restarts=sum(v for _, v in get_sorted(stats, type='restart')),
+    )
+
+
+def _rk_evals(sweep):
+    """eval_f calls of one Runge-Kutta step: f(u0) in the predictor and each stage the sweep evaluates
+    (runge_kutta.py: every stage but the last of a stiffly accurate tableau without an embedded pair)."""
+    from pysdc_tpu_torch.sweepers.runge_kutta import RungeKuttaIMEX
+
+    M = sweep.coll.num_nodes
+    if isinstance(sweep, RungeKuttaIMEX):
+        return 1 + M
+    return 1 + sum(1 for m in range(M) if m < M - 1 or not sweep.coll.globally_stiffly_accurate or sweep.is_embedded())
+
+
+def phase_rk(card):
+    """Runge-Kutta on the main path's problem at full width: ESDIRK43 on HeatND 2048^2 float32 (4 steps) and
+    ARK548L2SA on HeatNDForced 2048^2 float32 (2 steps) through ``ControllerNonMPI``.  K1 launches as the tableau
+    implies, all on bands at the main path's shape and taps; against the plain apply; against u_exact: the float32
+    run within the main path's bound, a float64 run on the card within twice the time error that a float64 CPU run
+    at 256^2 measures.  Returns the K1 launches by run."""
+    import torch
+
+    main_taps = _fd_tables()['main']
+    out = {}
+    for tableau, forced, steps in (('ESDIRK43', False, RK_STEPS), ('ARK548L2SA', True, RK_IMEX_STEPS)):
+        desc = _rk_description(tableau, N_MAIN, torch.float32, 'cuda', forced=forced)
+        run = _rk_run(desc, steps * DT)
+        label = f'rk: {tableau} on {type(run.prob).__name__} {N_MAIN}^2 fp32, dt {DT:g}, {steps} steps'
+        per_step = _rk_evals(run.ctrl.MS[0].levels[0].sweep)
+        if run.launches != steps * per_step or run.applies != run.launches or len(run.dts) != steps:
+            raise AssertionError(f'{label}: K1 launches {run.launches}, applies {run.applies}, expected {steps} x '
+                                 f'{per_step}; steps {len(run.dts)}')
+        if run.paths != {'bands': run.launches, 'general': 0} or not run.shapes <= set(K1_SHAPES) \
+                or run.prob.A._cross_terms != main_taps:
+            raise AssertionError(f'{label}: K1 by path {run.paths} at {sorted(run.shapes)}')
+        if run.uend.dtype != torch.float32 or not bool(torch.isfinite(run.uend).all()):
+            raise AssertionError(f'{label}: uend is not a finite float32 field')
+        plain = _rk_run(desc, steps * DT, plain=True)
+        diff = (run.uend - plain.uend).abs().max().item()
+        err = (run.uend - run.prob.u_exact(steps * DT)).abs().max().item()
+        bound = UEND_PLAIN_BOUND
+        sweep = run.ctrl.MS[0].levels[0].sweep
+        if not sweep.coll.globally_stiffly_accurate or forced:
+            # an end point that contracts the stages' f = A u carries their rounding, which A amplifies (its largest
+            # row sum 8 nu / dx^2 = 3.4e6 at 2048^2 against float32's 1.2e-7): at most dt * sum|b| of it a step
+            b = np.abs(np.atleast_2d(sweep.coll.weights)[0]).sum()
+            rows = sum(abs(c) for coeff, _ in run.prob.A._cross_terms for c in coeff)
+            floor = steps * DT * b * rows * torch.finfo(torch.float32).eps * run.prob.u_exact(0.0).abs().max().item()
+            bound = max(bound, floor)
+        if plain.launches != 0 or not diff <= bound or not err <= max(bound, UEND_EXACT_BOUND):
+            raise AssertionError(f'{label}: |uend - uend_plain| {diff:.3e}, |uend - u_exact| {err:.3e}, bound {bound:.3e}')
+        line = (f'{label}: K1 launches {run.launches} = {steps} x {per_step} (the predictor\'s f(u0) and the stages '
+                f'the tableau evaluates), all on bands at {sorted(run.shapes)}; |uend - uend_plain_apply| {diff:.3e} <= '
+                f'{bound:.3e}, |uend - u_exact| {err:.3e} <= {max(bound, UEND_EXACT_BOUND):.3e}'
+                + (' (the float32 floor of an end point that contracts A u: steps dt sum|b| rowsum(A) eps max|u0|)'
+                   if bound > UEND_PLAIN_BOUND else '') + f'; wall {run.wall:.3f} s (K1) / {plain.wall:.3f} s (plain)')
+        if forced:
+            # the same in float64 on the card: the plain apply to roundoff, u_exact to the space error
+            big = _rk_run(_rk_description(tableau, N_MAIN, torch.float64, 'cuda', forced=True), steps * DT)
+            big_plain = _rk_run(_rk_description(tableau, N_MAIN, torch.float64, 'cuda', forced=True), steps * DT,
+                                plain=True)
+            d64 = (big.uend - big_plain.uend).abs().max().item()
+            e64 = (big.uend - big.prob.u_exact(steps * DT)).abs().max().item()
+            if not d64 <= RK_FP64_PLAIN_BOUND or not e64 <= UEND_EXACT_BOUND:
+                raise AssertionError(f'{label}: float64 |uend - uend_plain| {d64:.3e}, |uend - u_exact| {e64:.3e}')
+            line += (f'; float64 on the card: |uend - uend_plain_apply| {d64:.3e} <= {RK_FP64_PLAIN_BOUND}, |uend - '
+                     f'u_exact| {e64:.3e} <= {UEND_EXACT_BOUND}')
+        else:
+            # the time error alone: float64, where the discrete-eigenvalue u_exact leaves nothing else
+            small = _rk_run(_rk_description(tableau, N_RK_PARITY, torch.float64, 'cpu'), steps * DT)
+            time_err = (small.uend - small.prob.u_exact(steps * DT)).abs().max().item()
+            big = _rk_run(_rk_description(tableau, N_MAIN, torch.float64, 'cuda'), steps * DT)
+            err64 = (big.uend - big.prob.u_exact(steps * DT)).abs().max().item()
+            if not 0 < err64 <= 2 * time_err:
+                raise AssertionError(f'{label}: float64 |uend - u_exact| {err64:.3e} against 2 x the time error '
+                                     f'{time_err:.3e} (float64 CPU, {N_RK_PARITY}^2)')
+            line += (f'; float64 on the card {err64:.3e} <= 2 x {time_err:.3e}, the time error a float64 CPU run at '
+                     f'{N_RK_PARITY}^2 measures')
+        print(line + f' [{card}]')
+        out[tableau] = run.launches
+    return out
+
+
+def _dahlquist_rk(tableau, device):
+    """The tableau on Dahlquist (16 complex lambdas in the left half-plane, complex128; DahlquistIMEX for the IMEX
+    pairs), 3 steps of 0.1: uend on the host."""
+    from pysdc_tpu_torch import ControllerNonMPI
+    from pysdc_tpu_torch.models.dahlquist import Dahlquist, DahlquistIMEX
+    from pysdc_tpu_torch.sweepers import runge_kutta
+
+    rng = np.random.default_rng(16)
+    lam = rng.uniform(-4, 0, 16) + 1j * rng.uniform(-4, 4, 16)
+    cls = getattr(runge_kutta, tableau)
+    if issubclass(cls, runge_kutta.RungeKuttaIMEX):
+        problem, params = DahlquistIMEX, dict(lambdas_implicit=lam, lambdas_explicit=0.25j * np.ones(16))
+    else:
+        problem, params = Dahlquist, dict(lambdas=lam)
+    desc = dict(problem_class=problem, problem_params=dict(params, device=device), sweeper_class=cls,
+                sweeper_params={}, level_params=dict(dt=0.1), step_params=dict(maxiter=1))
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    uend, _ = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.3)
+    return uend.cpu()
+
+
+def phase_rk_parity():
+    """Float64 card against CPU: ESDIRK43 on HeatND 256^2 (4 steps) to 1e-11, every tableau on Dahlquist to 1e-13."""
+    import inspect
+
+    import torch
+
+    from pysdc_tpu_torch.sweepers import runge_kutta
+
+    card, cpu = (_rk_run(_rk_description('ESDIRK43', N_RK_PARITY, torch.float64, device), RK_STEPS * DT)
+                 for device in ('cuda', 'cpu'))
+    diff = (card.uend.cpu() - cpu.uend).abs().max().item()
+    if not diff <= PARITY_UEND_TOL:
+        raise AssertionError(f'rk parity: ESDIRK43 HeatND {N_RK_PARITY}^2 uend diff {diff:.3e}')
+    names = sorted(name for name, cls in vars(runge_kutta).items()
+                   if inspect.isclass(cls) and issubclass(cls, runge_kutta.RungeKutta)
+                   and cls.__module__ == runge_kutta.__name__
+                   and cls not in (runge_kutta.RungeKutta, runge_kutta.RungeKuttaIMEX))
+    worst = 0.0
+    for name in names:
+        got, want = _dahlquist_rk(name, 'cuda'), _dahlquist_rk(name, 'cpu')
+        d = (got - want).abs().max().item()
+        if got.dtype != torch.complex128 or not d <= RK_DAHLQUIST_TOL:
+            raise AssertionError(f'rk parity: {name} on Dahlquist: card against CPU {d:.3e}, dtype {got.dtype}')
+        worst = max(worst, d)
+    print(f'rk parity: ESDIRK43 HeatND {N_RK_PARITY}^2 fp64, {RK_STEPS} steps: uend diff {diff:.3e} <= '
+          f'{PARITY_UEND_TOL}; all {len(names)} tableaus on Dahlquist (16 complex lambdas, complex128; the IMEX pairs '
+          f'on DahlquistIMEX), 3 steps: card against CPU at most {worst:.3e} <= {RK_DAHLQUIST_TOL}')
+
+
+def _vdp_cash_karp(device):
+    from pysdc_tpu_torch.convergence.adaptivity import AdaptivityRK
+    from pysdc_tpu_torch.models.odes import VanDerPol
+    from pysdc_tpu_torch.sweepers.runge_kutta import Cash_Karp
+
+    return dict(problem_class=VanDerPol, problem_params=dict(mu=5.0, u0=(2.0, 0.0), newton_tol=1e-10, device=device),
+                sweeper_class=Cash_Karp, sweeper_params={}, level_params=dict(dt=1e-2, restol=-1.0),
+                step_params=dict(maxiter=1), convergence_controllers={AdaptivityRK: dict(e_tol=1e-7, update_order=5)})
+
+
+def phase_rk_adaptive(card):
+    """Embedded-RK adaptivity on both lanes: Cash-Karp with ``AdaptivityRK`` on VanDerPol (tests/test_fused.py:363)
+    through ``ShardedController(1).run`` ('auto' -> 'fused_adaptive') against ``lane='stage'`` and against the CPU;
+    then ESDIRK43 with ``AdaptivityRK`` on HeatND 2048^2 float32 and float64 through ``ControllerNonMPI``, and at
+    256^2 float64 card against CPU.  Returns the K1 launches of the 2048^2 runs."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController, get_sorted
+    from pysdc_tpu_torch.convergence.adaptivity import AdaptivityRK
+
+    def march(device, lane):
+        ctrl = ShardedController(1, {'logger_level': 30}, _vdp_cash_karp(device))
+        start = time.perf_counter()
+        uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, VDP_TEND, lane=lane)
+        wall = time.perf_counter() - start
+        return SimpleNamespace(ctrl=ctrl, uend=uend.cpu(), wall=wall,
+                               lane=[v for k, v in stats.items() if k.type == 'lane'],
+                               dts=[v for _, v in get_sorted(stats, type='dt', sortby='time')],
+                               restarts=sum(v for _, v in get_sorted(stats, type='restart')))
+
+    launches = 0
+    fused_run, stage_run, cpu_run = march('cuda', 'auto'), march('cuda', 'stage'), march('cpu', 'auto')
+    label = f'rk adaptive: Cash_Karp + AdaptivityRK(e_tol 1e-7, order 5) on VanDerPol fp64, dt0 1e-2, Tend {VDP_TEND}'
+    for name, other in (('stage lane', stage_run), ('CPU', cpu_run)):
+        rel = max(abs(a - b) / b for a, b in zip(fused_run.dts, other.dts)) if len(other.dts) == len(fused_run.dts) else 1
+        diff = (fused_run.uend - other.uend).abs().max().item()
+        if other.restarts != fused_run.restarts or not rel <= RK_DT_RTOL or not diff <= ADAPTIVE_PARITY_TOL:
+            raise AssertionError(f'{label}: against the {name}: steps {len(other.dts)} / {len(fused_run.dts)}, restarts '
+                                 f'{other.restarts} / {fused_run.restarts}, dt rel {rel:.3e}, uend {diff:.3e}')
+        print(f'{label}: the adaptive fused lane against the {name}: {len(fused_run.dts)} steps, {fused_run.restarts} '
+              f'restarts, accepted dt to {rel:.3e} <= {RK_DT_RTOL} relative, uend {diff:.3e} <= {ADAPTIVE_PARITY_TOL}')
+    programs = fused_run.ctrl._fused_adaptive_fn._programs
+    graphs = len(next(iter(programs.values())).graphs)
+    distinct = len({round(dt, 12) for dt in fused_run.dts})
+    if fused_run.lane != ['fused_adaptive'] or stage_run.lane != ['stage'] or len(programs) != 1 or graphs != 3 \
+            or distinct < 3:
+        raise AssertionError(f'{label}: lane {fused_run.lane}, {len(programs)} programs of {graphs} graphs over '
+                             f'{distinct} step sizes')
+    print(f'{label}: \'auto\' took {fused_run.lane[0]}: one program of {graphs} graphs over {distinct} step sizes; wall '
+          f'{fused_run.wall:.3f} s (fused adaptive, capture included) / {stage_run.wall:.3f} s (stage) [{card}]')
+
+    # float32 at 2048^2: the secondary end point contracts f = A u, whose rounding A amplifies (|A| ~ 8 nu / dx^2 =
+    # 3.4e6): the estimate is then about 0.9 dt, rounding and no time error (float64: 2.6e-7 at dt 0.01), and the
+    # controller drives dt to about 8e-6.  From dt 0.01 it needs more than the 10 restarts of a step that
+    # BasicRestarting allows (each takes the gap a quarter of the way in log dt), so that run starts at 1e-4, and a
+    # short horizon keeps it to some hundred steps
+    ad = {AdaptivityRK: dict(e_tol=1e-5, update_order=4)}
+    lines = []
+    for dtype, dt0, Tend in ((torch.float32, RK_AD_DT_FP32, RK_AD_TEND_FP32), (torch.float64, DT, RK_AD_TEND)):
+        desc = _rk_description('ESDIRK43', N_MAIN, dtype, 'cuda', controllers=ad, restol=-1.0)
+        desc['level_params']['dt'] = dt0
+        run = _rk_run(desc, Tend)
+        per_step = _rk_evals(run.ctrl.MS[0].levels[0].sweep)
+        # every attempt, restarted ones included, logs its dt and runs the whole tableau
+        if run.launches != per_step * len(run.dts) or run.paths != {'bands': run.launches, 'general': 0} \
+                or not bool(torch.isfinite(run.uend).all()):
+            raise AssertionError(f'rk adaptive: ESDIRK43 {N_MAIN}^2 {dtype}: K1 launches {run.launches} by path '
+                                 f'{run.paths}, {len(run.dts)} steps and {run.restarts} restarts')
+        launches += run.launches
+        shown = [float(f'{d:.4e}') for d in run.dts]
+        lines.append(f'{str(dtype)[6:]} from dt {dt0:g} to Tend {Tend:g}: {len(run.dts)} attempts, {run.restarts} restarts, dt '
+                     f'{shown if len(shown) <= 12 else shown[:6] + ["..."] + shown[-3:]}, K1 launches {run.launches} = '
+                     f'{len(run.dts)} x {per_step}, all on bands, wall {run.wall:.3f} s')
+    small = {device: _rk_run(_rk_description('ESDIRK43', N_RK_PARITY, torch.float64, device, controllers=ad,
+                                             restol=-1.0), RK_AD_TEND) for device in ('cuda', 'cpu')}
+    a, b = small['cuda'], small['cpu']
+    rel = max(abs(x - y) / y for x, y in zip(a.dts, b.dts)) if len(a.dts) == len(b.dts) else 1
+    if a.restarts != b.restarts or not rel <= RK_AD_PARITY_DT_RTOL:
+        raise AssertionError(f'rk adaptive: ESDIRK43 {N_RK_PARITY}^2 fp64 card against CPU: steps {len(a.dts)} / '
+                             f'{len(b.dts)}, restarts {a.restarts} / {b.restarts}, dt rel {rel:.3e}')
+    print(f'rk adaptive: ESDIRK43 + AdaptivityRK(e_tol 1e-5, order 4) on HeatND {N_MAIN}^2: '
+          + '; '.join(lines) + f'; at {N_RK_PARITY}^2 fp64 card against CPU: {len(a.dts)} attempts, {a.restarts} '
+          f'restarts, dt to {rel:.3e} <= {RK_AD_PARITY_DT_RTOL} relative [{card}]')
+    return launches
+
+
+def phase_sweepers_parity():
+    """Float64 card against CPU for the remaining sweepers: equal niter, uend to 1e-11."""
+    import torch
+
+    from pysdc_tpu_torch import ExplicitSweeper, LinearizedImplicitParallel, MultiImplicitSweeper, models
+    from pysdc_tpu_torch.sweepers import multistep
+
+    radau = dict(num_nodes=M_FI, quad_type='RADAU-RIGHT')
+    fisher = dict(nvars=255, nu=1.0, lambda0=2.0, newton_tol=1e-11)
+    cases = {
+        f'ExplicitSweeper HeatND {N_RK_PARITY}^2': (
+            models.HeatND, dict(nvars=(N_RK_PARITY, N_RK_PARITY), nu=0.1, freq=2, bc='periodic'), ExplicitSweeper,
+            radau, dict(dt=DT_EXPLICIT, restol=1e-10), 30, 2 * DT_EXPLICIT),
+    }
+    for cfg in (dict(jacobian=0, basis='Q'), dict(jacobian=0, basis='QI', QI='LU'),
+                dict(jacobian='per_node', basis='QI', QI='LU')):
+        cases[f'LinearizedImplicitParallel {cfg} Fisher 255'] = (
+            models.GeneralizedFisher1D, fisher, LinearizedImplicitParallel, dict(radau, **cfg),
+            dict(dt=0.01, restol=1e-10), 50, 0.1)
+    for name in ('AdamsBashforthExplicit1Step', 'BackwardEulerMultiStep', 'AdamsMoultonImplicit1Step',
+                 'AdamsMoultonImplicit2Step'):
+        cases[f'{name} Logistic'] = (models.Logistic, dict(u0=0.5, lam=2.0, newton_tol=1e-14),
+                                     getattr(multistep, name), {}, dict(dt=0.1), 1, 1.0)
+    for cls in (models.GrayScottMultiImplicit, models.GrayScottMultiImplicitLinear):
+        cases[f'{cls.__name__} {N_SPECTRAL}^2'] = (
+            cls, dict(nvars=(N_SPECTRAL, N_SPECTRAL), newton_tol=1e-11), MultiImplicitSweeper,
+            dict(radau, Q1='LU', Q2='LU'), dict(dt=1.0, restol=1e-9), 50, 4.0)
+    threads = torch.get_num_threads()
+    # small systems: one CPU thread is enough, and a multithreaded complex LU of torch's CPU LAPACK (the linearized
+    # sweeper's solves) has been seen to stall
+    torch.set_num_threads(1)
+    try:
+        for label, case in cases.items():
+            _sweeper_parity(label, *case)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _sweeper_parity(label, problem, params, sweeper, sweeper_params, level, maxiter, Tend):
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+
+    out = []
+    for device in ('cuda', 'cpu'):
+        desc = dict(problem_class=problem, problem_params=dict(params, dtype=torch.float64, device=device),
+                    sweeper_class=sweeper, sweeper_params=sweeper_params, level_params=level,
+                    step_params=dict(maxiter=maxiter))
+        ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+        prob = ctrl.MS[0].levels[0].prob
+        uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, Tend)
+        out.append((uend.cpu(), [v for _, v in get_sorted(stats, type='niter', sortby='time')], prob.u_exact(0.0).cpu()))
+    (u_card, it_card, u0), (u_cpu, it_cpu, _) = out
+    diff = (u_card - u_cpu).abs().max().item()
+    moved = (u_cpu - u0).abs().max().item()
+    if it_card != it_cpu or not diff <= PARITY_UEND_TOL or not moved > 1e-8 or not bool(torch.isfinite(u_card).all()):
+        raise AssertionError(f'sweepers parity: {label}: niter card {it_card} cpu {it_cpu}, uend diff {diff:.3e}, '
+                             f'moved {moved:.3e}')
+    print(f'sweepers parity: {label} fp64: niter {it_card[:6]}{"..." if len(it_card) > 6 else ""} '
+          f'({len(it_card)} steps) on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+
+def phase_sweeper_times(mi_run, main_ctrl, card):
+    """One multi-implicit sweep at 1024^2 from the spread state, by kind of work (K1, cuFFT, the pointwise Newton's
+    passes, the rest, idle), beside the fully implicit sweep of the same problem; one ESDIRK43 step at 2048^2
+    float32 beside the main path's GenericImplicit sweep."""
+    import torch
+
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
+    from pysdc_tpu_torch.sweepers.runge_kutta import ESDIRK43
+
+    def sweep_of(prob, sweep):
+        state0 = sweep.predict(prob, prob.u_exact(0.0), 0.0, DT_FI)
+
+        def one():
+            state = sweep.update_nodes(prob, state0, 0.0, DT_FI, 0)
+            return sweep.compute_residual(state, DT_FI)[1]
+        return one
+
+    lvl = mi_run.ctrl.MS[0].levels[0]
+    prob, sweep = lvl.prob, lvl.sweep
+    one = sweep_of(prob, sweep)
+    # the pointwise Newton solves of one sweep, replayed alone from the arguments the sweep gave them
+    calls = []
+    solve_2 = prob.solve_system_2
+    prob.solve_system_2 = lambda *args: calls.append(args) or solve_2(*args)
+    prob.solver_trace = []
+    one()
+    prob.solve_system_2 = solve_2
+    trace, prob.solver_trace = list(prob.solver_trace), None
+    reads0 = prob.host_reads
+    card_ms, host_ms = _event_ms(lambda i: one(), 3, warmup=0, host=True)
+    reads = (prob.host_reads - reads0) / 3
+    split, n_kernels = _kernel_split(one)
+    newton, n_newton = _kernel_split(lambda: [solve_2(*args) for args in calls])
+    busy = sum(split.values())
+    pcg = [k for _, ks in trace for k in ks]
+    print(f'times: multi-implicit sweep {N_FI}^2 fp64 M={M_FI} Q1=Q2=LU from the spread state: {card_ms:.3f} ms on '
+          f'the card, {host_ms:.3f} ms host clock, {n_kernels} kernels, {reads:.0f} host reads; pointwise Newton '
+          f'iterations per solve {[k for k, _ in trace]}, PCG iterations {pcg}; by kind (profiler): K1 '
+          f'{split["K1"]:.3f} ms, cuFFT {split["cuFFT"]:.3f} ms, the pointwise Newton solves {newton["other"]:.3f} ms '
+          f'in {n_newton} kernels, the rest {split["other"] - newton["other"]:.3f} ms; idle {card_ms - busy:.3f} ms '
+          f'({100 * (1 - busy / card_ms):.0f}%) [{card}]')
+
+    fi = AllenCahnPeriodicND(nvars=(N_FI, N_FI), eps=0.04, newton_tol=NEWTON_TOL_FI, dtype=torch.float64, device='cuda')
+    fi_one = sweep_of(fi, GenericImplicit(dict(num_nodes=M_FI, quad_type='RADAU-RIGHT', QI='LU')))
+    fi_one()
+    reads0 = fi.host_reads
+    fi_ms, fi_host = _event_ms(lambda i: fi_one(), 3, warmup=0, host=True)
+    fi_split, fi_kernels = _kernel_split(fi_one)
+    fi_busy = sum(fi_split.values())
+    print(f'times: beside it, the fully implicit sweep of the same problem (GenericImplicit M={M_FI} LU, Newton-PCG): '
+          f'{fi_ms:.3f} ms on the card, {fi_host:.3f} ms host clock, {fi_kernels} kernels, '
+          f'{(fi.host_reads - reads0) / 3:.0f} host reads; K1 {fi_split["K1"]:.3f}, cuFFT {fi_split["cuFFT"]:.3f}, '
+          f'the rest {fi_split["other"]:.3f} ms; idle {100 * (1 - fi_busy / fi_ms):.0f}% [{card}]')
+
+    # one ESDIRK43 step at 2048^2 float32 (predictor, the stages, the end points) beside a main-path sweep
+    heat = main_ctrl.MS[0].levels[0].prob
+    rk = ESDIRK43({})
+    u0 = heat.u_exact(0.0)
+
+    def rk_step():
+        state = rk.predict(heat, u0, 0.0, DT)
+        state = rk.update_nodes(heat, state, 0.0, DT)
+        return rk.compute_end_point_with_secondary(state, 0.0, DT)
+
+    rk_ms, rk_host = _event_ms(lambda i: rk_step(), 10, warmup=2, host=True)
+    rk_split, rk_kernels = _kernel_split(rk_step)
+    lvl = main_ctrl.MS[0].levels[0]
+
+    def main_sweep():
+        lvl.update_nodes()
+        lvl.compute_residual()
+
+    main_ms, main_host = _event_ms(lambda i: main_sweep(), 10, warmup=2, host=True)
+    main_split, main_kernels = _kernel_split(main_sweep)
+    print(f'times: one ESDIRK43 step HeatND {N_MAIN}^2 fp32 (6 stages, 5 shifted solves, 7 K1 applies): {rk_ms:.4f} ms '
+          f'on the card, {rk_host:.4f} ms host clock, {rk_kernels} kernels (K1 {rk_split["K1"]:.4f}, cuFFT '
+          f'{rk_split["cuFFT"]:.4f}, the rest {rk_split["other"]:.4f} ms); the main path\'s GenericImplicit sweep '
+          f'(M={M_MAIN} LU, update_nodes + residual): {main_ms:.4f} ms on the card, {main_host:.4f} ms host clock, '
+          f'{main_kernels} kernels (K1 {main_split["K1"]:.4f}, cuFFT {main_split["cuFFT"]:.4f}, the rest '
+          f'{main_split["other"]:.4f} ms) [{card}]')
+
+
 def main():
     import torch
 
@@ -2551,12 +3141,22 @@ def main():
     implicit_fused_launches = phase(phase_implicit_fused, card, covered_fi)
     krylov_launches = phase(phase_krylov_spectral, card, covered_fi)
     phase(phase_implicit_times, implicit, sparse_ctrl, card)
+    mi_run, mi_launches = phase(phase_multi_implicit, card, covered_fi)
+    phase(phase_multi_implicit_parity)
+    mi_fused_launches = phase(phase_multi_implicit_fused, card, covered_fi)
+    rk_launches = phase(phase_rk, card)
+    phase(phase_rk_parity)
+    rk_adaptive_launches = phase(phase_rk_adaptive, card)
+    phase(phase_sweepers_parity)
+    phase(phase_sweeper_times, mi_run, ctrl, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
                'adaptive allen-cahn': ac_launches, 'allen-cahn sweeps': ac_sweep_launches,
                'implicit allen-cahn': implicit_launches, 'implicit fused': implicit_fused_launches,
-               'krylov': krylov_launches}
+               'krylov': krylov_launches, 'multi-implicit allen-cahn': mi_launches,
+               'multi-implicit fused': mi_fused_launches, 'rk ESDIRK43': rk_launches['ESDIRK43'],
+               'rk ARK548L2SA': rk_launches['ARK548L2SA'], 'rk adaptive': rk_adaptive_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

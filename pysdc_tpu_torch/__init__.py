@@ -8,8 +8,11 @@ It imports torch, numpy and scipy, never JAX and nothing of ``pysdc_tpu``.
 Every TPU kernel of the JAX package is a hand-written CUDA kernel for Hopper
 under ``csrc/``, built at first use: the periodic cross stencil of the 2D
 heat equation (``cross_stencil.cu``), the DIA SpMV of the sparse lane
-(``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).  SDC, IMEX
-SDC, MLSDC and virtual PFASST run through ``ControllerNonMPI``; the FAS
+(``dia_spmv.cu``) and its block-sparse SpMM (``bsr_spmm.cu``).  SDC (implicit,
+IMEX, explicit, multi-implicit, Newton-linearized), MLSDC and virtual PFASST
+run through ``ControllerNonMPI``, as do the Runge-Kutta tableaus
+(:mod:`pysdc_tpu_torch.sweepers.runge_kutta`, with ``AdaptivityRK``) and the
+multistep methods (:mod:`pysdc_tpu_torch.sweepers.multistep`); the FAS
 transfers (``MeshTransfer``, ``FFTTransfer``, ``NoCoarseTransfer``) are in
 :mod:`pysdc_tpu_torch.transfer`.  ``ShardedController`` keeps a block of time
 steps in tensors with a time axis (one card, no mesh yet) and runs it on the
@@ -49,8 +52,11 @@ configure_default_matmul_precision()
 
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
 from pysdc_tpu_torch.parallel.sharded import ShardedController  # noqa: E402
+from pysdc_tpu_torch.sweepers.explicit import ExplicitSweeper  # noqa: E402
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit  # noqa: E402
 from pysdc_tpu_torch.sweepers.imex import IMEXSweeper  # noqa: E402
+from pysdc_tpu_torch.sweepers.linearized import LinearizedImplicitParallel  # noqa: E402
+from pysdc_tpu_torch.sweepers.multi_implicit import MultiImplicitSweeper  # noqa: E402
 from pysdc_tpu_torch.utils.stats import filter_stats, get_list_of_types, get_sorted, sort_stats  # noqa: E402
 
 __version__ = '0.1.0'
@@ -60,6 +66,9 @@ __all__ = [
     'ShardedController',
     'GenericImplicit',
     'IMEXSweeper',
+    'ExplicitSweeper',
+    'MultiImplicitSweeper',
+    'LinearizedImplicitParallel',
     'filter_stats',
     'sort_stats',
     'get_sorted',

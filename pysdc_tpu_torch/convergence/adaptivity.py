@@ -6,11 +6,10 @@ counterparts of the reference adaptivity family
 the classic controller ``dt* = beta * dt * (e_tol / e)^(1/k)`` and restart a
 step whose local error overshoots the tolerance; they differ in where the
 error estimate comes from.  Ported: the embedded sweep difference
-(:class:`Adaptivity`, both estimator flavors).  The embedded Runge-Kutta pair
-(``AdaptivityRK``) waits for the Runge-Kutta sweepers (ROADMAP queue 1,
-item 12); the residual, left-out-node, within-Q extrapolation and
-nested-quadrature variants wait for their estimators (item 13).  Each of
-those raises by name.
+(:class:`Adaptivity`, both estimator flavors) and the embedded Runge-Kutta
+pair (:class:`AdaptivityRK`).  The residual, left-out-node, within-Q
+extrapolation and nested-quadrature variants wait for their estimators
+(ROADMAP queue 1, item 13); each of those raises by name.
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ from __future__ import annotations
 from pysdc_tpu_torch.core.convergence import ConvergenceController
 from pysdc_tpu_torch.core.errors import ParameterError
 
-RK_ITEM = 'ROADMAP queue 1, item 12'
 ESTIMATORS_ITEM = 'ROADMAP queue 1, item 13'
 
 
@@ -105,6 +103,20 @@ class Adaptivity(AdaptivityBase):
         return S.levels[0].status.error_embedded_estimate
 
 
+class AdaptivityRK(Adaptivity):
+    """Embedded RK pairs carry a fixed update order given by the tableau
+    (reference adaptivity.py:422)."""
+
+    def setup(self, controller, params, description, **kwargs):
+        order = params.get('update_order', description['sweeper_class'].get_update_order())
+        return {'update_order': order, **super().setup(controller, params, description, **kwargs)}
+
+    def get_new_step_size(self, controller, S, **kwargs):
+        if S.status.iter == S.params.maxiter:
+            e = self.get_local_error_estimate(controller, S)
+            self._propose_dt(S.levels[0], e, order=self.params.update_order, step=S)
+
+
 def _not_ported(name, item, needs):
     """A class of the JAX package that raises on construction, naming its ROADMAP item."""
 
@@ -114,7 +126,6 @@ def _not_ported(name, item, needs):
     return type(name, (AdaptivityBase,), {'__init__': __init__, '__doc__': f'Not ported yet ({item}): needs {needs}.'})
 
 
-AdaptivityRK = _not_ported('AdaptivityRK', RK_ITEM, 'the embedded Runge-Kutta sweepers')
 AdaptivityResidual = _not_ported('AdaptivityResidual', ESTIMATORS_ITEM, 'the remaining convergence controllers')
 AdaptivityPolynomialError = _not_ported('AdaptivityPolynomialError', ESTIMATORS_ITEM, 'EstimatePolynomialError')
 AdaptivityExtrapolationWithinQ = _not_ported(

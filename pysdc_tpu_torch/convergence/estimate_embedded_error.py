@@ -6,10 +6,9 @@ behavioral counterparts of the reference's embedded-error family
 "embedded" estimate reads the local error off two approximations of
 different order that were computed anyway: for SDC, consecutive sweeps
 (order grows by one per sweep, so the sweep-to-sweep difference at the last
-node has the lower order).  The embedded Runge-Kutta pairs come with the
-Runge-Kutta sweepers (ROADMAP queue 1, item 12), the collocation-switching
-estimate with the remaining convergence controllers (item 13); both raise by
-name.
+node has the lower order); for embedded Runge-Kutta pairs, the two weight rows
+of the tableau.  The collocation-switching estimate comes with the remaining
+convergence controllers (ROADMAP queue 1, item 13) and raises by name.
 
 Every estimate is one max-norm read on the host (``float`` of a 0-d tensor).
 """
@@ -23,22 +22,25 @@ import numpy as np
 from pysdc_tpu_torch.core.convergence import ConvergenceController
 from pysdc_tpu_torch.core.state import norm_max
 
-RK_ITEM = 'ROADMAP queue 1, item 12'
 COLLOCATION_ITEM = 'ROADMAP queue 1, item 13'
 
 
 def _order_gap(level, kind, rel):
     """The raw lower-vs-higher-order gap for one level, or None if the data
-    it needs (the previous sweep's snapshot) is absent."""
-    if kind != 'SDC':
-        raise NotImplementedError(
-            f'the embedded estimate of sweeper type {kind!r} needs the Runge-Kutta sweepers, not ported yet ({RK_ITEM})'
-        )
-    if level.state is None or level.uold is None:  # StoreUOld keeps the previous sweep
+    it needs (previous-sweep snapshot / secondary end point) is absent."""
+    if level.state is None:
         return None
-    gap = norm_max(level.uold[-1] - level.state.u[-1])
+    if kind == 'RK':
+        level.compute_end_point()
+        gap = norm_max(level.uend - level.uend_secondary)
+        ref = level.uend
+    else:  # SDC: StoreUOld keeps the previous sweep
+        if level.uold is None:
+            return None
+        gap = norm_max(level.uold[-1] - level.state.u[-1])
+        ref = level.state.u[-1]
     if rel:
-        gap = gap / norm_max(level.state.u[-1])
+        gap = gap / norm_max(ref)
     return float(gap)
 
 
@@ -62,16 +64,26 @@ class EstimateEmbeddedError(ConvergenceController):
             raise NotImplementedError(f'no embedded-error flavor named {flavor!r}')
         return flavors[flavor]
 
+    def _is_rk(self, description):
+        from pysdc_tpu_torch.sweepers.runge_kutta import RungeKutta
+
+        return RungeKutta in description['sweeper_class'].__mro__
+
     def setup(self, controller, params, description, **kwargs):
-        # every ported sweeper is an SDC sweeper; the 'RK' type arrives with the Runge-Kutta sweepers (item 12)
-        mine = {'control_order': -80, 'sweeper_type': 'SDC', 'rel_error': False}
+        mine = {
+            'control_order': -80,
+            'sweeper_type': 'RK' if self._is_rk(description) else 'SDC',
+            'rel_error': False,
+        }
         return {**mine, **super().setup(controller, params, description, **kwargs)}
 
     def dependencies(self, controller, description, **kwargs):
-        from pysdc_tpu_torch.convergence.store_uold import StoreUOld
         from pysdc_tpu_torch.hooks.logging_hooks import LogEmbeddedErrorEstimate
 
-        controller.add_convergence_controller(StoreUOld, description=description)
+        if not self._is_rk(description):
+            from pysdc_tpu_torch.convergence.store_uold import StoreUOld
+
+            controller.add_convergence_controller(StoreUOld, description=description)
         controller.add_hook(LogEmbeddedErrorEstimate)
 
     def setup_status_variables(self, controller, **kwargs):
@@ -79,8 +91,9 @@ class EstimateEmbeddedError(ConvergenceController):
         self.add_status_variable_to_level('increment')
 
     def _active(self, S):
-        """SDC needs a completed sweep to difference against."""
-        return S.status.iter > 0
+        """RK pairs are valid from the first (only) iteration, the predictor's
+        check #0 included; SDC needs a completed sweep to difference against."""
+        return self.params.sweeper_type == 'RK' or S.status.iter > 0
 
     def post_iteration_processing(self, controller, S, **kwargs):
         if not self._active(S):

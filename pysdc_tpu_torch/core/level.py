@@ -8,6 +8,7 @@ so the JAX package's jitted wrappers have no counterpart here.
 
 from __future__ import annotations
 
+import logging
 from types import SimpleNamespace
 
 import numpy as np
@@ -48,8 +49,18 @@ class Level:
         self.params = LevelParams(dict(level_params))
         self.level_index = level_index
 
+        if getattr(sweeper, 'is_direct_solver', False) and self.params.restol > 0:
+            # RK methods are direct solvers and may not compute a residual at
+            # all (reference Runge_Kutta.py:322-328)
+            logging.getLogger('level').warning('Overwriting residual tolerance with -1 because RK methods are direct!')
+            self.params.restol = -1.0
+        #: the sweeper keeps host state across steps (the multistep history): every level runs its sweeper
+        #: eagerly, and the fused lanes, which capture sweeps into CUDA graphs, refuse it
+        self.host_stateful = bool(getattr(sweeper, 'host_stateful', False))
+
         self.state: LevelState | None = None
         self.uend = None
+        self.uend_secondary = None  # embedded RK lower-order end point
         self.uold = None  # u and f as restriction left them, for the FAS prolongation
         self.fold = None
         self.residual = None  # (M, *shape) node residuals of last computation
@@ -95,6 +106,7 @@ class Level:
                 setattr(self.status, name, init)
         self.state = None
         self.uend = None
+        self.uend_secondary = None
         self.uold = None
         self.fold = None
         self.residual = None
@@ -127,7 +139,11 @@ class Level:
         self.status.updated = False
 
     def compute_end_point(self):
-        self.uend = self.sweep.compute_end_point(self.state, self.status.time, self.params.dt)
+        if getattr(self.sweep, 'is_embedded', None) and self.sweep.is_embedded():
+            self.uend, self.uend_secondary = self.sweep.compute_end_point_with_secondary(
+                self.state, self.status.time, self.params.dt)
+        else:
+            self.uend = self.sweep.compute_end_point(self.state, self.status.time, self.params.dt)
 
     def integrate(self):
         return self.sweep.integrate(self.state, self.params.dt)

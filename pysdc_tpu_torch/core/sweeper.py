@@ -38,6 +38,10 @@ class Sweeper:
     #: set True by subclasses whose update_nodes decouples across nodes
     parallelizable = False
 
+    #: why the fused lanes' CUDA graphs cannot hold this sweeper's sweeps (a
+    #: host read inside a sweep, host state across steps), or None where they can
+    graph_capture_blocker = None
+
     def __init__(self, params: dict):
         if 'num_nodes' not in params:
             raise ParameterError(f"need 'num_nodes' to instantiate sweeper, only got {list(params)}")
@@ -111,10 +115,10 @@ class Sweeper:
         """Entry ``m`` of :meth:`node_times`: a host float, or a tensor slice."""
         return ts[m] if isinstance(ts, torch.Tensor) else float(ts[m])
 
-    def _coeff(self, key, make, like: torch.Tensor) -> torch.Tensor:
-        """The coefficient table ``make()`` on ``like``'s device and dtype,
-        made once per (key, dtype, device) and kept."""
-        return cached_tensor(self._consts, key, make, like)
+    def _coeff(self, key, make, like: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The coefficient table ``make()`` on ``like``'s device, in ``dtype``
+        (default: ``like``'s), made once per (key, dtype, device) and kept."""
+        return cached_tensor(self._consts, key, make, like, dtype)
 
     # -- protocol ------------------------------------------------------
     def predict(self, prob, u0, t, dt, random_val: float = 0.0) -> LevelState:

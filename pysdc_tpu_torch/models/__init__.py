@@ -18,6 +18,7 @@ from pysdc_tpu_torch.models.allen_cahn_spectral import (
     AllenCahnTempSpectralND,
 )
 from pysdc_tpu_torch.models.brusselator import Brusselator
+from pysdc_tpu_torch.models.dahlquist import Dahlquist, DahlquistIMEX
 from pysdc_tpu_torch.models.fisher import GeneralizedFisher1D
 from pysdc_tpu_torch.models.gray_scott import (
     GrayScott,
@@ -27,14 +28,32 @@ from pysdc_tpu_torch.models.gray_scott import (
 )
 from pysdc_tpu_torch.models.heat import HeatND, HeatNDForced
 from pysdc_tpu_torch.models.nls import NonlinearSchroedinger
-from pysdc_tpu_torch.models.odes import VanDerPol
+from pysdc_tpu_torch.models.odes import (
+    Auzinger,
+    ChemicalReaction3Var,
+    DiscontinuousTestODE,
+    JacobiElliptic,
+    Kaps,
+    Logistic,
+    Lorenz,
+    NonlinearODE1,
+    PolynomialTestEquation,
+    PolynomialTestEquationIMEX,
+    ProtheroRobinson,
+    ProtheroRobinsonAutonomous,
+    ProtheroRobinsonNonLinear,
+    VanDerPol,
+)
 from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion1D, VarCoeffDiffusion2D, VarCoeffDiffusionForced1D
 
 __all__ = [
     'AdvectionDiffusion1D', 'AdvectionND', 'AllenCahn2DSpectral', 'AllenCahn2DSpectralStab', 'AllenCahnFront1D',
     'AllenCahnFront1DFinel', 'AllenCahnFront1DSemiImplicit', 'AllenCahnPeriodicMultiImplicitND',
     'AllenCahnPeriodicND', 'AllenCahnPeriodicSemiImplicitND', 'AllenCahnSpectralND', 'AllenCahnSpectralTimeForcing',
-    'AllenCahnTempSpectralND', 'Brusselator', 'GeneralizedFisher1D', 'GrayScott', 'GrayScottLinearIMEX',
-    'GrayScottMultiImplicit', 'GrayScottMultiImplicitLinear', 'HeatND', 'HeatNDForced', 'NonlinearSchroedinger',
-    'VanDerPol', 'VarCoeffDiffusion1D', 'VarCoeffDiffusion2D', 'VarCoeffDiffusionForced1D',
+    'AllenCahnTempSpectralND', 'Auzinger', 'Brusselator', 'ChemicalReaction3Var', 'Dahlquist', 'DahlquistIMEX',
+    'DiscontinuousTestODE', 'GeneralizedFisher1D', 'GrayScott', 'GrayScottLinearIMEX', 'GrayScottMultiImplicit',
+    'GrayScottMultiImplicitLinear', 'HeatND', 'HeatNDForced', 'JacobiElliptic', 'Kaps', 'Logistic', 'Lorenz',
+    'NonlinearODE1', 'NonlinearSchroedinger', 'PolynomialTestEquation', 'PolynomialTestEquationIMEX',
+    'ProtheroRobinson', 'ProtheroRobinsonAutonomous', 'ProtheroRobinsonNonLinear', 'VanDerPol',
+    'VarCoeffDiffusion1D', 'VarCoeffDiffusion2D', 'VarCoeffDiffusionForced1D',
 ]

@@ -291,8 +291,8 @@ class AllenCahnPeriodicSemiImplicitND(AllenCahnPeriodicND):
 class AllenCahnPeriodicMultiImplicitND(AllenCahnPeriodicND):
     """Multi-implicit variant: diffusion and reaction both implicit but
     solved separately (reference allencahn_periodic_multiimplicit /
-    AllenCahn_1D_FD.py multi-implicit classes; for the multi-implicit
-    sweeper's Q1/Q2 split, ROADMAP queue 1, item 12)."""
+    AllenCahn_1D_FD.py multi-implicit classes), with the Q1/Q2 split of
+    :class:`~pysdc_tpu_torch.sweepers.multi_implicit.MultiImplicitSweeper`."""
 
     f_kind = 'comp2'
 

@@ -11,8 +11,9 @@ The counterpart of ``pysdc_tpu/models/gray_scott.py`` (reference
 on [-L/2, L/2]^N.  The components are stacked on the axis in front of the
 grid (leading batch axes ride along); the per-component diffusion solve
 reuses one spectral operator with scaled shifts.  The multi-implicit classes
-are problems only (their sweeper is ROADMAP queue 1, item 12); their
-pointwise Newton (:func:`_newton_2x2_pointwise`) runs on the masked loop.
+pair with :class:`~pysdc_tpu_torch.sweepers.multi_implicit.MultiImplicitSweeper`;
+their pointwise Newton (:func:`_newton_2x2_pointwise`) runs on the masked loop
+and takes one field (components on its first axis), one node at a time.
 """
 
 from __future__ import annotations

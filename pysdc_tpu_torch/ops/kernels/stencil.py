@@ -43,6 +43,16 @@ BAND_ROW_CHOICES = (128, 64, 32, 16)  #: rows a warp marches over, largest first
 BAND_TARGET_ITEMS = 1024  #: bands a launch should have at least: about 8 warps on each of 132 SMs
 
 
+class KernelTraceError(RuntimeError):
+    """K1 was handed a tensor of a ``torch.func`` transform (``vmap``,
+    ``jacfwd``) on the card: its ``ctypes`` launch cannot be traced."""
+
+
+def _is_traced(u) -> bool:
+    check = getattr(torch._C._functorch, 'is_functorch_wrapped_tensor', None)
+    return bool(check is not None and check(u))
+
+
 def _roll_cross_2d(u, terms):
     """Plain version: the same function as the kernel, as a sum of rolls."""
     (coeff_x, offs_x), (coeff_y, offs_y) = terms
@@ -226,6 +236,9 @@ def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
         return _roll_cross_2d(u, terms)
     if u.device.type != 'cuda':
         raise ValueError(f'cross_stencil_2d runs on cuda or cpu tensors, got {u.device}')
+    if _is_traced(u):
+        raise KernelTraceError('cross_stencil_2d launches its CUDA kernel through ctypes, which a torch.func '
+                               'transform (vmap, jacfwd) cannot trace')
     return _launch(u, terms, path)
 
 

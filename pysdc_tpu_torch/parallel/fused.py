@@ -133,6 +133,9 @@ def _shared_eligibility(ctrl):
         reason = lvl.prob.graph_capture_blocker
         if reason is not None:
             raise ControllerError(f'fused block execution captures the solves into CUDA graphs: {reason}')
+        reason = lvl.sweep.graph_capture_blocker
+        if reason is not None:
+            raise ControllerError(f'fused block execution captures the sweeps into CUDA graphs: {reason}')
 
 
 def check_fused_eligibility(ctrl):
@@ -161,13 +164,15 @@ def check_fused_adaptive_eligibility(ctrl):
     """Eligibility of the device-resident adaptive lane.
 
     Supported: the embedded-error production stack — ``Adaptivity`` (both
-    estimator flavors) + ``EstimateEmbeddedError`` + ``StoreUOld`` +
+    estimator flavors) or ``AdaptivityRK`` (embedded Runge-Kutta pairs: the
+    estimator reads the synced shadow state's secondary end point at the final
+    check) + ``EstimateEmbeddedError`` + ``StoreUOld`` +
     ``BasicRestarting``/``SpreadStepSizesBlockwise`` + the step-size
     limiter/rounding family — under maxiter-only termination (``Adaptivity``
     itself enforces restol < 0).  Everything else raises and runs the stage
     machine.
     """
-    from pysdc_tpu_torch.convergence.adaptivity import Adaptivity
+    from pysdc_tpu_torch.convergence.adaptivity import Adaptivity, AdaptivityRK
     from pysdc_tpu_torch.convergence.estimate_embedded_error import (
         EstimateEmbeddedError,
         EstimateEmbeddedErrorLinearized,
@@ -179,13 +184,12 @@ def check_fused_adaptive_eligibility(ctrl):
     )
     from pysdc_tpu_torch.convergence.store_uold import StoreUOld
 
-    # the JAX package's list also has AdaptivityRK (embedded Runge-Kutta pairs); its class here raises on
-    # construction until the Runge-Kutta sweepers are ported (ROADMAP queue 1, item 12), so the name cannot appear
     allowed = (
         CheckConvergence,
         BasicRestarting,
         SpreadStepSizesBlockwise,
         Adaptivity,
+        AdaptivityRK,
         EstimateEmbeddedError,
         EstimateEmbeddedErrorLinearized,
         StoreUOld,
@@ -925,6 +929,12 @@ def advance_fused_adaptive(ctrl, block):
         set_check_status(step, maxiter)
         L = step.levels[0]
         L.uold = torch.cat([L.state.u[:-1], prev_last[step.status.slot].unsqueeze(0)])
+        if maxiter == 1 and getattr(L.sweep, 'is_embedded', None) and L.sweep.is_embedded():
+            # check-#0 parity for direct embedded (RK) sweepers: the estimator also runs at iter=0 there, and
+            # from the spread predictor both weight rows contract identical f's, so the raw gap is exactly
+            # zero -> the eps floor the stage machine stores (the hook of the final check logs it)
+            L.status.error_embedded_estimate = eps
+            L.status.increment = eps
     ctrl.host_reads['estimate'] += len(block)
     ctrl._route_after_check(block)
     if not all(s.status.done for s in block):

@@ -283,7 +283,7 @@ def test_adaptivity_needs_e_tol_and_no_restol():
 
 
 @pytest.mark.parametrize('name, item', [
-    ('AdaptivityRK', 'item 12'), ('AdaptivityResidual', 'item 13'), ('AdaptivityPolynomialError', 'item 13'),
+    ('AdaptivityResidual', 'item 13'), ('AdaptivityPolynomialError', 'item 13'),
     ('AdaptivityExtrapolationWithinQ', 'item 13'), ('AdaptivityCollocation', 'item 13'),
     ('EstimateEmbeddedErrorCollocation', 'item 13'),
 ])

@@ -169,7 +169,7 @@ def test_sparse_backend_runs_on_the_stage_lane_and_names_why():
 
 @pytest.mark.parametrize('linear', [False, True])
 def test_multi_implicit_problem_solves_directly(linear):
-    """``AllenCahnPeriodicMultiImplicitND`` (its sweeper is ROADMAP item 12): ``eval_f``'s two components, the
+    """``AllenCahnPeriodicMultiImplicitND`` (its sweeper: tests/test_torch_sweepers.py): ``eval_f``'s two components, the
     linear solve and the pointwise Newton ``solve_system_2`` against the JAX class on a seeded field."""
     jprob = jac.AllenCahnPeriodicMultiImplicitND(nvars=(16, 16), eps=0.1, newton_tol=1e-12)
     tprob = tac.AllenCahnPeriodicMultiImplicitND(nvars=(16, 16), eps=0.1, newton_tol=1e-12, device='cpu')

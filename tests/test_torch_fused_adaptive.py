@@ -139,13 +139,29 @@ def test_run_autodispatch_lanes():
 
 
 def test_fused_adaptive_rk_cash_karp():
-    """``AdaptivityRK`` with the Cash-Karp pair (tests/test_fused.py:363) waits for the Runge-Kutta sweepers."""
-    import pysdc_tpu_torch.sweepers as sweepers
+    """Embedded-RK adaptivity (``AdaptivityRK`` with the Cash-Karp pair, tests/test_fused.py:363) through the
+    adaptive fused lane: ``run()`` takes it, and it equals the JAX package's stage machine and its adaptive lane
+    (``dt`` to 1e-7, ``uend`` to 1e-10; the estimate entries, the check-#0 eps floor included, entry for entry)."""
+    from pysdc_tpu.sweepers.runge_kutta import Cash_Karp as JaxCashKarp
+    from pysdc_tpu_torch.sweepers.runge_kutta import Cash_Karp
 
-    assert not hasattr(sweepers, 'runge_kutta')
-    pkg, desc = description('torch', vdp({'AdaptivityRK': {'e_tol': 1e-7, 'update_order': 5}}, maxiter=1))
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item 12'):
-        pkg.ShardedController(1, {'logger_level': 40}, desc)
+    Tend = 0.5
+    runs = {}
+    for package, sweeper in (('jax', JaxCashKarp), ('torch', Cash_Karp)):
+        parts = vdp({'AdaptivityRK': {'e_tol': 1e-7, 'update_order': 5}}, maxiter=1)
+        parts['sweeper_params'] = {}
+        pkg, desc = description(package, parts)
+        desc['sweeper_class'] = sweeper
+        for kind in ('virtual', 'block'):
+            cls = pkg.ControllerNonMPI if kind == 'virtual' else pkg.ShardedController
+            ctrl = cls(1, {'logger_level': 40}, desc)
+            uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, Tend)
+            runs[package, kind] = summary(pkg, ctrl, uend, stats)
+    got = runs['torch', 'block']
+    assert _lane_of(got['stats']) == _lane_of(runs['jax', 'block']['stats']) == ['fused_adaptive']
+    for want in (runs['jax', 'virtual'], runs['jax', 'block'], runs['torch', 'virtual']):
+        assert_parity(want, got, 1e-7, 1e-10)
+    assert len(entries(got, 'dt')) > 10 and len({round(v, 12) for _, v in entries(got, 'dt')}) > 3
 
 
 def test_fused_adaptive_on_device_mesh():

@@ -39,6 +39,9 @@ _NO_JAX = (
     'import pysdc_tpu_torch.models, pysdc_tpu_torch.ops.solvers, pysdc_tpu_torch.ops.krylov, '
     'pysdc_tpu_torch.ops.loops, pysdc_tpu_torch.models.allen_cahn_spectral, pysdc_tpu_torch.models.gray_scott',
     'import chip_smoke',
+    'import pysdc_tpu_torch.sweepers, pysdc_tpu_torch.sweepers.runge_kutta, pysdc_tpu_torch.sweepers.multistep, '
+    'pysdc_tpu_torch.sweepers.linearized, pysdc_tpu_torch.sweepers.multi_implicit, pysdc_tpu_torch.sweepers.explicit, '
+    'pysdc_tpu_torch.models.dahlquist',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
     out = subprocess.run([sys.executable, '-c', imports + '\n' + _NO_JAX],
@@ -80,13 +83,13 @@ def test_unported_parts_raise_naming_the_roadmap():
         with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
             ShardedController(2, {'logger_level': 40}, desc, **kwargs)
 
-    # the adaptivity classes that wait for their sweepers or estimators; the fully implicit Allen-Cahn solve
-    # (item 9) solves now, and nothing of the package names item 9 any more
+    # the adaptivity classes that wait for their estimators; the fully implicit Allen-Cahn solve (item 9) solves
+    # now, and so do the first-order sweepers of item 12 (AdaptivityRK among them): nothing of the package names
+    # item 9 or item 12 any more
     import pysdc_tpu_torch.convergence as conv
     from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
 
-    for name, item in (('AdaptivityRK', 'item 12'), ('AdaptivityResidual', 'item 13'),
-                       ('EstimateEmbeddedErrorCollocation', 'item 13')):
+    for name, item in (('AdaptivityResidual', 'item 13'), ('EstimateEmbeddedErrorCollocation', 'item 13')):
         with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1, {item}'):
             getattr(conv, name)(None, {}, desc)
     prob = AllenCahnPeriodicND(nvars=(8, 8), eps=0.2, device='cpu')
@@ -98,7 +101,8 @@ def test_unported_parts_raise_naming_the_roadmap():
         for name in files:
             if name.endswith('.py'):
                 with open(os.path.join(folder, name)) as f:
-                    assert 'item 9' not in f.read(), name
+                    text = f.read()
+                    assert 'item 9' not in text and 'item 12' not in text, name
 
 
 def test_adaptive_lane_and_e_tol_run():

@@ -6,9 +6,9 @@ complex symbols, real and complex fields, one shift per node of a batch); each
 model runs through ``ControllerNonMPI`` with the sweeper its ``f_kind`` calls
 for (all here are IMEX), against a live JAX run: equal ``niter``, ``uend`` to
 1e-11 relative, the initial conditions equal (the random ones are drawn from
-the same numpy generators).  The multi-implicit Gray-Scott classes are problems
-only (their sweeper is ROADMAP item 12): their two solves are held directly,
-the pointwise Newton's iteration count against the JAX loop's.
+the same numpy generators).  The multi-implicit Gray-Scott classes' two solves
+are held directly, the pointwise Newton's iteration count against the JAX
+loop's (their sweeper runs them in tests/test_torch_sweepers.py).
 """
 
 import functools
