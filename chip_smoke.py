@@ -177,6 +177,43 @@ raises and the script exits nonzero without printing the final line:
    cuFFT, the pointwise Newton solves, the rest, idle) beside the fully
    implicit sweep; one ESDIRK43 step at 2048^2 beside the main path's sweep.
 
+38. paradiag kernels — K1 on the interleaved real view of complex blocks
+   (ParaDiag's state) against the plain complex rolls, complex64 and complex128,
+   at the block shapes of phases 39-40 (8 x 3 x 512^2, 8 x 3 x 2048^2, 4 x 3 x
+   128^2): the path ``choose_path`` gives the doubled y table (bands or general)
+   and the general path forced, with the stated tolerance.
+39. paradiag — bench_paradiag's configuration (bench.py:844-870): HeatND 512^2
+   periodic float32 (a complex64 block), nu 0.1, freq 4, ``QDiagonalization``
+   M=3 RADAU-RIGHT, L=8, alpha 1e-4, dt 0.01, restol 1e-4, maxiter 10, one block
+   through ``ParaDiagController.run``: every step reaches restol, the K1 launch
+   count (counts set to 0 just before) equals the iterations, each on the path
+   phase 38 covered; ``uend`` against ``u_exact``, against the same run through
+   the plain apply (equal ``niter``) and against a float64 run on the card.
+   Then the same block at 2048^2 (float32 cannot reach restol there: every
+   final residual within the stated float32 floor), with its peak memory.
+40. paradiag parity — float64 on the card against the port's CPU run: HeatND
+   128^2 with L=4, Dahlquist (16 lambdas), VanDerPol (tests/test_paradiag.py:70-77)
+   and ``QDiagonalization(ignore_ic=False)`` as a direct collocation solver:
+   equal ``niter`` per step, ``uend`` to 1e-11.
+41. second order — float64 card against CPU (equal ``niter``, ``uend`` to
+   1e-11): ``VerletSweeper`` on ``FermiPastaUlamTsingou`` with 2048 particles,
+   50 steps, and its energy drift; ``BorisSDC`` on ``PenningTrap3D`` with one
+   particle at two step sizes (the order against the analytic orbit) and with
+   1024 particles (the pairwise (3, N, N) Coulomb sum); ``RKN4`` on
+   ``HarmonicOscillator``.
+42. dae — float64 card against CPU: ``FullyImplicitDAE`` and ``SemiImplicitDAE``
+   on ``SimpleDAE``, ``FullyImplicitDAE`` on ``Pendulum2D`` (constraint to 1e-10,
+   each component to its stated tolerance), ``EDIRK4DAE``: equal ``niter``,
+   ``uend`` to 1e-11, every Newton solve stopped before its maxiter and its
+   failure flag clear.
+43. paradiag times — one ParaDiag iteration at 512^2 and 2048^2: ms on the card
+   and the host clock, busy time by kind of kernel (K1, cuFFT, the complex
+   products, the rest) and the idle share, and from a CUDA graph of one
+   iteration (for timing only: the controller stays eager); bench_paradiag's
+   rate figure; the block through ParaDiag beside the same 8 steps through
+   ``ControllerNonMPI`` with ``GenericImplicit`` M=3 LU; K1 on the complex64
+   block (8, 3, 512, 1024) as float32 against its bound and the complex rolls.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -277,6 +314,20 @@ RK_DT_RTOL = 1e-7  # accepted dt of the adaptive fused lane against the stage la
 # a fourth of it in dt.  This script measured 1.0e-7 on an H100 80GB HBM3
 RK_AD_PARITY_DT_RTOL = 1e-6
 DT_EXPLICIT = 5e-6  # ExplicitSweeper on HeatND 256^2: dt |lambda_max| = 0.26, inside explicit SDC's region
+# ParaDiag: bench_paradiag's configuration (bench.py:844-870), then the main path's width; card against CPU at 128^2
+N_PD, N_PD_BIG, L_PD, M_PD, ALPHA_PD, DT_PD, RESTOL_PD, MAXITER_PD = 512, 2048, 8, 3, 1e-4, 0.01, 1e-4, 10
+N_PD_PARITY, L_PD_PARITY = 128, 4
+# float32 at 512^2: this script measured |uend - u_exact| 8.2e-7 and 7.4e-7 from float64 at max|uend| 0.08 on an H100
+# 80GB HBM3; the rounding of f = A u grows with |A|, as n^2: 1.1e-5 at 2048^2 (the bound scales with it)
+PD_EXACT_BOUND = 1e-5  # |uend - u_exact(0.08)|, float32, 512^2; times (n / 512)^2 at n^2
+PD_PLAIN_BOUND = 1e-5  # |uend - uend through the plain (complex roll) apply|, float32, equal niter
+PD_FP64_BOUND = 1e-5  # |uend(float32) - uend(float64)|, both on the card
+# the second-order sweepers: FPUT at the problem's default width, the Penning trap's cloud of charges
+N_FPUT, DT_FPUT, STEPS_FPUT = 2048, 1.0, 50
+N_PENNING, DT_PENNING, STEPS_PENNING = 1024, 1 / 64, 4
+# the index-3 pendulum, card against CPU: positions, velocities, the Lagrange multiplier (rounding amplified by 1/dt^2;
+# the port against the JAX package measured 2e-16, 2e-12, 3.8e-9 on the CPU)
+PENDULUM_TOLS = (1e-12, 1e-10, 1e-8)
 
 
 def _card():
@@ -2444,17 +2495,22 @@ def phase_krylov_spectral(card, covered):
     return launches
 
 
-def _kernel_split(fn):
-    """ms the card spent over one call of ``fn()`` by kind of kernel (profiler): K1, cuFFT, the rest (elementwise
-    passes, reductions, copies), and the number of kernels."""
+def _kernel_split(fn, products=False):
+    """ms the card spent over one call of ``fn()`` by kind of kernel (profiler): K1, cuFFT, with ``products`` the
+    dense products (cuBLAS GEMM / GEMV kernels), the rest (elementwise passes, reductions, copies), and the number
+    of kernels."""
     def device_us(e):
         return getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0)
 
     split = {'K1': 0.0, 'cuFFT': 0.0, 'other': 0.0}
+    if products:
+        split['products'] = 0.0
     n = 0
     for e in _profiled(fn):
         key = e.key.lower()
         kind = 'K1' if 'cross_stencil' in key else 'cuFFT' if 'fft' in key else 'other'
+        if products and kind == 'other' and any(w in key for w in ('gemm', 'gemv', 'cutlass', 'xmma', 'dot_kernel')):
+            kind = 'products'
         split[kind] += device_us(e) / 1e3
         n += e.count
     if not sum(split.values()) > 0:
@@ -3091,6 +3147,488 @@ def phase_sweeper_times(mi_run, main_ctrl, card):
           f'{main_split["other"]:.4f} ms) [{card}]')
 
 
+# -- ParaDiag (all-at-once diagonalization in time), the second-order and the DAE sweepers --------------------------
+def _paradiag_description(n, dtype, device, restol=RESTOL_PD, maxiter=MAXITER_PD, dt=DT_PD, freq=4):
+    """bench_paradiag (bench.py:844-870) at ``n``^2: HeatND periodic, nu 0.1, QDiagonalization M=3 RADAU-RIGHT."""
+    from pysdc_tpu_torch import QDiagonalization
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    return dict(problem_class=HeatND,
+                problem_params=dict(nvars=(n, n), nu=0.1, freq=freq, bc='periodic', dtype=dtype, device=device),
+                sweeper_class=QDiagonalization, sweeper_params=dict(num_nodes=M_PD, quad_type='RADAU-RIGHT'),
+                level_params=dict(dt=dt, restol=restol), step_params=dict(maxiter=maxiter))
+
+
+def _paradiag_run(desc, L=L_PD, alpha=ALPHA_PD, plain=False, n_blocks=1):
+    """``ParaDiagController(L).run`` over ``n_blocks`` blocks from ``u_exact(0)``, the K1 counts set to 0 just before
+    the run: niter, the final residual of each step, the K1 launches by path, ``uend``."""
+    from pysdc_tpu_torch import ParaDiagController, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ParaDiagController(L, {'logger_level': 30, 'alpha': alpha}, desc)
+    prob = ctrl.template.levels[0].prob
+    if plain:
+        prob.A.disable_pallas()
+    u0 = prob.u_exact(0.0)
+    Tend = n_blocks * L * desc['level_params']['dt']
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    uend, stats = ctrl.run(u0, 0.0, Tend)
+    return SimpleNamespace(ctrl=ctrl, prob=prob, uend=uend, Tend=Tend, niter=_niter(stats),
+                           residuals=[v for _, v in get_sorted(stats, type='residual_post_step', sortby='time')],
+                           launches=cross_stencil_2d.launches, paths=dict(cross_stencil_2d.paths))
+
+
+def _paradiag_k1_cases():
+    """(label, block shape, taps) of K1's complex route: the bench's block at 512^2 and 2048^2, the parity block."""
+    import torch
+
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    cases = []
+    for n, L in ((N_PD, L_PD), (N_PD_BIG, L_PD), (N_PD_PARITY, L_PD_PARITY)):
+        terms = HeatND(nvars=(n, n), nu=0.1, freq=4, bc='periodic', dtype=torch.float32, device='cuda').A._cross_terms
+        cases.append((f'{n}^2', (L, M_PD, n, n), terms))
+    return cases
+
+
+def phase_paradiag_kernels():
+    """K1 on the interleaved real view of complex fields against the plain complex rolls, complex64 and complex128,
+    at ParaDiag's block shapes: the path the wrapper picks (which must be the one ``choose_path`` gives the doubled
+    table) and the general path forced.  Returns the (view shape, taps) pairs covered, with their path."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path, interleaved_terms
+
+    gen = torch.Generator(device='cuda').manual_seed(99)
+    covered = {}
+    for label, shape, terms in _paradiag_k1_cases():
+        doubled = interleaved_terms(terms)
+        view = shape[:-1] + (2 * shape[-1],)
+        for dtype in (torch.complex64, torch.complex128):
+            real = torch.float32 if dtype == torch.complex64 else torch.float64
+            itemsize = torch.empty((), dtype=real).element_size()
+            u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+            expected = choose_path(view, doubled, itemsize)
+            tol = _stencil_tolerance(doubled, real)
+            err, rel = _k1_both_paths(f'paradiag {label}', terms, u, expected, tol)
+            covered[(view, real, doubled)] = expected
+            print(f'paradiag kernels: K1 on the interleaved view of a {str(dtype)[6:]} block {shape} -> {real} {view}, '
+                  f'y taps {doubled[1][1]}: path {expected}, max abs err {err:.3e}, max rel err {rel:.3e} <= tol '
+                  f'{tol:.3e} (both paths)')
+            del u
+    torch.cuda.empty_cache()
+    return covered
+
+
+def _check_paradiag_k1(run, label, covered, dtype):
+    """Every K1 launch of a ParaDiag run: one an iteration, on the path phase 38 covered for its block."""
+    from pysdc_tpu_torch.ops.kernels.stencil import interleaved_terms
+
+    its = run.niter[0]
+    if any(k != its for k in run.niter) or run.launches != its:
+        raise AssertionError(f'{label}: niter {run.niter}, K1 launches {run.launches}, expected one an iteration')
+    shape = (L_PD, M_PD) + tuple(run.prob.shape)
+    key = (shape[:-1] + (2 * shape[-1],), dtype, interleaved_terms(run.prob.A._cross_terms))
+    path = covered.get(key)
+    if path is None or run.paths != {**{'bands': 0, 'general': 0}, path: its}:
+        raise AssertionError(f'{label}: K1 launches by path {run.paths}, phase 38 covered {path} for this block')
+    return path
+
+
+def phase_paradiag(card, covered):
+    """bench_paradiag's block at 512^2 float32 (complex64 block) through ``ParaDiagController.run``, against the plain
+    apply, u_exact and a float64 run; then the same block at 2048^2."""
+    import torch
+
+    desc = _paradiag_description(N_PD, torch.float32, 'cuda')
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run = _paradiag_run(desc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    path = _check_paradiag_k1(run, f'paradiag {N_PD}^2', covered, torch.float32)
+    if not all(r <= RESTOL_PD for r in run.residuals) or len(run.residuals) != L_PD:
+        raise AssertionError(f'paradiag {N_PD}^2: final residuals {run.residuals} above restol {RESTOL_PD}')
+    uend = run.uend
+    if uend.shape != (N_PD, N_PD) or uend.dtype != torch.float32 or not bool(torch.isfinite(uend).all()):
+        raise AssertionError('paradiag: uend is not a finite float32 field of the grid shape')
+    err = (uend - run.prob.u_exact(run.Tend)).abs().max().item()
+    plain = _paradiag_run(desc, plain=True)
+    diff_plain = (uend - plain.uend).abs().max().item()
+    fp64 = _paradiag_run(_paradiag_description(N_PD, torch.float64, 'cuda'))
+    diff64 = (uend.double() - fp64.uend).abs().max().item()
+    if plain.launches != 0 or plain.niter != run.niter or not diff_plain <= PD_PLAIN_BOUND:
+        raise AssertionError(f'paradiag vs plain apply: niter {plain.niter} / {run.niter}, uend diff {diff_plain:.3e}, '
+                             f'K1 launches {plain.launches}')
+    if not err <= PD_EXACT_BOUND or not diff64 <= PD_FP64_BOUND or not all(r <= RESTOL_PD for r in fp64.residuals):
+        raise AssertionError(f'paradiag: |uend - u_exact| {err:.3e}, |uend - uend fp64| {diff64:.3e}, fp64 residuals '
+                             f'{fp64.residuals}')
+    print(f'paradiag: HeatND {N_PD}^2 fp32 (complex64 block {(L_PD, M_PD, N_PD, N_PD)}), L={L_PD} M={M_PD} alpha '
+          f'{ALPHA_PD} dt {DT_PD}, one block: niter {run.niter}, final residuals max {max(run.residuals):.3e} <= restol '
+          f'{RESTOL_PD}, K1 launches {run.launches} = iterations, all on {path}; wall {wall:.3f} s incl. first calls; '
+          f'|uend - u_exact| {err:.3e} <= {PD_EXACT_BOUND} (max|uend| {uend.abs().max().item():.4f}); through the plain '
+          f'apply niter {plain.niter}, uend diff {diff_plain:.3e} <= {PD_PLAIN_BOUND}; float64 on the card niter '
+          f'{fp64.niter}, uend diff {diff64:.3e} <= {PD_FP64_BOUND} [{card}]')
+
+    # the main path's width: float32 at 2048^2 sits above restol (the floor of f = A u's rounding, stated)
+    del plain, fp64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**20
+    big = _paradiag_run(_paradiag_description(N_PD_BIG, torch.float32, 'cuda'))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    big_path = _check_paradiag_k1(big, f'paradiag {N_PD_BIG}^2', covered, torch.float32)
+    floor = _paradiag_floor(big.prob, torch.float32)
+    err_big = (big.uend - big.prob.u_exact(big.Tend)).abs().max().item()
+    exact_bound = PD_EXACT_BOUND * (N_PD_BIG / N_PD) ** 2
+    if not all(r <= max(RESTOL_PD, floor) for r in big.residuals) or not err_big <= exact_bound:
+        raise AssertionError(f'paradiag {N_PD_BIG}^2: final residuals {big.residuals} (floor {floor:.3e}), '
+                             f'|uend - u_exact| {err_big:.3e}')
+    print(f'paradiag: HeatND {N_PD_BIG}^2 fp32, one block: niter {big.niter}, final residuals '
+          f'{[float(f"{r:.3e}") for r in big.residuals]} <= max(restol, the float32 floor dt sum|c| eps max|u0| = '
+          f'{floor:.3e}), K1 launches {big.launches} = iterations, all on {big_path}; |uend - u_exact| {err_big:.3e} '
+          f'<= {exact_bound:.1e} (the 512^2 bound times (n / 512)^2); peak memory {peak:.0f} MiB, {peak - before:.0f} '
+          f'MiB above what the script held before the run [{card}]')
+    by_path = {f'paradiag {N_PD}': run.launches, f'paradiag {N_PD_BIG}': big.launches}
+    return run, big, by_path
+
+
+def _paradiag_floor(prob, dtype):
+    """The residual's float32 floor of a ParaDiag block from u_exact(0): f = A u rounds by sum|c| eps max|u|, and
+    reaches the residual through dt Q (row sums at most 1)."""
+    import torch
+
+    terms = prob.A._cross_terms
+    return DT_PD * sum(abs(c) for coeff, _ in terms for c in coeff) * torch.finfo(dtype).eps * \
+        prob.u_exact(0.0).abs().max().item()
+
+
+def _parity_pair(label, make, check):
+    """``make(device)`` on the card and on the CPU (one thread: complex LU), then ``check(card_out, cpu_out)``."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = [make(device) for device in ('cuda', 'cpu')]
+    finally:
+        torch.set_num_threads(threads)
+    return check(label, *out)
+
+
+def phase_paradiag_parity():
+    """Float64 ParaDiag on the card against the port's CPU run: HeatND 128^2 with L=4, Dahlquist (16 lambdas),
+    VanDerPol (tests/test_paradiag.py:70-77), and QDiagonalization(ignore_ic=False) as a direct collocation solver."""
+    import torch
+
+    from pysdc_tpu_torch import QDiagonalization
+    from pysdc_tpu_torch.models.dahlquist import Dahlquist
+    from pysdc_tpu_torch.models.odes import VanDerPol
+
+    def desc(problem_class, params, dt, maxiter):
+        return dict(problem_class=problem_class, problem_params=params, sweeper_class=QDiagonalization,
+                    sweeper_params=dict(num_nodes=M_PD, quad_type='RADAU-RIGHT'),
+                    level_params=dict(dt=dt, restol=1e-10), step_params=dict(maxiter=maxiter))
+
+    cases = {
+        f'HeatND {N_PD_PARITY}^2 L={L_PD_PARITY}': (lambda device: _paradiag_description(
+            N_PD_PARITY, torch.float64, device, restol=1e-10, maxiter=20, freq=2), L_PD_PARITY, 1e-4, 2),
+        'Dahlquist 16 lambdas': (lambda device: desc(Dahlquist, dict(lambdas=np.linspace(-8, -0.2, 16), u0=1.0,
+                                                                     device=device), 0.1, 20), 4, 1e-4, 1),
+        'VanDerPol mu=1': (lambda device: desc(VanDerPol, dict(mu=1.0, u0=(2.0, 0.0), newton_tol=1e-12, device=device),
+                                               0.02, 50), 4, 1e-3, 5),
+    }
+
+    def check(label, card_run, cpu_run):
+        diff = (card_run.uend.cpu() - cpu_run.uend).abs().max().item()
+        if card_run.niter != cpu_run.niter or not diff <= PARITY_UEND_TOL or len(card_run.niter) < 4:
+            raise AssertionError(f'paradiag parity {label}: niter card {card_run.niter} cpu {cpu_run.niter}, uend diff '
+                                 f'{diff:.3e}')
+        print(f'paradiag parity: {label} fp64: niter {card_run.niter[:8]}{"..." if len(card_run.niter) > 8 else ""} '
+              f'({len(card_run.niter)} steps) on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
+
+    for label, (make, L, alpha, blocks) in cases.items():
+        _parity_pair(label, lambda device: _paradiag_run(make(device), L=L, alpha=alpha, n_blocks=blocks), check)
+
+    # SDC mode: one update solves the collocation problem directly
+    from pysdc_tpu_torch.core.level import Level
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    def direct(device):
+        prob = HeatND(nvars=(N_PD_PARITY, N_PD_PARITY), nu=0.1, freq=2, bc='periodic', dtype=torch.float64,
+                      device=device)
+        lvl = Level(prob, QDiagonalization(dict(num_nodes=M_PD, quad_type='RADAU-RIGHT', ignore_ic=False)),
+                    dict(dt=0.05, restol=1e-12))
+        lvl.status.time = 0.0
+        lvl.predict(prob.u_exact(0.0))
+        lvl.update_nodes()
+        lvl.compute_residual()
+        return lvl.u.cpu(), float(lvl.status.residual)
+
+    def check_direct(label, card_out, cpu_out):
+        diff = (card_out[0] - cpu_out[0]).abs().max().item()
+        if not (card_out[1] < 1e-12 and cpu_out[1] < 1e-12 and diff <= PARITY_UEND_TOL):
+            raise AssertionError(f'paradiag parity {label}: residuals {card_out[1]:.3e} / {cpu_out[1]:.3e}, '
+                                 f'node values {diff:.3e} apart')
+        print(f'paradiag parity: {label} fp64: residual after one update {card_out[1]:.3e} (card), {cpu_out[1]:.3e} '
+              f'(CPU) < 1e-12, node values {diff:.3e} apart <= {PARITY_UEND_TOL}')
+
+    _parity_pair(f'QDiagonalization(ignore_ic=False) HeatND {N_PD_PARITY}^2', direct, check_direct)
+
+
+def _nonmpi_pair(problem, params, sweeper, sweeper_params, level, maxiter, Tend, u0=None, t0=0.0):
+    """``ControllerNonMPI(1)`` float64 on the card and on the CPU from the same initial state (``u0(device)`` or
+    ``u_exact(t0)``) to ``Tend``: niter per step and the final state of each (a problem with a ``newton_trace``
+    records its Newton iterations)."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI
+
+    out = {}
+    for device in ('cuda', 'cpu'):
+        desc = dict(problem_class=problem, problem_params=dict(params, dtype=torch.float64, device=device),
+                    sweeper_class=sweeper, sweeper_params=sweeper_params, level_params=level,
+                    step_params=dict(maxiter=maxiter))
+        ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+        prob = ctrl.MS[0].levels[0].prob
+        if hasattr(prob, 'newton_trace'):
+            prob.newton_trace = []
+        start = prob.u_exact(t0) if u0 is None else u0(device)
+        uend, stats = ctrl.run(start, t0, Tend)
+        out[device] = SimpleNamespace(prob=prob, u0=start, uend=uend, niter=_niter(stats))
+    return out['cuda'], out['cpu']
+
+
+def _leaves(x):
+    return tuple(x) if isinstance(x, tuple) else (x,)
+
+
+def _state_diff(a, b):
+    return max((x.cpu() - y.cpu()).abs().max().item() for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_second_order(card):
+    """Float64 card against CPU: Verlet on FPUT (2048 particles, the problem's default, with its energy drift), Boris
+    on the Penning trap with 1 particle (the order run of examples/step_19_second_order_sdc.py:123-140) and with
+    1024 (the pairwise (3, N, N) Coulomb sum on the card), RKN4 on the harmonic oscillator."""
+    import torch
+
+    from pysdc_tpu_torch.models import particles
+    from pysdc_tpu_torch.sweepers.boris import BorisSDC
+    from pysdc_tpu_torch.sweepers.rkn import RKN4
+    from pysdc_tpu_torch.sweepers.verlet import VerletSweeper
+
+    def gate(label, card_run, cpu_run, tol=PARITY_UEND_TOL):
+        diff = _state_diff(card_run.uend, cpu_run.uend)
+        scale = max(x.abs().max().item() for x in _leaves(cpu_run.uend))
+        if card_run.niter != cpu_run.niter or not diff <= tol * max(1.0, scale) or not all(
+                bool(torch.isfinite(x).all()) for x in _leaves(card_run.uend)):
+            raise AssertionError(f'second order {label}: niter card {card_run.niter[:8]} cpu {cpu_run.niter[:8]}, '
+                                 f'uend diff {diff:.3e}')
+        return diff
+
+    lobatto = dict(num_nodes=3, quad_type='LOBATTO')
+    t0 = time.perf_counter()
+    card_run, cpu_run = _nonmpi_pair(particles.FermiPastaUlamTsingou, dict(npart=N_FPUT), VerletSweeper,
+                                     dict(num_nodes=3), dict(dt=DT_FPUT, restol=1e-12), 20, STEPS_FPUT * DT_FPUT)
+    wall = time.perf_counter() - t0
+    diff = gate('FPUT', card_run, cpu_run)
+    H0 = card_run.prob.eval_hamiltonian(card_run.u0).item()
+    H1 = card_run.prob.eval_hamiltonian(card_run.uend).item()
+    print(f'second order: VerletSweeper M=3 Lobatto on FermiPastaUlamTsingou npart={N_FPUT} fp64, {STEPS_FPUT} steps of '
+          f'dt {DT_FPUT}: niter {sorted(set(card_run.niter))} on card and CPU, uend diff {diff:.3e} <= '
+          f'{PARITY_UEND_TOL}; energy drift |H(T) - H(0)| / |H(0)| = {abs(H1 - H0) / abs(H0):.3e}; {wall:.1f} s '
+          f'for both runs [{card}]')
+
+    errs = []
+    for dt in (1 / 64, 1 / 128):
+        card_run, cpu_run = _nonmpi_pair(particles.PenningTrap3D, dict(nparts=1), BorisSDC, lobatto,
+                                         dict(dt=dt, restol=1e-12), 20, 0.5)
+        diff = gate(f'Penning trap 1 particle dt {dt}', card_run, cpu_run)
+        ex = card_run.prob.u_exact(0.5)
+        errs.append(_state_diff(card_run.uend, ex))
+    order = math.log(errs[0] / errs[1]) / math.log(2)
+    if not order > 3.3:
+        raise AssertionError(f'second order: Boris-SDC order {order:.2f} (errors {errs}) <= 3.3')
+    print(f'second order: BorisSDC M=3 Lobatto on PenningTrap3D, 1 particle, dt 1/64 and 1/128 to t 0.5: niter equal '
+          f'on card and CPU, uend diff {diff:.3e}; errors against the analytic orbit {errs[0]:.3e}, {errs[1]:.3e}: '
+          f'order {order:.2f} > 3.3')
+
+    def cloud(device):
+        gen = torch.Generator().manual_seed(2024)
+        pos = 4.0 * (2 * torch.rand((3, N_PENNING), generator=gen, dtype=torch.float64) - 1)
+        vel = torch.randn((3, N_PENNING), generator=gen, dtype=torch.float64)
+        return particles.Particles(pos.to(device), vel.to(device))
+
+    t0 = time.perf_counter()
+    card_run, cpu_run = _nonmpi_pair(particles.PenningTrap3D, dict(nparts=N_PENNING), BorisSDC,
+                                     lobatto, dict(dt=DT_PENNING, restol=1e-10), 20, STEPS_PENNING * DT_PENNING,
+                                     u0=cloud)
+    wall = time.perf_counter() - t0
+    diff = gate(f'Penning trap {N_PENNING} particles', card_run, cpu_run)
+    print(f'second order: BorisSDC on PenningTrap3D with {N_PENNING} particles (the (3, N, N) Coulomb sum on the card), '
+          f'{STEPS_PENNING} steps of dt {DT_PENNING}: niter {card_run.niter} on card and CPU, uend diff {diff:.3e}; '
+          f'{wall:.1f} s for both runs [{card}]')
+
+    card_run, cpu_run = _nonmpi_pair(particles.HarmonicOscillator, dict(k=1.0, mu=0.0), RKN4, {},
+                                     dict(dt=1 / 16, restol=-1), 1, 2.0)
+    diff = gate('RKN4', card_run, cpu_run)
+    err = _state_diff(card_run.uend, card_run.prob.u_exact(2.0))
+    print(f'second order: RKN4 on HarmonicOscillator, 32 steps of dt 1/16: uend diff card-CPU {diff:.3e} <= '
+          f'{PARITY_UEND_TOL}, error against the exact orbit {err:.3e}')
+
+
+def phase_dae(card):
+    """Float64 card against CPU: FullyImplicitDAE and SemiImplicitDAE on SimpleDAE, FullyImplicitDAE on Pendulum2D,
+    EDIRK4DAE on DiscontinuousTestDAE; every Newton solve stopped before its maxiter, no failure flag."""
+    import torch
+
+    from pysdc_tpu_torch.models import dae_problems
+    from pysdc_tpu_torch.sweepers import dae
+
+    cases = {
+        'FullyImplicitDAE SimpleDAE': (dae_problems.SimpleDAE, dict(newton_tol=1e-12), dae.FullyImplicitDAE,
+                                       dict(num_nodes=3, QI='IE'), dict(dt=0.05, restol=1e-11), 40, 0.2),
+        'SemiImplicitDAE SimpleDAE': (dae_problems.SimpleDAE, dict(newton_tol=1e-12), dae.SemiImplicitDAE,
+                                      dict(num_nodes=3, QI='IE'), dict(dt=0.05, restol=1e-11), 40, 0.2),
+        'FullyImplicitDAE Pendulum2D': (dae_problems.Pendulum2D, dict(newton_tol=1e-12), dae.FullyImplicitDAE,
+                                        dict(num_nodes=3, QI='IE'), dict(dt=0.01, restol=1e-8), 50, 0.05),
+        'EDIRK4DAE DiscontinuousTestDAE': (dae_problems.DiscontinuousTestDAE, dict(newton_tol=1e-13), dae.EDIRK4DAE,
+                                           {}, dict(dt=0.2), 1, 0.8),
+    }
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for label, (problem, params, sweeper, sweeper_params, level, maxiter, span) in cases.items():
+            t_start = 1.0 if problem is dae_problems.DiscontinuousTestDAE else 0.0
+            t0 = time.perf_counter()
+            card_run, cpu_run = _nonmpi_pair(problem, params, sweeper, sweeper_params, level, maxiter,
+                                             t_start + span, t0=t_start)
+            wall = time.perf_counter() - t0
+            card_run.uend = card_run.uend.cpu()
+            diff = (card_run.uend - cpu_run.uend).abs().max().item()
+            newton = [k for counts in card_run.prob.newton_trace for k in counts]
+            flags_clear = (not bool(card_run.prob.newton_failed.item()) and newton
+                           and max(newton) < card_run.prob.newton_maxiter)
+            if 'Pendulum' in label:
+                u = card_run.uend
+                parts = [(card_run.uend[s] - cpu_run.uend[s]).abs().max().item() for s in (slice(0, 2), slice(2, 4),
+                                                                                           slice(4, 5))]
+                constraint = abs(u[0].item() ** 2 + u[1].item() ** 2 - 1.0)
+                ok = all(p <= tol for p, tol in zip(parts, PENDULUM_TOLS)) and constraint < 1e-10
+                detail = (f'positions / velocities / multiplier {parts[0]:.3e} / {parts[1]:.3e} / {parts[2]:.3e} <= '
+                          f'{PENDULUM_TOLS} (the multiplier carries the rounding amplified by 1/dt^2), constraint '
+                          f'{constraint:.3e} < 1e-10')
+            else:
+                ok = diff <= PARITY_UEND_TOL * max(1.0, cpu_run.uend.abs().max().item())
+                detail = f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}'
+            if card_run.niter != cpu_run.niter or not ok or not flags_clear:
+                raise AssertionError(f'dae {label}: niter card {card_run.niter} cpu {cpu_run.niter}, {detail}, '
+                                     f'Newton iterations max {max(newton) if newton else None}, flag '
+                                     f'{card_run.prob.newton_failed.item()}')
+            print(f'dae: {label} fp64: niter {card_run.niter} on card and CPU, {detail}; {len(newton)} Newton solves '
+                  f'of {min(newton)}-{max(newton)} iterations, flag clear; {wall:.1f} s for both runs [{card}]')
+    finally:
+        torch.set_num_threads(threads)
+
+
+def phase_paradiag_times(pd, pd_big, card):
+    """One ParaDiag iteration at 512^2 and 2048^2: ms on the card (CUDA events) and on the host clock, busy time by
+    kind of kernel (profiler) and the idle share, and from a CUDA graph of one iteration; bench_paradiag's rate;
+    K1 at (8, 3, 512, 1024) float32 against its bound and the complex rolls; the same 8 steps through serial SDC."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit
+    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, interleaved_terms
+
+    for run in (pd, pd_big):
+        ctrl, prob = run.ctrl, run.prob
+        n = prob.shape[0]
+        u0 = prob.u_exact(0.0)
+        t_arr = DT_PD * np.arange(L_PD)
+        u = ctrl._predict(u0)
+        u, _ = ctrl._iteration(u, u0, t_arr, DT_PD)  # an iterate of the block, not the spread state
+
+        def one(i):
+            return ctrl._iteration(u, u0, t_arr, DT_PD)
+
+        card_ms, host_ms = _event_ms(one, 10, warmup=2, host=True)
+        _device_busy(lambda: one(0), top=8)
+        # the profiler drops K1's launch from some sessions (a kernel launched through ctypes by the library's own
+        # CUDA runtime; seen on the card at 512^2 and, in every session, at 2048^2): the fuller of two sessions,
+        # and K1's time from CUDA events on the same block where the profiler did not see it
+        split, n_kernels = max((_kernel_split(lambda: one(0), products=True) for _ in range(2)),
+                               key=lambda sk: sum(sk[0].values()))
+        k1_seen = split['K1'] > 0
+        if not k1_seen:
+            split['K1'] = _event_ms(lambda i: prob.A.apply(u), 10)
+            n_kernels += 1
+        busy = sum(split.values())
+        graph_ms = _graph_ms(one, 5)
+        rate = L_PD * M_PD * 5 * n * n / (card_ms * 1e-3) / 1e9
+        print(f'paradiag times: one iteration, HeatND {n}^2 fp32 (complex64 block {(L_PD, M_PD, n, n)}, '
+              f'{L_PD * M_PD * n * n * 8 / 1e6:.0f} MB): {card_ms:.4f} ms on the card, {host_ms:.4f} ms host clock, '
+              f'{graph_ms:.4f} ms from a CUDA graph; {n_kernels} kernels, busy {busy:.4f} ms: K1 {split["K1"]:.4f}'
+              f'{"" if k1_seen else " (CUDA events: not in the profile)"}, '
+              f'cuFFT {split["cuFFT"]:.4f}, complex products {split["products"]:.4f}, the rest {split["other"]:.4f}; '
+              f'idle {card_ms - busy:.4f} ms ({100 * (1 - busy / card_ms):.0f}%); bench_paradiag\'s rate L M 5 n^2 / '
+              f'iteration = {rate:.2f} Gnnz/s eager, {rate * card_ms / graph_ms:.2f} from the graph [{card}]')
+
+        # the whole block through ParaDiag beside the same 8 steps through serial SDC (GenericImplicit M=3 LU)
+        block_ms, block_host = _event_ms(lambda i: ctrl.run(u0, 0.0, L_PD * DT_PD), 2, warmup=1, host=True)
+        desc = _paradiag_description(n, torch.float32, 'cuda', maxiter=50)
+        desc.update(sweeper_class=GenericImplicit, sweeper_params=dict(num_nodes=M_PD, quad_type='RADAU-RIGHT',
+                                                                       QI='LU'))
+        serial = ControllerNonMPI(1, {'logger_level': 30}, desc)
+        out = {}
+
+        def serial_run(i):
+            out['uend'], out['stats'] = serial.run(u0, 0.0, L_PD * DT_PD)
+
+        serial_ms, serial_host = _event_ms(serial_run, 2, warmup=1, host=True)
+        niter = _niter(out['stats'])
+        res = [v for k, v in out['stats'].items() if k.type == 'residual_post_step']
+        print(f'paradiag times: the block of {L_PD} steps at {n}^2: ParaDiag {block_ms:.3f} ms on the card, '
+              f'{block_host:.3f} host clock ({run.niter[0]} iterations); the same steps through ControllerNonMPI '
+              f'(GenericImplicit M={M_PD} LU, restol {RESTOL_PD}, maxiter 50): {serial_ms:.3f} ms on the card, '
+              f'{serial_host:.3f} host clock, niter {niter}, final residuals max {max(res):.3e}, uend '
+              f'{(out["uend"] - run.uend).abs().max().item():.3e} from ParaDiag\'s [{card}]')
+        del u
+        torch.cuda.empty_cache()
+
+    # float64 at 512^2, where both reach restol (float32 serial SDC stalls at its floor on the first steps)
+    fp64 = _paradiag_run(_paradiag_description(N_PD, torch.float64, 'cuda'))
+    u0 = fp64.prob.u_exact(0.0)
+    block_ms, _ = _event_ms(lambda i: fp64.ctrl.run(u0, 0.0, L_PD * DT_PD), 2, warmup=1, host=True)
+    desc = _paradiag_description(N_PD, torch.float64, 'cuda', maxiter=50)
+    desc.update(sweeper_class=GenericImplicit, sweeper_params=dict(num_nodes=M_PD, quad_type='RADAU-RIGHT', QI='LU'))
+    serial = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    out = {}
+
+    def serial_run(i):
+        out['uend'], out['stats'] = serial.run(u0, 0.0, L_PD * DT_PD)
+
+    serial_ms, _ = _event_ms(serial_run, 2, warmup=1, host=True)
+    print(f'paradiag times: float64 at {N_PD}^2: ParaDiag\'s block {block_ms:.3f} ms ({fp64.niter[0]} iterations) '
+          f'against serial SDC {serial_ms:.3f} ms (niter {_niter(out["stats"])}), uend '
+          f'{(out["uend"] - fp64.uend).abs().max().item():.3e} apart [{card}]')
+    del fp64, serial, out
+    torch.cuda.empty_cache()
+
+    # K1 on the interleaved view at (8, 3, 512, 1024) float32 against its bound and the complex rolls it replaces
+    terms = pd.prob.A._cross_terms
+    k1 = _time_stencil((L_PD, M_PD, N_PD, 2 * N_PD), interleaved_terms(terms), card)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    us = [torch.randn((L_PD, M_PD, N_PD, N_PD), generator=gen, device='cuda', dtype=torch.complex64) for _ in range(3)]
+    rolls_ms = _event_ms(lambda i: _roll_cross_2d(us[i % 3], terms), 12)
+    print(f'paradiag times: K1 on the complex64 block {(L_PD, M_PD, N_PD, N_PD)} as its float32 view '
+          f'{(L_PD, M_PD, N_PD, 2 * N_PD)}: {k1["graph_ms"]:.4f} ms from a CUDA graph, {k1["ms"]:.4f} eager, bound '
+          f'{k1["bound_ms"]:.4f} ms by {k1["bound_by"]} ({100 * k1["bound_ms"] / k1["graph_ms"]:.0f}%); the complex '
+          f'rolls it replaces {rolls_ms:.4f} ms eager ({rolls_ms / k1["ms"]:.1f}x) [{card}]')
+
+
 def main():
     import torch
 
@@ -3149,6 +3687,12 @@ def main():
     rk_adaptive_launches = phase(phase_rk_adaptive, card)
     phase(phase_sweepers_parity)
     phase(phase_sweeper_times, mi_run, ctrl, card)
+    covered_pd = phase(phase_paradiag_kernels)
+    pd_run, pd_big, pd_launches = phase(phase_paradiag, card, covered_pd)
+    phase(phase_paradiag_parity)
+    phase(phase_second_order, card)
+    phase(phase_dae, card)
+    phase(phase_paradiag_times, pd_run, pd_big, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
@@ -3156,7 +3700,8 @@ def main():
                'implicit allen-cahn': implicit_launches, 'implicit fused': implicit_fused_launches,
                'krylov': krylov_launches, 'multi-implicit allen-cahn': mi_launches,
                'multi-implicit fused': mi_fused_launches, 'rk ESDIRK43': rk_launches['ESDIRK43'],
-               'rk ARK548L2SA': rk_launches['ARK548L2SA'], 'rk adaptive': rk_adaptive_launches}
+               'rk ARK548L2SA': rk_launches['ARK548L2SA'], 'rk adaptive': rk_adaptive_launches,
+               'paradiag': sum(pd_launches.values())}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

@@ -24,6 +24,10 @@ with the shared Newton-Krylov solver of :mod:`pysdc_tpu_torch.ops.solvers`,
 iterative linear solves with ``jax.scipy``'s CG and GMRES rewritten in
 :mod:`pysdc_tpu_torch.ops.krylov`; every such loop is a masked loop
 (:mod:`pysdc_tpu_torch.ops.loops`) whose stopping test stays on the device.
+ParaDiag (``ParaDiagController`` with ``QDiagonalization``) iterates a block
+of time steps all at once as one complex tensor; the second-order sweepers
+(``verlet``, ``boris``, ``rkn``) take ``Particles`` states and the DAE sweepers
+(``dae``) the problems of :mod:`pysdc_tpu_torch.models.dae_problems`.
 The problem classes are exported from :mod:`pysdc_tpu_torch.models`.
 
 Entry points run on the CUDA card unless the caller asks for the CPU::
@@ -51,12 +55,14 @@ from pysdc_tpu_torch.core.precision import configure_default_matmul_precision
 configure_default_matmul_precision()
 
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
+from pysdc_tpu_torch.parallel.paradiag import ParaDiagController  # noqa: E402
 from pysdc_tpu_torch.parallel.sharded import ShardedController  # noqa: E402
 from pysdc_tpu_torch.sweepers.explicit import ExplicitSweeper  # noqa: E402
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit  # noqa: E402
 from pysdc_tpu_torch.sweepers.imex import IMEXSweeper  # noqa: E402
 from pysdc_tpu_torch.sweepers.linearized import LinearizedImplicitParallel  # noqa: E402
 from pysdc_tpu_torch.sweepers.multi_implicit import MultiImplicitSweeper  # noqa: E402
+from pysdc_tpu_torch.sweepers.paradiag import QDiagonalization, QDiagonalizationIMEX  # noqa: E402
 from pysdc_tpu_torch.utils.stats import filter_stats, get_list_of_types, get_sorted, sort_stats  # noqa: E402
 
 __version__ = '0.1.0'
@@ -64,6 +70,9 @@ __version__ = '0.1.0'
 __all__ = [
     'ControllerNonMPI',
     'ShardedController',
+    'ParaDiagController',
+    'QDiagonalization',
+    'QDiagonalizationIMEX',
     'GenericImplicit',
     'IMEXSweeper',
     'ExplicitSweeper',

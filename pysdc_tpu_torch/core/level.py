@@ -150,8 +150,9 @@ class Level:
 
     def set_u0(self, u0, eval_f: bool = True):
         """Replace u[0] (and re-evaluate f[0]) — the "recv" of the pipeline
-        (reference controller_nonMPI.py:269-284)."""
-        u = torch.cat([u0.unsqueeze(0), self.state.u[1:]])
+        (reference controller_nonMPI.py:269-284).  ``u`` may be a container
+        of tensors (``Particles``), each with the node axis in front."""
+        u = map_components(lambda leaf, new: torch.cat([new.unsqueeze(0), leaf[1:]]), self.state.u, u0)
         f = self.state.f
         if eval_f:
             f0 = self.prob.eval_f(u0, self.status.time)

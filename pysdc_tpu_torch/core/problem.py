@@ -8,6 +8,8 @@ functions of ``(u, t)`` on tensors.
 Key protocol (names follow the reference):
   - ``eval_f(u, t)``                      RHS evaluation -> tensor / IMEX / Comp2
   - ``solve_system(rhs, factor, u0, t)``  solve ``(I - factor*A) u = rhs``
+  - ``solve_jacobian(rhs, factor, u, t)`` solve ``(I - factor*J(u)) x = rhs``
+                                          (ParaDiag; ``factor`` may be complex)
   - ``u_exact(t)``                        exact/reference solution when known
   - ``u_init``                            zero state of the right shape/dtype
 
@@ -120,6 +122,27 @@ class Problem:
 
     def solve_system(self, rhs, factor, u0, t):
         raise NotImplementedError('problem has to implement solve_system(rhs, factor, u0, t)')
+
+    #: True where :meth:`solve_jacobian` reads the state ``u`` it linearizes at (nonlinear problems): ParaDiag
+    #: computes its averaged state only then
+    jacobian_reads_state = False
+
+    def solve_jacobian(self, rhs, factor, u=None, t=0.0):
+        """Solve ``(I - factor * J(u)) x = rhs`` with the Jacobian taken at
+        ``u`` (reference problem.py:198; ParaDiag's inner solve).  For linear
+        problems this is exactly ``solve_system``; ``factor`` may be complex."""
+        return self.solve_system(rhs, factor, rhs, t)
+
+    def solve_jacobian_batched(self, rhs, factor, u=None, t=None):
+        """:meth:`solve_jacobian` for a batch: ``factor`` is a tensor (complex
+        allowed) and ``t`` a numpy array, both of the batch shape ``lead``;
+        ``rhs`` is ``(*lead, *shape)``; ``u`` one state of ``shape`` (or None)
+        for every system.  The base solves the systems one by one."""
+        lead = tuple(factor.shape)
+        flat = rhs.reshape((-1,) + tuple(rhs.shape[len(lead):]))
+        fac, ts = factor.reshape(-1), np.asarray(t, dtype=float).reshape(-1)
+        return torch.stack([self.solve_jacobian(flat[i], fac[i], u, float(ts[i])) for i in range(flat.shape[0])]
+                           ).reshape(rhs.shape)
 
     def u_exact(self, t):
         raise NotImplementedError(f'{type(self).__name__} does not implement u_exact(t)')

@@ -40,7 +40,9 @@ def components(f) -> tuple:
 
 
 def map_components(fn, *fs):
-    """Apply ``fn`` componentwise to RHS values of the same kind."""
+    """Apply ``fn`` componentwise to RHS values of the same kind, or leaf by
+    leaf to states of the same kind (a tensor, or a container such as
+    ``Particles``): on a tensor it is ``fn`` itself."""
     if isinstance(fs[0], tuple):
         return type(fs[0])(*(fn(*parts) for parts in zip(*fs)))
     return fn(*fs)

@@ -18,6 +18,16 @@ from pysdc_tpu_torch.models.allen_cahn_spectral import (
     AllenCahnTempSpectralND,
 )
 from pysdc_tpu_torch.models.brusselator import Brusselator
+from pysdc_tpu_torch.models.dae_problems import (
+    DAEProblem,
+    DiscontinuousTestDAE,
+    OneTransistorAmplifier,
+    Pendulum2D,
+    ProblematicF,
+    SimpleDAE,
+    SynchronousMachineInfiniteBus,
+    TwoTransistorAmplifier,
+)
 from pysdc_tpu_torch.models.dahlquist import Dahlquist, DahlquistIMEX
 from pysdc_tpu_torch.models.fisher import GeneralizedFisher1D
 from pysdc_tpu_torch.models.gray_scott import (
@@ -44,9 +54,22 @@ from pysdc_tpu_torch.models.odes import (
     ProtheroRobinsonNonLinear,
     VanDerPol,
 )
+from pysdc_tpu_torch.models.particles import (
+    EMFields,
+    FermiPastaUlamTsingou,
+    FullSolarSystem,
+    HarmonicOscillator,
+    HenonHeiles,
+    OuterSolarSystem,
+    Particles,
+    PenningTrap3D,
+)
 from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion1D, VarCoeffDiffusion2D, VarCoeffDiffusionForced1D
 
 __all__ = [
+    'DAEProblem', 'DiscontinuousTestDAE', 'EMFields', 'FermiPastaUlamTsingou', 'FullSolarSystem', 'HarmonicOscillator',
+    'HenonHeiles', 'OneTransistorAmplifier', 'OuterSolarSystem', 'Particles', 'Pendulum2D', 'PenningTrap3D',
+    'ProblematicF', 'SimpleDAE', 'SynchronousMachineInfiniteBus', 'TwoTransistorAmplifier',
     'AdvectionDiffusion1D', 'AdvectionND', 'AllenCahn2DSpectral', 'AllenCahn2DSpectralStab', 'AllenCahnFront1D',
     'AllenCahnFront1DFinel', 'AllenCahnFront1DSemiImplicit', 'AllenCahnPeriodicMultiImplicitND',
     'AllenCahnPeriodicND', 'AllenCahnPeriodicSemiImplicitND', 'AllenCahnSpectralND', 'AllenCahnSpectralTimeForcing',

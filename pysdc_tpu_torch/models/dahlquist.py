@@ -19,10 +19,12 @@ from pysdc_tpu_torch.core.state import IMEX
 
 
 def _per_node(factor, rhs):
-    """Per-node shifts ``(M,)`` (numbers or a tensor) shaped to broadcast against ``rhs (M, ...)``."""
+    """Per-system shifts (numbers or a tensor over the leading batch axes of ``rhs``: the nodes, or ParaDiag's
+    steps and nodes) shaped to broadcast against ``rhs``.  Complex shifts stay complex."""
     if not isinstance(factor, torch.Tensor):
-        factor = torch.as_tensor(np.asarray(factor, dtype=float), device=rhs.device)
-    return factor.reshape((-1,) + (1,) * (rhs.dim() - 1))
+        factor = np.asarray(factor)
+        factor = torch.as_tensor(factor.astype(complex if np.iscomplexobj(factor) else float), device=rhs.device)
+    return factor.reshape(tuple(factor.shape) + (1,) * (rhs.dim() - factor.dim()))
 
 
 class Dahlquist(Problem):
@@ -50,6 +52,10 @@ class Dahlquist(Problem):
 
     def solve_system_batched(self, rhs, factor, u0, t):
         return self.solve_system(rhs, _per_node(factor, rhs), u0, t)
+
+    def solve_jacobian_batched(self, rhs, factor, u=None, t=None):
+        """Elementwise: one (complex) shift per system of the batch, one division."""
+        return self.solve_system(rhs, _per_node(factor, rhs), rhs, t)
 
     def u_exact(self, t, u_init=None, t_init=0.0):
         u_init = self.u0 if u_init is None else u_init

@@ -171,6 +171,13 @@ class HeatND(Problem):
             return super().solve_system_batched(rhs, factor, u0, t)
         return self.A.solve_shifted(rhs, node_shift_column(self.A, factor, rhs))
 
+    def solve_jacobian_batched(self, rhs, factor, u=None, t=None):
+        """ParaDiag's solves: ``factor`` holds one complex shift per system of the batch (``(L, M)``: steps and
+        nodes); on the direct eigen backend one transform pair for the whole ``(L, M, *shape)`` block."""
+        if self.backend == 'sparse' or self.solver_type != 'direct':
+            return super().solve_jacobian_batched(rhs, factor, u, t)
+        return self.A.solve_shifted(rhs, factor.reshape(tuple(factor.shape) + (1,) * self.ndim))
+
     def _sin_product(self):
         if self.ndim == 1:
             return torch.sin(float(np.pi * self.freq[0]) * self.grids)

@@ -4,9 +4,8 @@ The counterpart of ``pysdc_tpu/models/odes.py`` (reference ODE toy
 problems, ``implementations/problem_classes/``: Van_der_Pol_implicit.py,
 Lorenz.py, LogisticEquation.py, AuzingerImplicit.py, DiscontinuousTestODE.py,
 odeScalar.py, odeSystem.py, nonlinear_ODE_1.py, polynomial_test_problem.py):
-the shared Newton iteration, the ``NewtonODE`` base and every system of that
-file.  ``solve_jacobian`` (the ParaDiag inner solve) comes with ParaDiag
-(ROADMAP queue 1, item 11).
+the shared Newton iteration, the ``NewtonODE`` base (with ``solve_jacobian``,
+ParaDiag's inner solve) and every system of that file.
 
 A system's state is the LAST axis of ``u``; every axis in front of it is a
 batch of independent systems (the collocation nodes of a diagonal sweep, the
@@ -80,7 +79,7 @@ def eliminate(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
+def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None, trace=None):
     """Solve ``u - factor * f(u) = rhs`` with Newton for a batch of systems.
 
     ``u0`` and ``rhs`` are ``(..., n)``: the last axis is one system, the axes
@@ -102,7 +101,9 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
     error flag on the host).  A system that is still above ``tol`` when the
     fixed depth ends, and that the eager loop would have gone on iterating,
     sets the device flag ``failed`` (a 0-d bool tensor made before the
-    capture); the block's one host read fetches it and raises.
+    capture); the block's one host read fetches it and raises.  ``trace``,
+    when a list, receives the iterations each system ran (host integers; None
+    under a capture).
     """
     n = u0.shape[-1]
     factor = _behind(factor, u0, 1)
@@ -126,6 +127,8 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None):
 
     out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1], dim=-1) > tol, (u0, g(u0)), int(maxiter),
                       depth=CAPTURE_DEPTH, failed=failed)
+    if trace is not None:
+        trace.append(out.host_counts)
     return out.carry[0]
 
 
@@ -191,6 +194,28 @@ class NewtonODE(Problem):
         if float(t) == float(t_init):
             return u_init
         return self._reference(t, u_init, t_init)
+
+    jacobian_reads_state = True
+
+    def _jacobian_at(self, rhs, u, lead, t):
+        """``I - factor J`` needs J at the real state ``u`` (zeros when None, as in the JAX package), one Jacobian
+        per system of the batch ``lead`` (each at its own time), in ``rhs``'s (complex) dtype."""
+        u = torch.zeros(self.shape, dtype=self.dtype, device=rhs.device) if u is None else u
+        u = u.real if u.is_complex() else u
+        return self.eval_jacobian(u.expand(tuple(lead) + tuple(self.shape)), t).to(rhs.dtype)
+
+    def solve_jacobian(self, rhs, factor, u=None, t=0.0):
+        """``(I - factor * J(u)) x = rhs`` with the dense (possibly complex) Jacobian: ParaDiag's inner solve."""
+        J = self._jacobian_at(rhs, u, (), t)
+        A = torch.eye(J.shape[-1], dtype=rhs.dtype, device=rhs.device) - factor * J
+        return torch.linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
+
+    def solve_jacobian_batched(self, rhs, factor, u=None, t=None):
+        """Every system of the batch (ParaDiag's ``(L, M)`` steps and nodes) in one batched complex
+        ``torch.linalg.solve``; ``factor`` and ``t`` hold one shift and one time per system."""
+        J = self._jacobian_at(rhs, u, factor.shape, t)
+        A = torch.eye(J.shape[-1], dtype=rhs.dtype, device=rhs.device) - factor.to(rhs.dtype)[..., None, None] * J
+        return torch.linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
 
     def solve_system_batched(self, rhs, factor, u0, t):
         """All nodes in one Newton solve: ``factor`` holds one shift per node."""

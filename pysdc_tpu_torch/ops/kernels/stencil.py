@@ -17,6 +17,16 @@ the shape, the taps, the dtype and the alignment alone:
   rows with the rows arriving by ``cp.async``;
 - ``'general'``: everything else (odd sizes, narrow grids, other tables).
 
+A complex field takes the same kernels on its interleaved real view: the
+taps are real, so the stencil acts on the real and imaginary parts alike, and
+in the ``(..., nx, 2 ny)`` float view of a contiguous ``(..., nx, ny)``
+complex tensor a shift by ``s`` complex columns is a shift by ``2 s`` float
+columns (wrapping exactly, since ``2 ny`` is the period).  The y offsets
+double and a centred table of radius ``r`` becomes one of radius ``2 r`` with
+zeros at the odd offsets (:func:`interleaved_terms`); complex64 runs the
+float32 kernel, complex128 the float64 one.  A complex tensor that has no such
+view (not contiguous) raises.
+
 ``cross_stencil_2d.launches`` counts the launches, ``cross_stencil_2d.paths``
 counts them by path.  ``path='general'`` (or ``'bands'``) forces a path, for
 checks and timings; forcing ``'bands'`` where it does not apply raises.
@@ -224,6 +234,32 @@ def _launch(u: torch.Tensor, terms, path=None, rows=None) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def interleaved_terms(terms):
+    """The tap table of ``terms`` on the interleaved real view of a complex
+    field: the y offsets doubled, and a centred y table of radius ``r`` filled
+    to the centred table of radius ``2 r`` with zeros at the odd offsets (so
+    that radius-1 tables of order 2 stay on the bands path)."""
+    (coeff_x, offs_x), (coeff_y, offs_y) = terms
+    r = centred_radius(offs_y)
+    if r is None:
+        y = (tuple(float(c) for c in coeff_y), tuple(2 * int(s) for s in offs_y))
+    else:
+        doubled = {2 * int(s): float(c) for c, s in zip(coeff_y, offs_y)}
+        offs = tuple(range(-2 * r, 2 * r + 1))
+        y = (tuple(doubled.get(s, 0.0) for s in offs), offs)
+    return (tuple(float(c) for c in coeff_x), tuple(int(s) for s in offs_x)), y
+
+
+def interleaved(u: torch.Tensor) -> torch.Tensor:
+    """The ``(..., nx, 2 ny)`` real view of a contiguous complex ``(..., nx, ny)`` tensor (no copy); raises for a
+    tensor that has none."""
+    if not u.is_contiguous():
+        raise ValueError(f'cross_stencil_2d: a complex field needs a contiguous tensor for its interleaved real view, '
+                         f'got strides {u.stride()} for shape {tuple(u.shape)}')
+    return torch.view_as_real(u).view(tuple(u.shape[:-1]) + (2 * u.shape[-1],))
+
+
 def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
     """Periodic cross stencil on the trailing two axes; leading axes batch.
 
@@ -231,7 +267,11 @@ def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
     floats and ints.  Equal to ``sum_d sum_s c_{d,s} * roll(u, -s, axis=d)``.
     On a CUDA tensor one launch of a K1 kernel computes all taps in one
     pass over device memory (``path`` forces ``'bands'`` or ``'general'``);
-    on a CPU tensor the plain version runs."""
+    on a CPU tensor the plain version runs.  A complex tensor goes through
+    its interleaved real view with :func:`interleaved_terms`."""
+    if u.is_complex():
+        out = cross_stencil_2d(interleaved(u), interleaved_terms(terms), path)
+        return torch.view_as_complex(out.view(tuple(u.shape) + (2,)))
     if u.device.type == 'cpu':
         return _roll_cross_2d(u, terms)
     if u.device.type != 'cuda':

@@ -10,7 +10,8 @@ structure is used directly:
   - periodic dims: A_d is circulant -> matrix-free stencil application and
     exact direct solves by FFT diagonalization (cuFFT on the card).  A 2D
     all-periodic operator applies through kernel K1
-    (:func:`pysdc_tpu_torch.ops.kernels.stencil.cross_stencil_2d`).
+    (:func:`pysdc_tpu_torch.ops.kernels.stencil.cross_stencil_2d`), complex
+    fields too (on their interleaved real view).
   - general dims (Dirichlet/Neumann): A_d = V_d L_d V_d^{-1} eigen-factorized
     once on the host; applies and solves become dense per-axis products.
 
@@ -170,17 +171,15 @@ class SeparableFDOperator:
     def enable_pallas(self):
         self._pallas = True
 
-    def _use_kernel_apply(self, u) -> bool:
-        return self._cross_terms is not None and self._pallas and not u.is_complex()
-
     # ------------------------------------------------------------------
     def apply(self, u):
-        """A @ u, matrix-free.  2D all-periodic operators on real tensors go
-        through kernel K1 (its plain version on a CPU tensor); otherwise
+        """A @ u, matrix-free.  2D all-periodic operators go through kernel
+        K1 (its plain version on a CPU tensor; a complex field on its
+        interleaved real view, as ParaDiag's state is); otherwise
         periodic axes use rolls and general axes one dense product each.
         The BC rhs vector is NOT included (matches the reference, which
         keeps b separate)."""
-        if self._use_kernel_apply(u):
+        if self._cross_terms is not None and self._pallas:
             from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 
             return cross_stencil_2d(u, self._cross_terms)  # scale is in the taps

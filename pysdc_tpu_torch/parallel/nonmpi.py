@@ -31,6 +31,7 @@ import numpy as np
 
 from pysdc_tpu_torch.convergence.basic_restarting import BasicRestarting
 from pysdc_tpu_torch.core.errors import CommunicationError, ControllerError
+from pysdc_tpu_torch.core.state import map_components
 from pysdc_tpu_torch.core.step import Step
 from pysdc_tpu_torch.parallel.controller import Controller
 
@@ -164,7 +165,7 @@ class ControllerNonMPI(Controller):
             flagged = [s.status.restart for s in block]
             cut = flagged.index(True) if any(flagged) else len(block)
             if cut < len(block):
-                uend = self.MS[cut].levels[0].u[0]
+                uend = map_components(lambda leaf: leaf[0], self.MS[cut].levels[0].u)
                 starts[window[0]] = starts[cut]
                 self.logger.info(f'Block restart: resuming from the state of step {cut}')
             else:

@@ -3,8 +3,9 @@
 ``to_torch`` / ``state_to_torch`` take numpy arrays (or anything
 ``numpy.asarray`` reads, such as arrays of the JAX package) to the port's
 tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
-back.  RHS containers are matched by their field names, so the JAX
-package's ``IMEX``/``Comp2`` become the port's.
+back.  Containers are matched by their field names, so the JAX package's
+``IMEX``/``Comp2`` (RHS) and ``Particles``/``EMFields`` (second-order states
+and the Boris sweeper's fields) become the port's, leaf by leaf.
 
 Complex fields (the nonlinear Schroedinger state) keep their imaginary part:
 a real ``dtype`` asked of a complex array gives the complex dtype of its
@@ -31,13 +32,17 @@ import torch
 
 from pysdc_tpu_torch.core.device import complex_dtype
 from pysdc_tpu_torch.core.state import IMEX, Comp2, LevelState
+from pysdc_tpu_torch.models.particles import EMFields, Particles
 from pysdc_tpu_torch.ops.sparse import BSR, DIA
 
-_CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2}
+_CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2, Particles._fields: Particles, EMFields._fields: EMFields}
 
 
-def to_torch(x, device, dtype=None) -> torch.Tensor:
-    """A field (e.g. an initial value ``u0``) as a tensor on ``device``."""
+def to_torch(x, device, dtype=None):
+    """A field (e.g. an initial value ``u0``) as a tensor on ``device``; a
+    container (``Particles``) as the port's container of such tensors."""
+    if getattr(x, '_fields', None) is not None:
+        return _rhs(x, lambda part: to_torch(part, device, dtype))
     arr = np.asarray(x)
     if not arr.flags.writeable:  # arrays of the JAX package are read-only views
         arr = arr.copy()
@@ -46,7 +51,10 @@ def to_torch(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
-def to_numpy(x) -> np.ndarray:
+def to_numpy(x):
+    """A tensor (or array) as numpy; a container as the port's container of numpy arrays."""
+    if getattr(x, '_fields', None) is not None:
+        return _rhs(x, to_numpy)
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
@@ -55,7 +63,7 @@ def _rhs(f, conv):
     if fields is None:
         return conv(f)
     if fields not in _CONTAINERS:
-        raise TypeError(f'no RHS container of the port has the fields {fields}')
+        raise TypeError(f'no container of the port has the fields {fields}')
     return _CONTAINERS[fields](*(conv(part) for part in f))
 
 
@@ -63,13 +71,13 @@ def state_to_torch(state, device, dtype=None) -> LevelState:
     """A level state ``(u, f, tau)`` as the port's :class:`LevelState`."""
     u, f, tau = state
     conv = lambda x: to_torch(x, device, dtype)  # noqa: E731
-    return LevelState(u=conv(u), f=_rhs(f, conv), tau=conv(tau))
+    return LevelState(u=conv(u), f=conv(f), tau=conv(tau))
 
 
 def state_to_numpy(state) -> LevelState:
     """A level state with every field as a numpy array."""
     u, f, tau = state
-    return LevelState(u=to_numpy(u), f=_rhs(f, to_numpy), tau=to_numpy(tau))
+    return LevelState(u=to_numpy(u), f=to_numpy(f), tau=to_numpy(tau))
 
 
 def step_to_numpy(step) -> list[dict]:

@@ -42,6 +42,10 @@ _NO_JAX = (
     'import pysdc_tpu_torch.sweepers, pysdc_tpu_torch.sweepers.runge_kutta, pysdc_tpu_torch.sweepers.multistep, '
     'pysdc_tpu_torch.sweepers.linearized, pysdc_tpu_torch.sweepers.multi_implicit, pysdc_tpu_torch.sweepers.explicit, '
     'pysdc_tpu_torch.models.dahlquist',
+    'import pysdc_tpu_torch.parallel.paradiag, pysdc_tpu_torch.sweepers.paradiag, pysdc_tpu_torch.models.particles, '
+    'pysdc_tpu_torch.sweepers.verlet, pysdc_tpu_torch.sweepers.boris, pysdc_tpu_torch.sweepers.rkn, '
+    'pysdc_tpu_torch.models.dae_problems, pysdc_tpu_torch.sweepers.dae; '
+    'from pysdc_tpu_torch import ParaDiagController, QDiagonalization, QDiagonalizationIMEX',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
     out = subprocess.run([sys.executable, '-c', imports + '\n' + _NO_JAX],
@@ -82,6 +86,12 @@ def test_unported_parts_raise_naming_the_roadmap():
     for kwargs in (dict(mesh='a mesh'), dict(coarse_mode='owner')):
         with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
             ShardedController(2, {'logger_level': 40}, desc, **kwargs)
+    # ParaDiag (item 11) is ported; its time axis sharded over a mesh waits for 10b
+    from pysdc_tpu_torch import ParaDiagController
+
+    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
+        ParaDiagController(2, {'logger_level': 40, 'alpha': 1e-4}, dict(desc, sweeper_params=dict(num_nodes=2)),
+                           mesh='a mesh')
 
     # the adaptivity classes that wait for their estimators; the fully implicit Allen-Cahn solve (item 9) solves
     # now, and so do the first-order sweepers of item 12 (AdaptivityRK among them): nothing of the package names
@@ -102,7 +112,7 @@ def test_unported_parts_raise_naming_the_roadmap():
             if name.endswith('.py'):
                 with open(os.path.join(folder, name)) as f:
                     text = f.read()
-                    assert 'item 9' not in text and 'item 12' not in text, name
+                    assert 'item 9' not in text and 'item 11' not in text and 'item 12' not in text, name
 
 
 def test_adaptive_lane_and_e_tol_run():
