@@ -214,6 +214,42 @@ raises and the script exits nonzero without printing the final line:
    ``ControllerNonMPI`` with ``GenericImplicit`` M=3 LU; K1 on the complex64
    block (8, 3, 512, 1024) as float32 against its bound and the complex rolls.
 
+44. resilience — the Resilience campaign on the main path's width: HeatND
+   2048^2 periodic float64 (nu 0.1, freq 2), M=4 RADAU-RIGHT LU, dt 0.01,
+   restol -1, maxiter 5, 8 steps, through ``ControllerNonMPI``.  K1 against its
+   plain version at the path's shapes, float64, on bands; ``HotRod`` without a
+   fault: no restart, the largest |e_em - e_ex| recorded and ``HotRod_tol`` set
+   at 10 times it; with a ``FaultInjector`` that flips exponent bit 10 at step
+   6, iteration 3, the last node, one interior point: the fault happened,
+   exactly that step restarts, ``uend`` equals the fault-free run's to 1e-12
+   relative; the same fault at iteration 5 without Hot Rod leaves an error
+   against ``u_exact`` at least 1e3 times larger; K1 launches equal what
+   ``niter`` and the restart imply (and the injector's one evaluation), all on
+   bands at the shapes covered.
+45. flavours — ``AdaptivityResidual``, ``AdaptivityPolynomialError``,
+   ``AdaptivityExtrapolationWithinQ`` and ``AdaptivityCollocation`` (with
+   ``AdaptiveCollocation``, M 3 then 4) on the same problem to t = 0.05: against
+   the plain apply on the card (equal ``niter`` and restarts, ``dt`` to 1e-8,
+   ``uend`` to 1e-11 beyond what the end times' gap explains), at 256^2 on the
+   card against the CPU (the same, and every estimate to 1e-10 relative above a
+   rounding floor of 1e-13 max|u|); ``LogWork``: ``work_rhs`` is M per sweep.
+46. inexactness — ``NewtonInexactness`` on phase 25's fully implicit
+   Allen-Cahn path (1024^2 float64): every step converges, ``newton_tol``
+   follows ratio x residual after every iteration, K1 launches equal what the
+   eval_f applies and the Newton / PCG traces imply; on the block controller's
+   stage lane at 128^2 the ``(P,)`` tolerances each sweep reads equal
+   ``ControllerNonMPI``'s.
+47. switch — ``SwitchEstimator`` on ``Battery``, ``BatteryNCapacitors`` (two
+   switches), ``DiscontinuousTestODE`` and ``DiscontinuousTestDAE`` (contact),
+   float64 card against CPU: ``t_switch`` to 1e-12, ``nswitches``, step counts,
+   ``dt`` and ``uend``; ``ShardedController(4).run`` on ``DiscontinuousTestODE``
+   takes the stage lane with the ``(P,)`` ``t_switch`` and equals
+   ``ControllerNonMPI(4)`` entry for entry.
+48. resilience times — one step of phase 44's run with and without Hot Rod and
+   its estimators: ms on the card (CUDA events) and the host clock, busy time
+   and idle share (profiler), the estimators' share of the busy time (their
+   profiler range), host reads per step.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -328,6 +364,27 @@ N_PENNING, DT_PENNING, STEPS_PENNING = 1024, 1 / 64, 4
 # the index-3 pendulum, card against CPU: positions, velocities, the Lagrange multiplier (rounding amplified by 1/dt^2;
 # the port against the JAX package measured 2e-16, 2e-12, 3.8e-9 on the CPU)
 PENDULUM_TOLS = (1e-12, 1e-10, 1e-8)
+# the Resilience campaign (the reference's projects/Resilience; tests/test_estimators_resilience.py:108) at the main
+# path's width: HeatND 2048^2 periodic, M=4 RADAU-RIGHT LU, dt 0.01, restol -1, maxiter 5, 8 steps, in float64: the
+# extrapolation estimate contracts f = A u, whose float32 rounding at 2048^2 is about eps 8 nu / dx^2 = 0.4 of max|u|,
+# so in float32 Hot Rod would compare two rounding floors.  The fault: exponent bit 10 of one interior point of the
+# last node at step 6, iteration 3 (the JAX test's; without Hot Rod at iteration 5, where no sweep can heal it).  A
+# point fault diffuses: its peak after the two remaining steps falls as 1/n^2 (this script measured 6.7e-6 at
+# 2048^2 on an H100 80GB HBM3).  Each run is held against the fault-free run of the same controllers: against u_exact
+# the Hot Rod run's error is that of 4 sweeps (Hot Rod discards the last one), 1.1e-8, and 6.7e-6 is only 614 times it
+N_RES, M_RES, DT_RES, MAXITER_RES, STEPS_RES = 2048, 4, 0.01, 5, 8
+RES_FAULT_STEP, RES_FAULT_ITER, RES_FAULT_BIT = 6, 3, 10
+RES_UEND_RTOL = 1e-12  # |uend(faulted, Hot Rod) - uend(fault-free)| / max|uend|
+RES_FAULT_GAIN = 1e3  # what the fault leaves without Hot Rod against what it leaves with it, at least
+# the adaptivity flavours on the same problem for FLAVOUR_TEND, then at 256^2 on the card against the CPU.  The
+# step sizes come from estimates of about 1e-5 max|u| (e_tol) that a difference of fields of size max|u| gives:
+# their rounding floor (EST_FLOOR max|u|, the two applies' summation orders) moves dt by up to 1e-8 relative and the
+# end time with it; uend is held to 1e-11 beyond what the end times' gap explains (nu rho max|u| per unit of time)
+N_RES_PARITY, FLAVOUR_TEND, FLAVOUR_E_TOL = 256, 0.05, 1e-5
+FLAVOUR_DT_RTOL, FLAVOUR_UEND_TOL, FLAVOUR_EST_RTOL, EST_FLOOR = 1e-8, 1e-11, 1e-10, 1e-13
+INEXACT_RATIO = 1e-2  # NewtonInexactness on phase 25's path: newton_tol = ratio x residual after each iteration
+RESIDUAL_FLOOR = 1e-13  # the rounding gap of a residual between the block's batched sweep and one step's, |u| <= 1
+SWITCH_T_TOL, SWITCH_P, SWITCH_BLOCK_TEND = 1e-12, 4, 1.8  # t_switch card against CPU; the block run's size
 
 
 def _card():
@@ -3629,6 +3686,590 @@ def phase_paradiag_times(pd, pd_big, card):
           f'rolls it replaces {rolls_ms:.4f} ms eager ({rolls_ms / k1["ms"]:.1f}x) [{card}]')
 
 
+# -- the remaining convergence controllers, resilience and observability (phases 44-48) -------------------------------
+
+def _k1_check(name, terms, shapes, dtype, seed):
+    """K1 against its plain version at ``shapes`` in ``dtype``, on the bands path the wrapper picks and with the
+    general path forced; returns ``{name: (terms, shapes)}`` for :func:`_covered_by`."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    tol = _stencil_tolerance(terms, dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    worst, worst_abs = 0.0, 0.0
+    for shape in shapes:
+        if choose_path(shape, terms, itemsize) != 'bands':
+            raise AssertionError(f'K1 {name} {dtype} {shape}: the wrapper does not pick the bands path')
+        u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+        err, rel = _k1_both_paths(name, terms, u, 'bands', tol)
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    print(f'resilience kernels: K1 {name} {dtype} max rel err {worst:.3e} <= tol {tol:.3e} (max abs {worst_abs:.3e} on '
+          f'bands), on bands and with the general path forced, at {shapes}')
+    return {name: (terms, set(shapes))}
+
+
+def _resilience_description(n, device, controllers=None, num_nodes=M_RES, restol=-1.0, maxiter=MAXITER_RES):
+    import torch
+
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    return dict(
+        problem_class=HeatND,
+        problem_params=dict(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=torch.float64, device=device),
+        sweeper_class=GenericImplicit,
+        sweeper_params=dict(num_nodes=num_nodes, quad_type='RADAU-RIGHT', QI='LU'),
+        level_params=dict(dt=DT_RES, restol=restol),
+        step_params=dict(maxiter=maxiter),
+        convergence_controllers=controllers or {},
+    )
+
+
+def _heat_run(desc, Tend, plain=False, hooks=(), before=None):
+    """``desc`` through ``ControllerNonMPI(1, ...)`` from ``u_exact(0)`` to ``Tend``, every operator apply counted
+    with its shape and K1's launches by path (its counts set to 0 just before the run and read just after);
+    ``before(ctrl)`` may wrap what the gates read.  Returns a namespace
+    (stats entries of every attempt, restarted ones included)."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ControllerNonMPI(1, {'logger_level': 30, 'hook_class': list(hooks)}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    if plain:
+        prob.A.disable_pallas()
+    extra = before(ctrl) if before else None
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, Tend)
+    if uend.is_cuda:
+        torch.cuda.synchronize()
+
+    def entries(kind):
+        return [(round(float(t), 12), v) for t, v in get_sorted(stats, type=kind, sortby='time', recomputed=None)]
+
+    return SimpleNamespace(
+        ctrl=ctrl, prob=prob, uend=uend, stats=stats, entries=entries, extra=extra, shapes=shapes,
+        applies=applies[0], niter=entries('niter'), restarts=entries('restart'), dts=entries('dt'),
+        launches=cross_stencil_2d.launches, paths=dict(cross_stencil_2d.paths),
+    )
+
+
+def _hotrod_deltas(ctrl):
+    """Wrap the run's ``HotRod`` so that every check it makes records ``|e_em - e_ex|``; returns the list."""
+    from pysdc_tpu_torch.convergence import HotRod
+
+    deltas = []
+    for C in ctrl.convergence_controllers:
+        if isinstance(C, HotRod):
+            check = C.determine_restart
+
+            def recording(controller, S, check=check, **kwargs):
+                status = S.levels[0].status
+                e_ex = getattr(status, 'error_extrapolation_estimate', None)
+                e_em = getattr(status, 'error_embedded_estimate', None)
+                if S.status.iter >= S.params.maxiter and e_ex is not None and e_em is not None:
+                    deltas.append((round(float(S.time), 12), abs(e_ex - e_em)))
+                return check(controller, S, **kwargs)
+
+            C.determine_restart = recording
+    return deltas
+
+
+def _with_fault(iteration, n):
+    """A ``before`` hook that injects phase 44's fault at ``iteration``: exponent bit 10 of the last node's value at
+    the interior point (n/4, n/4), where |u| is largest (the flip divides it by 4); returns the injector."""
+    def before(ctrl):
+        from pysdc_tpu_torch.resilience.fault_injection import Fault, FaultInjector
+
+        injector = FaultInjector()
+        injector.add_fault(Fault(timestep=RES_FAULT_STEP, iteration=iteration, node=M_RES,
+                                 problem_pos=(n // 4, n // 4), bit=RES_FAULT_BIT))
+        ctrl.hooks.append(injector)
+        return injector
+    return before
+
+
+def _expected_launches(run, M):
+    """K1 launches a run of ``GenericImplicit`` with LU implies: per attempt f(u0) and one batched f over the M
+    spread nodes, then M per sweep (one node at a time)."""
+    return sum(2 + M * k for _, k in run.niter)
+
+
+def phase_resilience(card):
+    """The Resilience campaign on the main path's width (module docstring, phase 44).  Returns (the fault-free Hot Rod
+    run, Hot Rod's tolerance, K1 launches of the Hot Rod runs, the kernel coverage)."""
+    import torch
+
+    from pysdc_tpu_torch.convergence import HotRod
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    n, M, Tend = N_RES, M_RES, STEPS_RES * DT_RES
+    terms = HeatND(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=torch.float64, device='cuda').A._cross_terms
+    covered = _k1_check(f'heat {n}', terms, [(n, n), (M - 1, n, n), (M, n, n), (M + 1, n, n)], torch.float64, 4242)
+    label = f'resilience: HeatND {n}^2 periodic fp64 M={M} RADAU-RIGHT LU, dt {DT_RES:g}, restol -1, maxiter ' \
+            f'{MAXITER_RES}, {STEPS_RES} steps, Hot Rod'
+    clean = _heat_run(_resilience_description(n, 'cuda', {HotRod: {}}), Tend, before=_hotrod_deltas)
+    deltas = clean.extra
+    if any(v for _, v in clean.restarts) or len(deltas) < STEPS_RES - 4 or not all(math.isfinite(d) for _, d in deltas):
+        raise AssertionError(f'{label}: fault-free run restarted {clean.restarts} or Hot Rod saw deltas {deltas}')
+    tol = 10 * max(d for _, d in deltas)
+    print(f'{label}: fault-free, no restart; Hot Rod checks at t = {[t for t, _ in deltas]}, |e_em - e_ex| '
+          f'{[float(f"{d:.3e}") for _, d in deltas]}: HotRod_tol = 10 x the largest = {tol:.3e}')
+
+    faulted = _heat_run(_resilience_description(n, 'cuda', {HotRod: {'HotRod_tol': tol}}), Tend,
+                        before=_with_fault(RES_FAULT_ITER, n))
+    injector = faulted.extra
+    step_times = sorted({t for t, _ in clean.niter})
+    restarted = [t for t, v in faulted.restarts if v]
+    scale = clean.uend.abs().max().item()
+    diff = (faulted.uend - clean.uend).abs().max().item()
+    if not injector.faults[0].happened or restarted != [step_times[RES_FAULT_STEP - 1]] \
+            or not diff <= RES_UEND_RTOL * scale:
+        raise AssertionError(f'{label}: fault happened {injector.faults[0].happened}, restarted steps {restarted} '
+                             f'(expected step {RES_FAULT_STEP} at t = {step_times[RES_FAULT_STEP - 1]}), '
+                             f'|uend - uend(fault-free)| {diff:.3e} against {RES_UEND_RTOL} x {scale:.3e}')
+    # what the fault leaves: each run against the fault-free run of the same controllers (Hot Rod discards the last
+    # sweep, so against u_exact the two configurations differ by that sweep's order before any fault)
+    plain_clean = _heat_run(_resilience_description(n, 'cuda'), Tend)
+    without = _heat_run(_resilience_description(n, 'cuda'), Tend, before=_with_fault(MAXITER_RES, n))
+    err_without = (without.uend - plain_clean.uend).abs().max().item()
+    exact = clean.prob.u_exact(Tend)
+    exact_errs = [(run.uend - exact).abs().max().item() for run in (faulted, plain_clean, without)]
+    if not without.extra.faults[0].happened or not err_without >= RES_FAULT_GAIN * max(diff, RES_UEND_RTOL * scale):
+        raise AssertionError(f'{label}: without Hot Rod the fault leaves {err_without:.3e} against the fault-free run, '
+                             f'with it {diff:.3e}: not {RES_FAULT_GAIN:g} x larger')
+    for run, what in ((clean, 'fault-free'), (faulted, 'faulted')):
+        # and the injector's one evaluation of f at the corrupted node
+        expected = _expected_launches(run, M) + (1 if what == 'faulted' else 0)
+        if run.launches != expected or run.applies != run.launches or run.paths != {'bands': expected, 'general': 0}:
+            raise AssertionError(f'{label} ({what}): K1 launches {run.launches} by path {run.paths}, operator applies '
+                                 f'{run.applies}, expected {expected} from niter {run.niter}')
+        _covered_by(covered, terms, run.shapes, f'{label} ({what})')
+    if faulted.uend.shape != (n, n) or faulted.uend.dtype != torch.float64 or not bool(torch.isfinite(faulted.uend).all()):
+        raise AssertionError(f'{label}: uend is not a finite float64 field of the grid shape')
+    print(f'{label}: exponent bit {RES_FAULT_BIT} flipped at step {RES_FAULT_STEP}, iteration {RES_FAULT_ITER}, node '
+          f'{M}, point {injector.faults[0].problem_pos}: Hot Rod restarted exactly that step (t = {restarted}), niter '
+          f'{[k for _, k in faulted.niter]}; |uend - uend(fault-free)| {diff:.3e} <= {RES_UEND_RTOL} x max|u|; the '
+          f'fault at iteration {MAXITER_RES} without Hot Rod leaves {err_without:.3e} against its fault-free run (>= '
+          f'{RES_FAULT_GAIN:g} x); |uend - u_exact| {exact_errs[0]:.3e} with Hot Rod (its last sweep discarded), '
+          f'{exact_errs[1]:.3e} fault-free and {exact_errs[2]:.3e} faulted without it; K1 launches {clean.launches} / {faulted.launches} (fault-free / '
+          f'faulted) = sum(2 + {M} niter) a step attempt (+1: the injector\'s f at the node), all on bands at '
+          f'{sorted(faulted.shapes)} [{card}]')
+    return clean, tol, clean.launches + faulted.launches, covered
+
+
+def _flavour_controllers(name):
+    """(convergence controllers, restol, maxiter) of an adaptivity flavour of phase 45."""
+    from pysdc_tpu_torch import convergence as conv
+
+    return {
+        'AdaptivityResidual': ({conv.AdaptivityResidual: dict(e_tol=2.4e-9, max_restol=1e-9)}, -1.0, 4),
+        'AdaptivityPolynomialError': ({conv.AdaptivityPolynomialError: dict(e_tol=FLAVOUR_E_TOL)}, 1e-10, 30),
+        'AdaptivityExtrapolationWithinQ': ({conv.AdaptivityExtrapolationWithinQ: dict(e_tol=FLAVOUR_E_TOL)},
+                                           1e-10, 30),
+        'AdaptivityCollocation': ({conv.AdaptivityCollocation: dict(
+            e_tol=FLAVOUR_E_TOL, adaptive_coll_params=dict(num_nodes=[M_RES - 1, M_RES]))}, 1e-10, 30),
+    }[name]
+
+
+FLAVOURS = ('AdaptivityResidual', 'AdaptivityPolynomialError', 'AdaptivityExtrapolationWithinQ', 'AdaptivityCollocation')
+ESTIMATES = ('error_embedded_estimate_post_step', 'error_extrapolation_estimate')
+
+
+def _flavour_run(name, n, device, plain=False):
+    from pysdc_tpu_torch.hooks.logging_hooks import LogWork
+
+    controllers, restol, maxiter = _flavour_controllers(name)
+    desc = _resilience_description(n, device, controllers, restol=restol, maxiter=maxiter)
+    return _heat_run(desc, FLAVOUR_TEND, plain=plain, hooks=(LogWork,))
+
+
+def _same_flavour_run(label, got, want, est_rtol=None):
+    """niter and restarts equal, dt to FLAVOUR_DT_RTOL, uend to FLAVOUR_UEND_TOL beyond what the runs' different end
+    times explain (the mode decays at nu rho), with ``est_rtol`` every estimate (above the rounding floor EST_FLOOR
+    max|u|); returns the uend difference and the estimates' largest relative difference."""
+    def values(run, kind):
+        return [v for _, v in run.entries(kind)]
+
+    ok = [k for _, k in got.niter] == [k for _, k in want.niter] and values(got, 'restart') == values(want, 'restart')
+    dts_g, dts_w = values(got, 'dt'), values(want, 'dt')
+    ok = ok and len(dts_g) == len(dts_w) and all(abs(a - b) <= FLAVOUR_DT_RTOL * b for a, b in zip(dts_g, dts_w))
+    diff = (got.uend.cpu() - want.uend.cpu()).abs().max().item()
+    scale = want.uend.abs().max().item()
+    shift = abs((got.niter[-1][0] + dts_g[-1]) - (want.niter[-1][0] + dts_w[-1])) if ok else 0.0
+    rate = want.prob.nu * want.prob._rho()
+    worst = 0.0
+    if est_rtol is not None:
+        for kind in ESTIMATES:
+            a, b = values(got, kind), values(want, kind)
+            ok = ok and len(a) == len(b) and all(abs(x - y) <= est_rtol * abs(y) + EST_FLOOR * scale
+                                                 for x, y in zip(a, b))
+            worst = max([worst] + [abs(x - y) / abs(y) for x, y in zip(a, b) if y])
+    if not ok or not diff <= FLAVOUR_UEND_TOL + rate * shift * scale:
+        raise AssertionError(f'{label}: niter {got.niter} / {want.niter}, restarts {got.restarts} / {want.restarts}, '
+                             f'dt {dts_g} / {dts_w}, |uend diff| {diff:.3e} (end times {shift:.3e} apart), '
+                             f'estimates {worst:.3e}')
+    return diff, shift, worst
+
+
+def phase_flavours(card, covered):
+    """Phase 45: the estimators and adaptivity flavours on HeatND 2048^2 float64 with K1 against the plain apply,
+    at 256^2 on the card against the CPU, and LogWork's counts.  Returns K1's launches."""
+    import torch
+
+    from pysdc_tpu_torch.models.heat import HeatND
+
+    n = N_RES
+    terms = HeatND(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=torch.float64, device='cuda').A._cross_terms
+    launches = 0
+    for name in FLAVOURS:
+        label = f'flavours: {name} on HeatND {n}^2 fp64 M={M_RES} LU, dt {DT_RES:g} to {FLAVOUR_TEND:g}'
+        run = _flavour_run(name, n, 'cuda')
+        plain = _flavour_run(name, n, 'cuda', plain=True)
+        if run.launches != run.applies or run.paths != {'bands': run.launches, 'general': 0} or plain.launches:
+            raise AssertionError(f'{label}: K1 launches {run.launches} by path {run.paths}, operator applies '
+                                 f'{run.applies}; through the plain apply {plain.launches}')
+        _covered_by(covered, terms, run.shapes, label)
+        diff, shift, _ = _same_flavour_run(f'{label}, K1 against the plain apply', run, plain)
+        dts = [v for _, v in run.entries('dt')]
+        if name != 'AdaptivityResidual' and len({round(d, 12) for d in dts}) < 2:
+            raise AssertionError(f'{label}: dt never changed: {dts}')
+        launches += run.launches
+        card_small, cpu_small = (_flavour_run(name, N_RES_PARITY, device) for device in ('cuda', 'cpu'))
+        diff_small, shift_small, est = _same_flavour_run(f'{label}: {N_RES_PARITY}^2 card against CPU', card_small,
+                                                         cpu_small, FLAVOUR_EST_RTOL)
+        print(f'{label}: niter {[k for _, k in run.niter]}, restarts {sum(v for _, v in run.restarts)}, dt '
+              f'{[float(f"{d:.6g}") for d in dts]}; against the plain apply: equal niter and restarts, dt to '
+              f'{FLAVOUR_DT_RTOL:g}, |uend diff| {diff:.3e} <= {FLAVOUR_UEND_TOL} + nu rho max|u| x the end times\' gap '
+              f'{shift:.3e}; K1 launches {run.launches} (= the '
+              f'operator applies), all on bands at {sorted(run.shapes)}; at {N_RES_PARITY}^2 card against CPU: equal '
+              f'niter, restarts, dt, estimates to {est:.3e} relative (<= {FLAVOUR_EST_RTOL:g} above {EST_FLOOR:g} '
+              f'max|u|), |uend diff| {diff_small:.3e} (end times {shift_small:.3e} apart) [{card}]')
+        if name == 'AdaptivityPolynomialError':
+            work = run.entries('work_rhs')
+            if sorted(run.prob.work_counters) != ['rhs'] or [v for _, v in work] != [M_RES * k for _, k in run.niter]:
+                raise AssertionError(f'{label}: LogWork work_rhs {work} for niter {run.niter}, counters '
+                                     f'{sorted(run.prob.work_counters)}')
+            print(f'flavours: LogWork on the heat path: work_rhs {[v for _, v in work]} = {M_RES} x niter per step '
+                  f'(the direct solve registers no solver counter, as in the JAX package)')
+    return launches
+
+
+def phase_inexactness(card, covered):
+    """Phase 46: NewtonInexactness on phase 25's fully implicit Allen-Cahn path, then on the block controller's stage
+    lane at 128^2 against ``ControllerNonMPI``.  Returns K1's launches of the 1024^2 run."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, ShardedController, get_sorted
+    from pysdc_tpu_torch.convergence import NewtonInexactness
+    from pysdc_tpu_torch.core.hooks import Hooks
+    from pysdc_tpu_torch.ops import loops
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    R = loops.READ_EVERY
+    params = dict(ratio=INEXACT_RATIO)
+    desc = dict(_implicit_description(N_FI, torch.float64, 'cuda'), convergence_controllers={NewtonInexactness: params})
+    label = f'inexactness: AllenCahnPeriodicND {N_FI}^2 fp64, NewtonInexactness(ratio {INEXACT_RATIO:g}), ' \
+            f'GenericImplicit M={M_FI} LU, restol {RESTOL_FI:g}, {STEPS_FI} steps'
+    ctrl = ControllerNonMPI(1, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    prob.solver_trace = []
+    policy = next(C for C in ctrl.convergence_controllers if isinstance(C, NewtonInexactness))
+    set_by_policy = []
+    original = policy.set_tolerance
+
+    def recording(lvl, tol):
+        set_by_policy.append((float(lvl.status.residual), tol))
+        return original(lvl, tol)
+
+    policy.set_tolerance = recording
+    shapes = set()
+    applies = _count_applies(ctrl, shapes)
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, STEPS_FI * DT_FI)
+    torch.cuda.synchronize()
+    launches, paths = cross_stencil_2d.launches, dict(cross_stencil_2d.paths)
+    niter = [v for _, v in get_sorted(stats, type='niter', sortby='time')]
+    residuals = [v for _, v in get_sorted(stats, type='residual_post_step', sortby='time')]
+    trace = list(prob.solver_trace)
+    rule = [max(min(res * INEXACT_RATIO, policy.params.max_tol), policy.params.min_tol) for res, _ in set_by_policy]
+    if len(niter) != STEPS_FI or not all(r <= RESTOL_FI for r in residuals) \
+            or [tol for _, tol in set_by_policy] != rule or len(set_by_policy) != sum(niter) + len(niter):
+        raise AssertionError(f'{label}: niter {niter}, final residuals {residuals}, tolerances {set_by_policy}')
+    budget, _ = _newton_budget(trace, R)
+    evals = sum(2 + M_FI * k for k in niter)
+    if prob.solver_applies != budget or launches != evals + budget or applies[0] != launches \
+            or paths != {'bands': launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches {launches} by path {paths}, applies {applies[0]}, expected {evals} '
+                             f'eval_f + {budget} in the Newton solves ({prob.solver_applies} counted)')
+    _covered_by(covered, prob.A._cross_terms, shapes, label)
+    newton = [k for k, _ in trace]
+    print(f'{label}: niter {niter}, final residuals {[float(f"{r:.3e}") for r in residuals]} <= {RESTOL_FI:g}; '
+          f'newton_tol after each iteration (the predictor\'s check included) = max(min({INEXACT_RATIO:g} x residual, '
+          f'max_tol), min_tol), '
+          f'{[float(f"{t:.2e}") for _, t in set_by_policy]}; Newton iterations per solve {min(newton)}-{max(newton)}; '
+          f'K1 launches {launches} = {evals} eval_f + '
+          f'{budget} in the solves, all on bands at {sorted(shapes)} [{card}]')
+
+    # the block controller's stage lane: the (P,) tolerances each sweep reads, against ControllerNonMPI(P)'s
+    class Tolerances(Hooks):
+        def pre_sweep(self, step, level_number):
+            super().pre_sweep(step, level_number)
+            lvl = step.levels[level_number]
+            self.add_to_stats(process=step.status.slot, time=lvl.time, level=level_number, iter=step.status.iter,
+                              sweep=lvl.status.sweep, type='newton_tol', value=float(lvl.prob.newton_tol))
+
+    small = dict(_implicit_description(N_FI_SMALL, torch.float64, 'cuda'),
+                 convergence_controllers={NewtonInexactness: params})
+    Tend = P_FI * DT_FI
+    serial = ControllerNonMPI(P_FI, {'logger_level': 30, 'hook_class': Tolerances}, small)
+    u0 = serial.MS[0].levels[0].prob.u_exact(0.0)
+    want_u, want = serial.run(u0, 0.0, Tend)
+    block = ShardedController(P_FI, {'logger_level': 30, 'hook_class': Tolerances}, small)
+    handed = []
+    overrides = block._block_overrides
+
+    def spy(lvl_idx):
+        ov = overrides(lvl_idx)
+        handed.append(ov['newton_tol'].tolist())
+        if ov['newton_tol'].shape != (P_FI,) or ov['newton_tol'].dtype != torch.float64:
+            raise AssertionError(f'inexactness: the block hands newton_tol as {ov["newton_tol"]}')
+        return ov
+
+    block._block_overrides = spy
+    got_u, got = block.run(u0, 0.0, Tend, lane='stage')
+    tol_w = {k: v for k, v in want.items() if k.type == 'newton_tol'}
+    tol_g = {k: v for k, v in got.items() if k.type == 'newton_tol'}
+    niter_w, niter_g = _niter(want), _niter(got)
+    diff = (got_u - want_u).abs().max().item()
+    # the two lanes round a residual differently by up to a few 1e-16 (|u| <= 1): ratio x RESIDUAL_FLOOR of a tolerance
+    close = set(tol_w) == set(tol_g) and all(abs(tol_g[k] - v) <= 1e-9 * v + INEXACT_RATIO * RESIDUAL_FLOOR
+                                             for k, v in tol_w.items())
+    worst = max(abs(tol_g[k] - v) / v for k, v in tol_w.items()) if close else None
+    if not close or niter_w != niter_g or not diff <= FI_FUSED_BOUND or len({tuple(h) for h in handed}) < 3:
+        raise AssertionError(f'inexactness: stage lane at {N_FI_SMALL}^2: niter {niter_g} / {niter_w}, tolerances equal '
+                             f'{close}, |uend diff| {diff:.3e}, (P,) tolerances handed {handed[:4]}')
+    print(f'inexactness: ShardedController({P_FI}) stage lane at {N_FI_SMALL}^2 against ControllerNonMPI({P_FI}): '
+          f'niter {niter_g}, every step\'s newton_tol at every sweep equal ({len(tol_g)} entries, largest relative '
+          f'difference {worst:.1e}, within 1e-9 relative + {INEXACT_RATIO:g} x {RESIDUAL_FLOOR:g}), handed to '
+          f'the batched Newton as ({P_FI},) float64 tensors ({len(handed)} sweeps, e.g. '
+          f'{[float(f"{t:.2e}") for t in handed[len(handed) // 2]]}), |uend diff| {diff:.3e} <= {FI_FUSED_BOUND} '
+          f'[{card}]')
+    return launches
+
+
+def _switch_cases():
+    """label -> (problem, params, sweeper, sweeper params, level params, maxiter, t0, Tend, controllers)."""
+    from pysdc_tpu_torch import GenericImplicit, IMEXSweeper
+    from pysdc_tpu_torch.convergence import BasicRestarting, SwitchEstimator
+    from pysdc_tpu_torch.models import dae_problems, odes, power_electronics
+    from pysdc_tpu_torch.sweepers.dae import FullyImplicitDAE
+
+    se = {SwitchEstimator: {}}
+    return {
+        'Battery': (power_electronics.Battery, {}, IMEXSweeper, dict(num_nodes=4, QI='LU'),
+                    dict(dt=0.01, restol=1e-12), 10, 0.0, 0.5, se),
+        'BatteryNCapacitors': (power_electronics.BatteryNCapacitors, dict(ncapacitors=2), IMEXSweeper,
+                               dict(num_nodes=4, QI='LU'), dict(dt=0.01, restol=1e-12), 10, 0.0, 0.6, se),
+        'DiscontinuousTestODE': (odes.DiscontinuousTestODE, {}, GenericImplicit, dict(num_nodes=3, QI='IE'),
+                                 dict(dt=0.05, restol=1e-12), 10, 0.0, 2.0, se),
+        'DiscontinuousTestDAE (contact)': (
+            dae_problems.DiscontinuousTestDAE, dict(newton_tol=1e-6), FullyImplicitDAE, dict(num_nodes=4, QI='LU'),
+            dict(dt=0.02, restol=1e-8), 5, 4.6, 4.62,
+            {SwitchEstimator: {'tol': 1e-6, 'alpha': 0.97, 'contact_tol': 0.5},
+             BasicRestarting: {'max_restarts': 20, 'crash_after_max_restarts': False}}),
+    }
+
+
+def _switch_run(case, device, num_procs=1, sharded=False, Tend=None):
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, ShardedController, get_sorted
+
+    problem, params, sweeper, sweeper_params, level, maxiter, t0, t_end, controllers = case
+    desc = dict(problem_class=problem, problem_params=dict(params, dtype=torch.float64, device=device),
+                sweeper_class=sweeper, sweeper_params=sweeper_params, level_params=level,
+                step_params=dict(maxiter=maxiter), convergence_controllers=controllers)
+    cls = ShardedController if sharded else ControllerNonMPI
+    ctrl = cls(num_procs, {'logger_level': 30}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    uend, stats = ctrl.run(prob.u_exact(t0), t0, Tend or t_end)
+    probs = [S.levels[0].prob for S in ctrl.MS]
+    return SimpleNamespace(ctrl=ctrl, uend=uend.cpu(), stats=stats, t_switch=[float(p.t_switch) for p in probs],
+                           nswitches=[p.nswitches for p in probs],
+                           niter=[(round(t, 12), k) for t, k in get_sorted(stats, type='niter', recomputed=None)],
+                           dts=[v for _, v in get_sorted(stats, type='dt', recomputed=None)])
+
+
+def _same_switch_run(label, got, want):
+    diff = (got.uend - want.uend).abs().max().item()
+    ts = max((abs(a - b) for a, b in zip(got.t_switch, want.t_switch) if math.isfinite(b)), default=0.0)
+    ok = got.niter == want.niter and got.nswitches == want.nswitches and len(got.dts) == len(want.dts)
+    ok = ok and all(math.isinf(a) == math.isinf(b) for a, b in zip(got.t_switch, want.t_switch))
+    ok = ok and all(abs(a - b) <= 1e-12 * max(1.0, abs(b)) for a, b in zip(got.dts, want.dts))
+    if not ok or not ts <= SWITCH_T_TOL or not diff <= PARITY_UEND_TOL * max(1.0, want.uend.abs().max().item()):
+        raise AssertionError(f'{label}: niter {got.niter} / {want.niter}, nswitches {got.nswitches} / {want.nswitches}, '
+                             f't_switch {got.t_switch} / {want.t_switch}, |uend diff| {diff:.3e}')
+    return diff, ts
+
+
+def phase_switch(card):
+    """Phase 47: the switch estimator and the power-electronics problems, float64 card against CPU; the block
+    controller's stage lane with the (P,) t_switch against ControllerNonMPI on the card."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for label, case in _switch_cases().items():
+            t0 = time.perf_counter()
+            on_card, on_cpu = _switch_run(case, 'cuda'), _switch_run(case, 'cpu')
+            diff, ts = _same_switch_run(f'switch: {label}', on_card, on_cpu)
+            print(f'switch: {label} fp64 with SwitchEstimator: {len(on_card.niter)} step attempts, nswitches '
+                  f'{on_card.nswitches[0]}, t_switch {on_card.t_switch[0]:.15g} (card) - CPU {ts:.3e} <= '
+                  f'{SWITCH_T_TOL:g}, equal niter and dt, |uend diff| {diff:.3e}; '
+                  f'{time.perf_counter() - t0:.1f} s for both runs [{card}]')
+    finally:
+        torch.set_num_threads(threads)
+    case = _switch_cases()['DiscontinuousTestODE']
+    serial = _switch_run(case, 'cuda', num_procs=SWITCH_P, Tend=SWITCH_BLOCK_TEND)
+    block = _switch_run(case, 'cuda', num_procs=SWITCH_P, sharded=True, Tend=SWITCH_BLOCK_TEND)
+    lanes = {v for k, v in block.stats.items() if k.type == 'lane'}
+    diff, ts = _same_switch_run('switch: ShardedController stage lane', block, serial)
+    kinds = sorted({k.type for k in serial.stats if not k.type.startswith('timing')})
+    for kind in kinds:
+        w = sorted((k, v) for k, v in serial.stats.items() if k.type == kind)
+        g = sorted((k, v) for k, v in block.stats.items() if k.type == kind)
+        if [k for k, _ in w] != [k for k, _ in g] or not all(
+                a == b if not isinstance(a, float) else abs(a - b) <= 1e-12 * max(1.0, abs(a)) for (_, a), (_, b) in
+                zip(w, g)):
+            raise AssertionError(f'switch: ShardedController({SWITCH_P}) stage lane: stats {kind} differ')
+    if lanes != {'stage'} or not any(math.isfinite(t) for t in block.t_switch):
+        raise AssertionError(f'switch: ShardedController({SWITCH_P}) took lanes {lanes}, t_switch {block.t_switch}')
+    print(f'switch: ShardedController({SWITCH_P}).run on DiscontinuousTestODE to {SWITCH_BLOCK_TEND:g}: lane "stage" '
+          f'(the fused lanes refuse SwitchEstimator by name), t_switch per step {block.t_switch} handed to the batched '
+          f'functions as a ({SWITCH_P},) float64 tensor; every stats entry ({", ".join(kinds)}) equal to '
+          f'ControllerNonMPI({SWITCH_P})\'s, |uend diff| {diff:.3e} [{card}]')
+
+
+class _ReadCounter:
+    """Counts the host reads of device scalars (``item``, ``float``, ``bool`` of a tensor) while active, with those
+    made inside an estimator apart."""
+
+    def __init__(self):
+        import torch
+
+        self.total = self.estimators = 0
+        self.in_estimator = False
+        self._saved = {name: getattr(torch.Tensor, name) for name in ('item', '__float__', '__bool__')}
+
+    def __enter__(self):
+        import torch
+
+        for name, fn in self._saved.items():
+            def counted(t, *args, fn=fn, **kwargs):
+                if t.is_cuda:
+                    self.total += 1
+                    self.estimators += self.in_estimator
+                return fn(t, *args, **kwargs)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for name, fn in self._saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def _annotate_estimators(ctrl, reads=None):
+    """Run the estimators and Hot Rod of ``ctrl`` under a ``torch.profiler`` range named 'estimators' (and mark them
+    for ``reads``)."""
+    import torch
+
+    from pysdc_tpu_torch.convergence import EstimateEmbeddedError, EstimateExtrapolationErrorNonMPI, HotRod
+
+    for C in ctrl.convergence_controllers:
+        if isinstance(C, (EstimateEmbeddedError, EstimateExtrapolationErrorNonMPI, HotRod)):
+            for name in ('post_iteration_processing', 'determine_restart'):
+                fn = getattr(C, name)
+
+                def wrapped(*args, fn=fn, **kwargs):
+                    if reads is not None:
+                        reads.in_estimator = True
+                    try:
+                        with torch.profiler.record_function('estimators'):
+                            return fn(*args, **kwargs)
+                    finally:
+                        if reads is not None:
+                            reads.in_estimator = False
+                setattr(C, name, wrapped)
+
+
+def phase_resilience_times(hotrod_tol, card):
+    """Phase 48: one step of phase 44's run with and without Hot Rod and its estimators.  The extrapolation estimate
+    needs the four previous steps stored, so each controller first runs five steps; then step 6 is timed (CUDA events
+    and the host clock), step 7 runs under the profiler (busy time, idle share, the estimators' share of the busy time
+    by their profiler range) and step 8 counts the host reads."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysdc_tpu_torch import ControllerNonMPI
+    from pysdc_tpu_torch.convergence import HotRod
+
+    def device_us(e, own=True):
+        if own:
+            return getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0.0)
+        return getattr(e, 'device_time_total', None) or getattr(e, 'cuda_time_total', 0.0)
+
+    results = {}
+    for label, controllers in (('with Hot Rod', {HotRod: {'HotRod_tol': hotrod_tol}}), ('without', {})):
+        ctrl = ControllerNonMPI(1, {'logger_level': 30}, _resilience_description(N_RES, 'cuda', controllers))
+        reads = _ReadCounter()
+        _annotate_estimators(ctrl, reads)
+        u = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+        u, _ = ctrl.run(u, 0.0, 5 * DT_RES)
+        t = 5 * DT_RES
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        u, _ = ctrl.run(u, t, t + DT_RES)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms, card_ms = 1e3 * (time.perf_counter() - h0), start.elapsed_time(end)
+        t += DT_RES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            u, _ = ctrl.run(u, t, t + DT_RES)
+            torch.cuda.synchronize()
+        t += DT_RES
+        events = prof.key_averages()
+        # the kernels and copies themselves (the host ops that launched them carry the same time again)
+        busy_ms = sum(device_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
+        if not busy_ms > 0:
+            raise AssertionError('resilience times: the profiler saw no device time')
+        est_ms = sum(device_us(e, own=False) for e in events if e.key == 'estimators') / 1e3
+        with reads:
+            u, _ = ctrl.run(u, t, t + DT_RES)
+        results[label] = (card_ms, host_ms, busy_ms, est_ms, reads.total, reads.estimators)
+    (c1, h1, b1, e1, r1, re1), (c0, h0_, b0, _, r0, _) = results['with Hot Rod'], results['without']
+    print(f'resilience times: one step of HeatND {N_RES}^2 fp64 M={M_RES} LU, {MAXITER_RES} sweeps: with Hot Rod and '
+          f'its estimators {c1:.3f} ms on the card, {h1:.3f} ms on the host clock, {b1:.3f} ms busy (idle '
+          f'{100 * (1 - b1 / c1):.0f}%), the estimators\' range {e1:.3f} ms of the busy time ({100 * e1 / b1:.1f}%), '
+          f'{r1} host reads ({re1} of them the estimators\'); without: {c0:.3f} ms on the card, {h0_:.3f} ms on the '
+          f'host clock, {b0:.3f} ms busy (idle {100 * (1 - b0 / c0):.0f}%), {r0} host reads; Hot Rod costs '
+          f'{c1 / c0:.2f}x on the card [{card}]')
+    return results
+
+
 def main():
     import torch
 
@@ -3693,6 +4334,11 @@ def main():
     phase(phase_second_order, card)
     phase(phase_dae, card)
     phase(phase_paradiag_times, pd_run, pd_big, card)
+    clean_res, hotrod_tol, res_launches, covered_res = phase(phase_resilience, card)
+    flavour_launches = phase(phase_flavours, card, covered_res)
+    inexact_launches = phase(phase_inexactness, card, covered_fi)
+    phase(phase_switch, card)
+    phase(phase_resilience_times, hotrod_tol, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
@@ -3701,7 +4347,8 @@ def main():
                'krylov': krylov_launches, 'multi-implicit allen-cahn': mi_launches,
                'multi-implicit fused': mi_fused_launches, 'rk ESDIRK43': rk_launches['ESDIRK43'],
                'rk ARK548L2SA': rk_launches['ARK548L2SA'], 'rk adaptive': rk_adaptive_launches,
-               'paradiag': sum(pd_launches.values())}
+               'paradiag': sum(pd_launches.values()), 'resilience': res_launches,
+               'adaptivity flavours': flavour_launches, 'inexactness': inexact_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

@@ -5,19 +5,17 @@ counterparts of the reference adaptivity family
 (``convergence_controller_classes/adaptivity.py:8-940``).  All variants share
 the classic controller ``dt* = beta * dt * (e_tol / e)^(1/k)`` and restart a
 step whose local error overshoots the tolerance; they differ in where the
-error estimate comes from.  Ported: the embedded sweep difference
-(:class:`Adaptivity`, both estimator flavors) and the embedded Runge-Kutta
-pair (:class:`AdaptivityRK`).  The residual, left-out-node, within-Q
-extrapolation and nested-quadrature variants wait for their estimators
-(ROADMAP queue 1, item 13); each of those raises by name.
+error estimate comes from (embedded sweep difference, embedded RK pair,
+residual, left-out collocation node, within-Q extrapolation, or nested
+quadrature rules).  Every estimate reaches the host as one float a step.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from pysdc_tpu_torch.core.convergence import ConvergenceController
 from pysdc_tpu_torch.core.errors import ParameterError
-
-ESTIMATORS_ITEM = 'ROADMAP queue 1, item 13'
 
 
 def _controller_formula(beta, dt, e_tol, e, k):
@@ -117,18 +115,206 @@ class AdaptivityRK(Adaptivity):
             self._propose_dt(S.levels[0], e, order=self.params.update_order, step=S)
 
 
-def _not_ported(name, item, needs):
-    """A class of the JAX package that raises on construction, naming its ROADMAP item."""
+class AdaptivityResidual(AdaptivityBase):
+    """Bang-bang control on the SDC residual (reference adaptivity.py:458):
+    halve dt when the residual exceeds e_tol, double it below max_restol."""
 
-    def __init__(self, controller, params, description, **kwargs):
-        raise NotImplementedError(f'{name} needs {needs}, not ported yet ({item})')
+    def setup(self, controller, params, description, **kwargs):
+        mine = {
+            'control_order': -45,
+            'e_tol': np.inf,
+            'max_restol': 0,
+            'allowed_modifications': ['increase', 'decrease'],
+        }
+        return {**mine, **super().setup(controller, params, description, **kwargs)}
 
-    return type(name, (AdaptivityBase,), {'__init__': __init__, '__doc__': f'Not ported yet ({item}): needs {needs}.'})
+    def dependencies(self, controller, description, **kwargs):
+        pass
+
+    def setup_status_variables(self, controller, **kwargs):
+        pass
+
+    def get_local_error_estimate(self, controller, S, **kwargs):
+        return float(S.levels[0].status.residual)
+
+    def get_new_step_size(self, controller, S, **kwargs):
+        if S.status.iter != S.params.maxiter:
+            return
+        lvl = S.levels[0]
+        res = self.get_local_error_estimate(controller, S)
+        planned = lvl.status.dt_new if lvl.status.dt_new is not None else lvl.params.dt
+        may = self.params.allowed_modifications
+        if res > self.params.e_tol and 'decrease' in may:
+            lvl.status.dt_new = min(planned, lvl.params.dt / 2.0)
+            self.log(f'Residual {res:.2e} too large, halving dt to {lvl.status.dt_new:.2e}', S)
+        elif res < self.params.max_restol and 'increase' in may:
+            lvl.status.dt_new = max(planned, lvl.params.dt * 2.0)
+            self.log(f'Residual {res:.2e} small, doubling dt to {lvl.status.dt_new:.2e}', S)
+
+    def determine_restart(self, controller, S, **kwargs):
+        if S.status.iter >= S.params.maxiter:
+            res = self.get_local_error_estimate(controller, S)
+            if res > self.params.e_tol:
+                self._flag_restart(S, res, label='residual')
 
 
-AdaptivityResidual = _not_ported('AdaptivityResidual', ESTIMATORS_ITEM, 'the remaining convergence controllers')
-AdaptivityPolynomialError = _not_ported('AdaptivityPolynomialError', ESTIMATORS_ITEM, 'EstimatePolynomialError')
-AdaptivityExtrapolationWithinQ = _not_ported(
-    'AdaptivityExtrapolationWithinQ', ESTIMATORS_ITEM, 'EstimateExtrapolationErrorWithinQ'
-)
-AdaptivityCollocation = _not_ported('AdaptivityCollocation', ESTIMATORS_ITEM, 'EstimateEmbeddedErrorCollocation')
+def _converged(S):
+    from pysdc_tpu_torch.convergence.check_convergence import CheckConvergence
+
+    return CheckConvergence.check_convergence(S)
+
+
+class AdaptivityPolynomialError(AdaptivityBase):
+    """Adaptivity from the left-out-node polynomial estimate of the
+    *converged* collocation problem (reference adaptivity.py:831): iterate to
+    restol, then choose dt from the order-M estimate, and tie the residual
+    tolerance to the error target (inexactness)."""
+
+    def setup(self, controller, params, description, **kwargs):
+        mine = {
+            'control_order': -50,
+            'e_tol': params.get('e_tol'),
+            'restol_rel': params.get('restol_rel', 1e-4),
+            'restol_min': params.get('restol_min', 1e-12),
+            'interpolate_between_restarts': False,
+        }
+        out = {**mine, **super().setup(controller, params, description, **kwargs)}
+        if out['e_tol'] is None:
+            raise ParameterError("polynomial-error adaptivity requires an 'e_tol' parameter")
+        return out
+
+    def dependencies(self, controller, description, **kwargs):
+        from pysdc_tpu_torch.convergence.estimate_polynomial_error import EstimatePolynomialError
+
+        super().dependencies(controller, description, **kwargs)
+        controller.add_convergence_controller(EstimatePolynomialError, description=description)
+
+    def get_local_error_estimate(self, controller, S, **kwargs):
+        est = getattr(S.levels[0].status, 'error_embedded_estimate', None)
+        return est if est is not None else 0.0
+
+    def get_new_step_size(self, controller, S, **kwargs):
+        if not _converged(S):
+            return
+        lvl = S.levels[0]
+        e = getattr(lvl.status, 'error_embedded_estimate', None)
+        order = getattr(lvl.status, 'order_embedded_estimate', None)
+        if e is None or order is None:
+            return
+        self._propose_dt(lvl, e, order, S)
+        lvl.params.restol = max(self.params.restol_rel * self.params.e_tol, self.params.restol_min)
+
+    def determine_restart(self, controller, S, **kwargs):
+        if _converged(S):
+            e = self.get_local_error_estimate(controller, S)
+            if e >= self.params.e_tol:
+                self._flag_restart(S, e)
+
+
+class AdaptivityExtrapolationWithinQ(AdaptivityBase):
+    """Adaptivity from the within-collocation extrapolation estimate
+    (reference adaptivity.py:740): iterate the collocation problem to
+    convergence (restol/e_tol), then choose dt from the stage-order
+    estimate of :class:`EstimateExtrapolationErrorWithinQ`.  The update
+    order is the number of nodes (or nodes+1 with ``high_Taylor_order``)."""
+
+    def setup(self, controller, params, description, **kwargs):
+        mine = {'high_Taylor_order': False}
+        out = {**mine, **super().setup(controller, params, description, **kwargs)}
+        if 'e_tol' not in out:
+            raise ParameterError("within-Q extrapolation adaptivity requires an 'e_tol' parameter")
+        return out
+
+    def dependencies(self, controller, description, **kwargs):
+        from pysdc_tpu_torch.convergence.estimate_extrapolation_error import EstimateExtrapolationErrorWithinQ
+
+        super().dependencies(controller, description, **kwargs)
+        controller.add_convergence_controller(
+            EstimateExtrapolationErrorWithinQ,
+            description=description,
+            params={'high_Taylor_order': self.params.high_Taylor_order},
+        )
+
+    def get_local_error_estimate(self, controller, S, **kwargs):
+        est = getattr(S.levels[0].status, 'error_extrapolation_estimate', None)
+        return est if est is not None else 0.0
+
+    def get_new_step_size(self, controller, S, **kwargs):
+        if not _converged(S):
+            return
+        lvl = S.levels[0]
+        e = self.get_local_error_estimate(controller, S)
+        if e > 0:
+            order = lvl.sweep.coll.num_nodes + (1 if self.params.high_Taylor_order else 0)
+            self._propose_dt(lvl, e, order, S)
+
+    def determine_restart(self, controller, S, **kwargs):
+        if _converged(S):
+            e = self.get_local_error_estimate(controller, S)
+            if e >= self.params.e_tol:
+                self._flag_restart(S, e)
+
+
+class AdaptivityCollocation(AdaptivityBase):
+    """Nested-quadrature adaptivity (reference adaptivity.py:587-700): solve
+    the same step under a sequence of collocation rules; the difference of
+    consecutive converged solutions estimates a local error of order
+    min(order_i, order_{i+1}) + 1."""
+
+    def setup(self, controller, params, description, **kwargs):
+        out = {
+            'adaptive_coll_params': {},
+            'restart_at_maxiter': True,
+            **super().setup(controller, params, description, **kwargs),
+            'control_order': 220,
+        }
+        if 'e_tol' not in out:
+            raise ParameterError("collocation adaptivity requires an 'e_tol' parameter")
+        self.num_colls = max(
+            (len(v) for v in out['adaptive_coll_params'].values() if isinstance(v, list)),
+            default=0,
+        )
+        self._errors = []
+        self._orders = []
+        return out
+
+    def dependencies(self, controller, description, **kwargs):
+        from pysdc_tpu_torch.convergence.estimate_embedded_error import EstimateEmbeddedErrorCollocation
+
+        super().dependencies(controller, description, **kwargs)
+        controller.add_convergence_controller(
+            EstimateEmbeddedErrorCollocation,
+            params={'adaptive_coll_params': self.params.adaptive_coll_params},
+            description=description,
+        )
+
+    def reset_status_variables(self, controller, **kwargs):
+        self._errors = []
+        self._orders = []
+
+    def get_convergence(self, controller, S, **kwargs):
+        return len(self._orders) == self.num_colls
+
+    def get_local_error_estimate(self, controller, S, **kwargs):
+        if len(self._errors) > 1 and self._errors[-1] is not None:
+            return self._errors[-1][1]
+        return 0.0
+
+    def post_iteration_processing(self, controller, S, **kwargs):
+        if S.status.done:
+            lvl = S.levels[0]
+            self._errors.append(lvl.status.error_embedded_estimate_collocation)
+            self._orders.append(lvl.sweep.coll.order)
+
+    def get_new_step_size(self, controller, S, **kwargs):
+        if not self.get_convergence(controller, S):
+            return
+        e = self.get_local_error_estimate(controller, S)
+        if e > 0:
+            self._propose_dt(S.levels[0], e, order=min(self._orders[-2:]) + 1, step=S)
+
+    def determine_restart(self, controller, S, **kwargs):
+        if self.get_convergence(controller, S):
+            e = self.get_local_error_estimate(controller, S)
+            if e >= self.params.e_tol:
+                self._flag_restart(S, e)

@@ -7,8 +7,8 @@ behavioral counterparts of the reference's embedded-error family
 different order that were computed anyway: for SDC, consecutive sweeps
 (order grows by one per sweep, so the sweep-to-sweep difference at the last
 node has the lower order); for embedded Runge-Kutta pairs, the two weight rows
-of the tableau.  The collocation-switching estimate comes with the remaining
-convergence controllers (ROADMAP queue 1, item 13) and raises by name.
+of the tableau; for collocation switching, the converged solutions of two
+successive quadrature rules.
 
 Every estimate is one max-norm read on the host (``float`` of a 0-d tensor).
 """
@@ -21,8 +21,6 @@ import numpy as np
 
 from pysdc_tpu_torch.core.convergence import ConvergenceController
 from pysdc_tpu_torch.core.state import norm_max
-
-COLLOCATION_ITEM = 'ROADMAP queue 1, item 13'
 
 
 def _order_gap(level, kind, rel):
@@ -145,11 +143,49 @@ class EstimateEmbeddedErrorLinearized(EstimateEmbeddedError):
 
 
 class EstimateEmbeddedErrorCollocation(ConvergenceController):
-    """Embedded error from switching quadrature rules (reference
-    estimate_embedded_error.py:280-363): needs ``AdaptiveCollocation``, which
-    is not ported yet."""
+    """Embedded error from switching quadrature rules: the difference between
+    the converged solutions of two successive collocation problems (reference
+    estimate_embedded_error.py:280-363).  Stored on the finest level as
+    ``error_embedded_estimate_collocation = (iter, error)``; the switching
+    itself is delegated to :class:`AdaptiveCollocation` (pass its parameters
+    as ``adaptive_coll_params``)."""
 
-    def __init__(self, controller, params, description, **kwargs):
-        raise NotImplementedError(
-            f'EstimateEmbeddedErrorCollocation needs AdaptiveCollocation, not ported yet ({COLLOCATION_ITEM})'
+    def setup(self, controller, params, description, **kwargs):
+        self._converged_ends = []
+        self._iters_used = []
+        return {
+            'control_order': 210,
+            'adaptive_coll_params': {},
+            **super().setup(controller, params, description, **kwargs),
+        }
+
+    def dependencies(self, controller, description, **kwargs):
+        from pysdc_tpu_torch.convergence.adaptive_collocation import AdaptiveCollocation
+
+        controller.add_convergence_controller(
+            AdaptiveCollocation, params=dict(self.params.adaptive_coll_params), description=description
         )
+
+    def setup_status_variables(self, controller, **kwargs):
+        self.add_status_variable_to_level('error_embedded_estimate_collocation')
+
+    def reset_status_variables(self, controller, **kwargs):
+        self._converged_ends = []
+        self._iters_used = []
+        self.set_level_status_variable('error_embedded_estimate_collocation', None)
+
+    def post_iteration_processing(self, controller, S, **kwargs):
+        # runs before AdaptiveCollocation (210 < 300), so status.done still
+        # marks "current collocation problem converged"
+        if not S.status.done:
+            return
+        level = S.levels[0]
+        level.compute_end_point()
+        self._converged_ends.append(level.uend)
+        self._iters_used.append(S.status.iter)
+        if len(self._converged_ends) >= 2:
+            pair_gap = float(norm_max(self._converged_ends[-1] - self._converged_ends[-2]))
+            level.status.error_embedded_estimate_collocation = (
+                self._iters_used[-2],
+                _floored(pair_gap),
+            )

@@ -126,6 +126,21 @@ class Level:
         k = self.status.sweep if self.sweep.k_dependent else 0
         self.state = self.sweep.update_nodes(self.prob, self.state, self.status.time, self.params.dt, k)
         self.status.updated = True
+        self._account_work()
+
+    def _account_work(self):
+        """The work of one sweep, counted as the JAX package counts it: one RHS evaluation and one implicit
+        solve per collocation node, the solve on the first of ``newton`` / ``CG`` / ``GMRES`` / ``linear`` that the
+        problem registers.  Problems do not tick their counters per evaluation, so the predictor, residuals and
+        end points count nothing, as in the JAX package's compiled programs."""
+        M = self.sweep.coll.num_nodes
+        wc = self.prob.work_counters
+        if 'rhs' in wc:
+            wc['rhs'](M)
+        for key in ('newton', 'CG', 'GMRES', 'linear'):
+            if key in wc:
+                wc[key](M)
+                break
 
     def compute_residual(self, stage: str = ''):
         """Residual of the current state; ``status.residual`` is a 0-d tensor

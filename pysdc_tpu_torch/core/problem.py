@@ -34,8 +34,10 @@ from pysdc_tpu_torch.core.state import IMEX, Comp2, map_components
 class WorkCounter:
     """Host-side work counter (reference ``pySDC/core/problem.py:16-41``).
 
-    The port runs eagerly, so a problem ticks its counters on every call:
-    they count the work actually done (predictor evaluations included)."""
+    Problems register counters but do not tick them per evaluation: the level
+    adds the statically known work of each sweep (``Level._account_work``),
+    as the JAX package does, so ``LogWork`` reports the same numbers there as
+    on the JAX package's compiled runs."""
 
     def __init__(self):
         self.niter = 0
@@ -48,6 +50,14 @@ class WorkCounter:
 
     def __str__(self):
         return str(self.niter)
+
+
+def count_work(prob, key: str, n: int = 1) -> None:
+    """Tick ``prob``'s work counter ``key`` by ``n`` where it has one: for an
+    evaluation made outside a sweep (a fault injector's, a collocation
+    switch's), which the JAX package counts per call."""
+    if key in prob.work_counters:
+        prob.work_counters[key](n)
 
 
 class Problem:

@@ -64,12 +64,14 @@ from pysdc_tpu_torch.models.particles import (
     Particles,
     PenningTrap3D,
 )
+from pysdc_tpu_torch.models.power_electronics import Battery, BatteryNCapacitors, BuckConverter, Piline
 from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion1D, VarCoeffDiffusion2D, VarCoeffDiffusionForced1D
 
 __all__ = [
     'DAEProblem', 'DiscontinuousTestDAE', 'EMFields', 'FermiPastaUlamTsingou', 'FullSolarSystem', 'HarmonicOscillator',
     'HenonHeiles', 'OneTransistorAmplifier', 'OuterSolarSystem', 'Particles', 'Pendulum2D', 'PenningTrap3D',
     'ProblematicF', 'SimpleDAE', 'SynchronousMachineInfiniteBus', 'TwoTransistorAmplifier',
+    'Battery', 'BatteryNCapacitors', 'BuckConverter', 'Piline',
     'AdvectionDiffusion1D', 'AdvectionND', 'AllenCahn2DSpectral', 'AllenCahn2DSpectralStab', 'AllenCahnFront1D',
     'AllenCahnFront1DFinel', 'AllenCahnFront1DSemiImplicit', 'AllenCahnPeriodicMultiImplicitND',
     'AllenCahnPeriodicND', 'AllenCahnPeriodicSemiImplicitND', 'AllenCahnSpectralND', 'AllenCahnSpectralTimeForcing',

@@ -35,7 +35,6 @@ class AdvectionDiffusion1D(Problem):
         return torch.as_tensor(self.xvalues, dtype=self.dtype, device=self.device)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.lap.apply(u), expl=self.ddx.apply(u))
 
     def solve_system(self, rhs, factor, u0, t):

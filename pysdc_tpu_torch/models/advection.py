@@ -74,7 +74,6 @@ class AdvectionND(Problem):
         return super().graph_capture_blocker
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u)
 
     def solve_system(self, rhs, factor, u0, t):

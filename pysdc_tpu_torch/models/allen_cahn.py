@@ -122,11 +122,9 @@ class AllenCahnFront1D(_NewtonPDE):
 
     # -- protocol -------------------------------------------------------
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u) + self._bc_term(t) + self._reaction(u)
 
     def solve_system(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         bc = self._bc_term(t)
         return self._newton(
             self.A.apply,
@@ -151,7 +149,6 @@ class AllenCahnFront1DSemiImplicit(AllenCahnFront1D):
     newton_solves = False
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.A.apply(u) + self._bc_term(t), expl=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t):
@@ -233,17 +230,14 @@ class AllenCahnPeriodicND(_NewtonPDE):
         return -2.0 / self.eps**2 * ((1.0 - u) * (1.0 - 2.0 * u) - u * (1.0 - 2.0 * u) - 2.0 * u * (1.0 - u))
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u) + self._reaction(u)
 
     def eval_f_batched(self, u, t):
         """One apply (one K1 launch on the card) and one reaction pass over the
         leading node axis (and the time axis of a block behind it)."""
-        self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         return self._newton(self.A.apply, self.A.solve_shifted, self._reaction, self._reaction_prime,
                             rhs, factor, u0)
 
@@ -252,7 +246,6 @@ class AllenCahnPeriodicND(_NewtonPDE):
         shift; the sparse backend solves node by node."""
         if self.backend == 'sparse':
             return super().solve_system_batched(rhs, factor, u0, t)
-        self.work_counters['newton'](rhs.shape[0])
         return self._newton(self.A.apply, self.A.solve_shifted, self._reaction, self._reaction_prime,
                             rhs, node_shift_column(self.A, factor, rhs), u0)
 
@@ -274,7 +267,6 @@ class AllenCahnPeriodicSemiImplicitND(AllenCahnPeriodicND):
     newton_solves = False
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.A.apply(u), expl=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t, node=None):
@@ -297,7 +289,6 @@ class AllenCahnPeriodicMultiImplicitND(AllenCahnPeriodicND):
     f_kind = 'comp2'
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return Comp2(comp1=self.A.apply(u), comp2=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t):
@@ -308,5 +299,4 @@ class AllenCahnPeriodicMultiImplicitND(AllenCahnPeriodicND):
 
     def solve_system_2(self, rhs, factor, u0, t):
         """Solve u - factor*reaction(u) = rhs pointwise via Newton."""
-        self.work_counters['newton']()
         return self._newton(torch.zeros_like, lambda r, c: r, self._reaction, self._reaction_prime, rhs, factor, u0)

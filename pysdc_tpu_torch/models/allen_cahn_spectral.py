@@ -82,7 +82,6 @@ class AllenCahnSpectralND(Problem):
         return r
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.lap.apply(u), expl=self._reaction(u, t))
 
     def solve_system(self, rhs, factor, u0, t):
@@ -111,7 +110,6 @@ class AllenCahnSpectralTimeForcing(AllenCahnSpectralND):
     """
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         impl = self.lap.apply(u)
         if self.eps > 0:
             expl = -2.0 / self.eps**2 * u * (1.0 - u) * (1.0 - 2.0 * u)
@@ -155,7 +153,6 @@ class AllenCahn2DSpectral(Problem):
         return torch.zeros_like(u)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.lap.apply(u), expl=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t):
@@ -226,7 +223,6 @@ class AllenCahnTempSpectralND(Problem):
         return u.select(ax, 0), u.select(ax, 1), ax
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         phase, temp, ax = self._parts(u)
         impl_u = self.lap.apply(phase)
         impl_T = self.D * self.lap.apply(temp)

@@ -48,7 +48,6 @@ class Brusselator(Problem):
         return 5.0 * self._mask if float(t) >= 1.1 else 0.0 * self._mask
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         u0, u1, ax = self._parts(u)
         impl = torch.stack([self.lap.apply(u0), self.lap.apply(u1)], dim=ax)
         ru = 1.0 + u0**2 * u1 - 4.4 * u0 + self._source(t)

@@ -78,13 +78,11 @@ class DAEProblem(Problem):
     def solve_system_dae(self, u_approx, factor, du0, t):
         """Solve 0 = F(u_approx + factor*du, du, t) for du (fully implicit;
         reference problemDAE.py:39-80 uses scipy.optimize.root instead)."""
-        self.work_counters['newton']()
         return self._newton(lambda du: self.eval_f(u_approx + factor * du, du, t), du0)
 
     def solve_system_dae_semi(self, u_approx, factor, w0, t):
         """Semi-explicit solve: unknowns are the differential derivatives and
         the algebraic variables (reference semiImplicitDAE.py)."""
-        self.work_counters['newton']()
         nd = self.diff_nvars
 
         def G(w):
@@ -189,7 +187,8 @@ class DiscontinuousTestDAE(DAEProblem):
     """Scalar discontinuous DAE with state function h(y) = 2y - 100
     (Lopez & Maset 2022; reference discontinuousTestDAE.py): before the event
     (y, z) = (cosh t, sinh t), frozen afterwards; event at t* = arccosh(50).
-    Its event test with the switch estimator waits for ROADMAP queue 1, item 13.
+    The frozen branch makes a sliding mode: the node values touch the event
+    without crossing it, which ``SwitchEstimator(contact_tol=...)`` detects.
     """
 
     diff_nvars = 1

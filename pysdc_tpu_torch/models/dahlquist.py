@@ -39,12 +39,10 @@ class Dahlquist(Problem):
         self.work_counters['rhs'] = WorkCounter()
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.lambdas * u
 
     def eval_f_batched(self, u, t):
         """Elementwise: the leading node axis rides along."""
-        self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t):
@@ -86,7 +84,6 @@ class DahlquistIMEX(Dahlquist):
         self.work_counters['rhs'] = WorkCounter()
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.lambdas_implicit * u, expl=self.lambdas_explicit * u)
 
     def solve_system(self, rhs, factor, u0, t):

@@ -57,11 +57,9 @@ class GeneralizedFisher1D(_NewtonPDE):
         return self.lambda0**2 * (1.0 - (self.nu + 1) * torch.abs(u) ** self.nu)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u) + self._bc_term(t) + self._reaction(u)
 
     def solve_system(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         bc = self._bc_term(t)
         return self._newton(self.A.apply, self.A.solve_shifted, lambda u: self._reaction(u) + bc,
                             self._reaction_prime, rhs, factor, u0)

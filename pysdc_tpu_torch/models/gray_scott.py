@@ -64,7 +64,6 @@ class GrayScott(Problem):
         return torch.stack([self.Du * self.lap.apply(u0), self.Dv * self.lap.apply(u1)], dim=ax)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self._diffusion(u), expl=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t):
@@ -100,7 +99,6 @@ class GrayScottLinearIMEX(GrayScott):
     (reference grayscott_imex_linear)."""
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         u0, u1, ax = self._parts(u)
         impl = torch.stack([self.Du * self.lap.apply(u0) - self.A * u0, self.Dv * self.lap.apply(u1) - self.B * u1],
                            dim=ax)
@@ -161,7 +159,6 @@ class GrayScottMultiImplicit(GrayScott):
         self.newton_trace = None
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return Comp2(comp1=self._diffusion(u), comp2=self._reaction(u))
 
     def _newton(self, rhs, factor, u0, residual, jacobian):
@@ -173,7 +170,6 @@ class GrayScottMultiImplicit(GrayScott):
 
     def solve_system_2(self, rhs, factor, u0, t):
         """comp2: u - factor * R(u) = rhs with the full reaction R."""
-        self.work_counters['newton']()
         A, B = self.A, self.B
 
         def residual(u):
@@ -199,7 +195,6 @@ class GrayScottMultiImplicitLinear(GrayScottMultiImplicit):
     nonlinear reaction."""
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         u0, u1, ax = self._parts(u)
         impl = torch.stack([self.Du * self.lap.apply(u0) - self.A * u0, self.Dv * self.lap.apply(u1) - self.B * u1],
                            dim=ax)
@@ -209,7 +204,6 @@ class GrayScottMultiImplicitLinear(GrayScottMultiImplicit):
     solve_system = GrayScottLinearIMEX.solve_system
 
     def solve_system_2(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         A = self.A
 
         def residual(u):

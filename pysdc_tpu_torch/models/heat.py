@@ -139,12 +139,10 @@ class HeatND(Problem):
         return torch.meshgrid(*([x] * self.ndim), indexing='ij')
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u)
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K1 launch on the card)."""
-        self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
@@ -153,10 +151,8 @@ class HeatND(Problem):
                 return self.A.solve_shifted(rhs, factor, node=node)
             return self.A.solve_shifted(rhs, factor)
         if self.solver_type == 'CG':
-            self.work_counters['CG']()
             solve = self.A.solve_shifted_cg
         elif self.solver_type == 'GMRES':
-            self.work_counters['GMRES']()
             solve = self.A.solve_shifted_gmres
         else:
             raise ValueError(f'unknown solver_type {self.solver_type!r}')
@@ -239,13 +235,11 @@ class HeatNDForced(HeatND):
         return factor.reshape(tuple(factor.shape) + (1,) * self.ndim) * self._mode
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return IMEX(impl=self.A.apply(u), expl=self._forcing(t, u))
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K1 launch on the card);
         the forcing takes one time per node (and per step of a block)."""
-        self.work_counters['rhs'](u.shape[0])
         return IMEX(impl=self.A.apply(u), expl=self._forcing(t, u))
 
     def u_exact(self, t, u_init=None, t_init=None):

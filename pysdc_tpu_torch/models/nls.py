@@ -47,7 +47,6 @@ class NonlinearSchroedinger(Problem):
         return torch.meshgrid(*([x] * self.ndim), indexing='ij')
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         impl = 1j * self.lap.apply(u)
         expl = self.ndim * self.c * 2j * torch.abs(u) ** 2 * u
         return IMEX(impl=impl, expl=expl)

@@ -34,6 +34,15 @@ def _behind(x, like: torch.Tensor, trailing: int):
     return x.reshape(tuple(x.shape) + (1,) * (like.dim() - trailing - x.dim()) + (1,) * trailing)
 
 
+def per_step(x, trailing: int):
+    """A per-step problem scalar (``t_switch``): a number, or a ``(P,)`` tensor
+    of a block's steps, shaped to broadcast against a block field ``(..., P,
+    *trailing axes)`` (the step axis right before the last ``trailing``)."""
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return x
+    return x.reshape(tuple(x.shape) + (1,) * trailing)
+
+
 def _time(t, like: torch.Tensor):
     """A time as it enters a system's formula: a host float, or a tensor of
     times (one a system of the batch) shaped against ``like (..., n)`` in its dtype."""
@@ -152,7 +161,6 @@ class NewtonODE(Problem):
         gives one time per system).  Subclasses may give them by hand."""
         n = u.shape[-1]
         flat = u.reshape(-1, n)
-        niter = self.work_counters['rhs'].niter
         if isinstance(t, np.ndarray) and t.ndim > 0:
             t = torch.as_tensor(t, dtype=torch.float64, device=u.device)
         if isinstance(t, torch.Tensor) and t.dim() > 0:
@@ -160,7 +168,6 @@ class NewtonODE(Problem):
             J = torch.func.vmap(torch.func.jacfwd(lambda v, s: self.eval_f(v, s)))(flat, tt)
         else:
             J = torch.func.vmap(torch.func.jacfwd(lambda v: self.eval_f(v, t)))(flat)
-        self.work_counters['rhs'].niter = niter  # tracing is not an evaluation
         return J.reshape(u.shape + (n,))
 
     def eval_f_batched(self, u, t):
@@ -168,7 +175,6 @@ class NewtonODE(Problem):
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         return newton_solve(
             lambda u: self.eval_f(u, t), lambda u: self.eval_jacobian(u, t), rhs, factor, u0,
             self.newton_tol, self.newton_maxiter, failed=self.newton_failed,
@@ -224,7 +230,6 @@ class NewtonODE(Problem):
         tol = self.newton_tol
         if isinstance(tol, torch.Tensor) and tol.dim() > 0:
             tol = tol.unsqueeze(0)  # (P,) per step -> behind the node axis
-        self.work_counters['newton'](rhs.shape[0])
         return newton_solve(
             lambda u: self.eval_f(u, t), lambda u: self.eval_jacobian(u, t), rhs, factor.to(rhs.dtype), u0,
             tol, self.newton_maxiter, failed=self.newton_failed,
@@ -239,7 +244,6 @@ class VanDerPol(NewtonODE):
         self._register(u0=u0, mu=mu)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, y = u[..., 0], u[..., 1]
         return torch.stack([y, self.mu * (1 - x**2) * y - x], dim=-1)
 
@@ -260,7 +264,6 @@ class Lorenz(NewtonODE):
         self._register(sigma=sigma, rho=rho, beta=beta, u0=u0)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, y, z = u[..., 0], u[..., 1], u[..., 2]
         return torch.stack([self.sigma * (y - x), self.rho * x - y - x * z, x * y - self.beta * z], dim=-1)
 
@@ -273,7 +276,6 @@ class Logistic(NewtonODE):
         self._register(u0=u0, lam=lam)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.lam * u * (1.0 - u)
 
     def eval_jacobian(self, u, t):
@@ -294,7 +296,6 @@ class Auzinger(NewtonODE):
         super().__init__((2,), newton_tol, newton_maxiter, dtype, device)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, y = u[..., 0], u[..., 1]
         z = x**2 + y**2 - 1
         return torch.stack([-y + x * z, x + 3 * y * z], dim=-1)
@@ -316,14 +317,12 @@ class DiscontinuousTestODE(NewtonODE):
 
     def _switched(self, x, t):
         """Where the event has happened: ``x - 5 >= 0`` (``x`` the value, ``(..., 1)``) or ``t >= t_switch``."""
-        return (x - 5.0 >= 0) | (_time(t, x) >= self.t_switch)
+        return (x - 5.0 >= 0) | (_time(t, x) >= per_step(self.t_switch, 1))
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return torch.where(self._switched(u[..., :1], t), 4.0 / self.t_star * torch.ones_like(u), u)
 
     def solve_system(self, rhs, factor, u0, t):
-        self.work_counters['newton']()
         factor = _behind(factor, rhs, 1)
         u_smooth = rhs / (1.0 - factor)
         u_switched = rhs + factor * 4.0 / self.t_star
@@ -359,7 +358,6 @@ class ProtheroRobinson(NewtonODE):
         self._register(epsilon=epsilon)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         t = _time(t, u)
         return -(u - _cos(t)) / self.epsilon - _sin(t)
 
@@ -372,7 +370,6 @@ class ProtheroRobinsonNonLinear(ProtheroRobinson):
     ``nonLinear=True``): u' = -(u^3 - g(t)^3)/eps + g'(t), g = cos."""
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         t = _time(t, u)
         return -(u**3 - _cos(t) ** 3) / self.epsilon - _sin(t)
 
@@ -388,7 +385,6 @@ class ProtheroRobinsonAutonomous(NewtonODE):
         self._register(epsilon=epsilon, non_linear=non_linear)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, v = u[..., 0], u[..., 1]
         g, dg = torch.cos(v), -torch.sin(v)
         if self.non_linear:
@@ -411,7 +407,6 @@ class Kaps(NewtonODE):
         self._register(epsilon=epsilon)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, y = u[..., 0], u[..., 1]
         return torch.stack([-(2.0 + 1.0 / self.epsilon) * x + y**2 / self.epsilon, x - y * (1.0 + y)], dim=-1)
 
@@ -429,7 +424,6 @@ class ChemicalReaction3Var(NewtonODE):
         super().__init__((3,), newton_tol, newton_maxiter, dtype, device)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         c1, c2, c3 = u[..., 0], u[..., 1], u[..., 2]
         return -torch.stack([
             0.013 * c1 + 1000.0 * c3 * c1,
@@ -453,7 +447,6 @@ class JacobiElliptic(NewtonODE):
         super().__init__((3,), newton_tol, newton_maxiter, dtype, device)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         x, y, z = u[..., 0], u[..., 1], u[..., 2]
         return torch.stack([y * z, -x * z, -0.51 * x * y], dim=-1)
 
@@ -469,7 +462,6 @@ class NonlinearODE1(NewtonODE):
         self._register(u0=u0)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return torch.sqrt(torch.clamp(1.0 - u, min=0.0))
 
     def u_exact(self, t, u_init=None, t_init=0.0):

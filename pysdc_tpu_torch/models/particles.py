@@ -73,7 +73,6 @@ class HarmonicOscillator(Problem):
         return Particles(pos=self._full(self.u0[0]), vel=self._full(self.u0[1]))
 
     def eval_f(self, u: Particles, t):
-        self.work_counters['rhs']()
         return -self.k * u.pos - self.mu * u.vel
 
     def u_exact(self, t, u_init=None, t_init=0.0):
@@ -114,7 +113,6 @@ class FermiPastaUlamTsingou(Problem):
         return self.u_exact(0.0)
 
     def eval_f(self, u: Particles, t):
-        self.work_counters['rhs']()
         x = u.pos
         # fixed (zero) boundaries
         xp = _shift_left(x)
@@ -176,7 +174,6 @@ class OuterSolarSystem(Problem):
 
     def eval_f(self, u: Particles, t):
         """Pairwise gravitational accelerations, fully vectorized."""
-        self.work_counters['rhs']()
         pos = u.pos  # (3, N)
         N = pos.shape[1]
         if self.sun_only:
@@ -246,7 +243,6 @@ class PenningTrap3D(Problem):
         return torch.einsum('dij,ij->di', diff, w)
 
     def eval_f(self, part: Particles, t):
-        self.work_counters['rhs']()
         alpha = self.q / self.m
         elec = self._interactions(part.pos) + self.omega_E**2 / alpha * (self._Emat @ part.pos)
         magn = torch.cat([torch.zeros_like(part.pos[:2]), torch.full_like(part.pos[2:], float(self.omega_B))])
@@ -260,7 +256,6 @@ class PenningTrap3D(Problem):
     def boris_solver(self, c, dt, old_fields: EMFields, new_fields: EMFields, old_parts: Particles):
         """Boris rotation velocity update with the SDC c-term
         (reference :336-377), vectorized over particles."""
-        self.work_counters['Boris_solver']()
         alpha = self.q / self.m
         Emean = 0.5 * (old_fields.elec + new_fields.elec)
         c = c + dt / 2 * alpha * torch.linalg.cross(old_parts.vel, old_fields.magn - new_fields.magn, dim=-2)
@@ -307,7 +302,6 @@ class HenonHeiles(Problem):
         return self.u_exact(0.0)
 
     def eval_f(self, u: Particles, t):
-        self.work_counters['rhs']()
         x, y = u.pos[0], u.pos[1]
         return torch.stack([-x - 2 * x * y, -y - (x**2 - y**2)])
 

@@ -56,12 +56,10 @@ class VarCoeffDiffusion1D(Problem):
         return torch.as_tensor(self.xvals, dtype=self.dtype, device=self.device)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u)
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K2 launch on the card)."""
-        self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
@@ -134,12 +132,10 @@ class VarCoeffDiffusion2D(Problem):
         return torch.meshgrid(x, y, indexing='ij')
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         return self.A.apply(u)
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K2 launch on the card)."""
-        self.work_counters['rhs'](u.shape[0] - 1)
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
@@ -164,14 +160,12 @@ class VarCoeffDiffusionForced1D(VarCoeffDiffusion1D):
         self._Amode = self.A.apply(self._mode)
 
     def eval_f(self, u, t):
-        self.work_counters['rhs']()
         forcing = -self._mode * math.sin(t) - self._Amode * math.cos(t)
         return IMEX(impl=self.A.apply(u), expl=forcing)
 
     def eval_f_batched(self, u, t):
         """One apply over the leading node axis (one K2 launch on the card);
         the forcing takes one time per node."""
-        self.work_counters['rhs'](u.shape[0])
         t = np.asarray(t, dtype=float)
         sin_t, cos_t = (torch.as_tensor(fn(t), dtype=u.dtype, device=u.device).unsqueeze(1) for fn in (np.sin, np.cos))
         return IMEX(impl=self.A.apply(u), expl=-sin_t * self._mode - cos_t * self._Amode)

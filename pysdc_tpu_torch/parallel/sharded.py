@@ -30,12 +30,13 @@ overridden: each one runs the batched functions and then refreshes per-step
 hooks and policies read.  Iteration counts and the stats dictionary match the
 virtual controller entry for entry (gated in tests/test_torch_sharded.py).
 
-Per-step problem scalars (``newton_tol``, which a policy may write per step)
-enter the batched functions as ``(P,)`` tensors on the device (``overrides``).
+Per-step problem scalars (``newton_tol``, ``t_switch``, which policies such as
+``NewtonInexactness`` and ``SwitchEstimator`` write per step) enter the batched
+functions as ``(P,)`` float64 tensors on the device (``overrides``); the
+problems broadcast them against the block's ``(M+1, P, *shape)`` fields.
 
 Not ported: the mesh half (a ``mesh`` other than ``None``, the owner-computes
-chain) waits for ROADMAP queue 1, item 10b, the ``t_switch`` override for the
-switch estimator (item 13); both raise by name.
+chain) waits for ROADMAP queue 1, item 10b, and raises by name.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ from pysdc_tpu_torch.core.state import LevelState, map_components
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI
 
 MESH_ITEM = 'ROADMAP queue 1, item 10b'
-SWITCH_ITEM = 'ROADMAP queue 1, item 13'
 
 
 def _where_mask(mask, new, old, axis=0):
@@ -105,14 +105,13 @@ class _BlockLevel:
         def predict(u0_block, t_arr, dt):
             return sweep.predict(prob, u0_block, t_arr, dt, 0.0)
 
-        # mutable problem scalars (newton_tol, written per step by policies such as the JAX package's
-        # NewtonInexactness) enter the batched functions as (P,)-shaped arguments: the problem reads them
-        # where it would read its own attribute (the batched Newton takes one tolerance per step)
+        # mutable problem scalars (newton_tol, t_switch, written per step by NewtonInexactness and
+        # SwitchEstimator) enter the batched functions as (P,)-shaped arguments: the problem reads them
+        # where it would read its own attribute (the batched Newton takes one tolerance per step, the
+        # regime tests one event time per step)
         self.traced_keys = tuple(k for k in ('newton_tol', 't_switch') if hasattr(prob, k))
 
         def _with_ov(fn, ov):
-            if 't_switch' in ov:
-                raise ControllerError(f'the per-step override t_switch is not ported yet ({SWITCH_ITEM})')
             old = {key: getattr(prob, key) for key in ov}
             for key, val in ov.items():
                 setattr(prob, key, val)
@@ -488,14 +487,12 @@ class ShardedController(ControllerNonMPI):
         return dts.pop()
 
     def _block_overrides(self, lvl_idx):
-        """(P,)-shaped per-step problem scalars (newton_tol) read from the
-        shadow steps, as tensors on the device: policies write them per
-        step, the batched functions consume them as arguments."""
+        """(P,)-shaped per-step problem scalars (newton_tol, t_switch) read
+        from the shadow steps, as float64 tensors on the device: policies
+        write them per step, the batched functions consume them as arguments."""
         keys = getattr(self.blocks[lvl_idx], 'traced_keys', ())
         if not keys:
             return None
-        if 't_switch' in keys:
-            raise ControllerError(f'the per-step override t_switch is not ported yet ({SWITCH_ITEM})')
         return {
             key: torch.as_tensor([float(getattr(S.levels[lvl_idx].prob, key)) for S in self.MS],
                                  dtype=torch.float64, device=self.device)

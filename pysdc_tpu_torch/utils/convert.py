@@ -19,6 +19,12 @@ one below) reaches both packages in the same state.  ``dts_to_torch`` /
 ``dts_to_numpy`` carry a block's per-level step sizes as the float64 tensor
 the fused lanes read them from.
 
+``fault_to_torch`` makes the port's ``Fault`` from the fields of a fault of
+the JAX package (or a ``dict`` of them), and ``extrapolation_store_to_torch``
+/ ``extrapolation_store_to_numpy`` carry the stored step-end history of an
+``EstimateExtrapolationErrorNonMPI`` (times, step sizes, ``u`` and ``f``), so
+a run of either package can start from the same numpy state.
+
 ``dia_to_torch`` / ``bsr_to_torch`` carry sparse operators across: the
 fields of the JAX package's ``DIA`` and ``BSR`` containers, as numpy arrays,
 become the port's containers on a device (the card unless ``device='cpu'``),
@@ -133,3 +139,30 @@ def bsr_to_torch(blocks, seg_starts, shape, br, bc, device='cuda') -> BSR:
     ``seg_starts (nb, kb)`` (element offsets), ``shape``, ``br`` and ``bc``."""
     return BSR(np.asarray(blocks, dtype=float), np.asarray(seg_starts), tuple(shape), int(br), int(bc),
                device=device)
+
+
+_FAULT_FIELDS = ('time', 'timestep', 'level_number', 'iteration', 'node', 'problem_pos', 'bit', 'happened')
+
+
+def fault_to_torch(fault):
+    """The port's ``Fault`` with the fields of ``fault`` (a fault of either package, or a dict)."""
+    from pysdc_tpu_torch.resilience.fault_injection import Fault
+
+    get = fault.get if isinstance(fault, dict) else lambda key, default=None: getattr(fault, key, default)
+    fields = {key: get(key) for key in _FAULT_FIELDS if get(key) is not None}
+    if 'problem_pos' in fields:
+        fields['problem_pos'] = tuple(int(p) for p in fields['problem_pos'])
+    return Fault(**fields)
+
+
+def extrapolation_store_to_numpy(store: dict) -> dict:
+    """An extrapolation estimate's ``store`` (either package's) with its fields as numpy arrays
+    (empty slots stay ``None``)."""
+    return {key: [None if v is None else (to_numpy(v) if key in ('u', 'f') else float(v)) for v in vals]
+            for key, vals in store.items()}
+
+
+def extrapolation_store_to_torch(store: dict, device, dtype=None) -> dict:
+    """A ``store`` as :func:`extrapolation_store_to_numpy` gives it, with ``u`` and ``f`` as tensors on ``device``."""
+    return {key: [None if v is None else (to_torch(v, device, dtype) if key in ('u', 'f') else float(v))
+                  for v in vals] for key, vals in store.items()}

@@ -282,16 +282,38 @@ def test_adaptivity_needs_e_tol_and_no_restol():
         tconv.EstimateEmbeddedError.get_implementation('other')
 
 
+def _newly_ported(name):
+    """A short Van der Pol run of each class that raised "not ported" until the estimators were ported."""
+    params = {
+        'AdaptivityResidual': {'e_tol': 1e-5, 'max_restol': 1e-9},
+        'AdaptivityPolynomialError': {'e_tol': 1e-7},
+        'AdaptivityExtrapolationWithinQ': {'e_tol': 1e-7},
+        'AdaptivityCollocation': {'e_tol': 1e-7, 'adaptive_coll_params': {'num_nodes': [2, 3]}},
+        'EstimateEmbeddedErrorCollocation': {'adaptive_coll_params': {'num_nodes': [2, 3]}},
+    }[name]
+    parts = vdp({name: params}, maxiter=4 if name == 'AdaptivityResidual' else 30, dt=2e-2)
+    if name != 'AdaptivityResidual':
+        parts['level_params']['restol'] = 1e-10
+    runs = {}
+    for package in ('jax', 'torch'):
+        pkg, desc = description(package, parts)
+        ctrl = pkg.ControllerNonMPI(1, {'logger_level': 40}, desc)
+        uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.1)
+        runs[package] = summary(pkg, ctrl, uend, stats)
+    return runs
+
+
 @pytest.mark.parametrize('name, item', [
     ('AdaptivityResidual', 'item 13'), ('AdaptivityPolynomialError', 'item 13'),
     ('AdaptivityExtrapolationWithinQ', 'item 13'), ('AdaptivityCollocation', 'item 13'),
     ('EstimateEmbeddedErrorCollocation', 'item 13'),
 ])
 def test_unported_controllers_raise_naming_their_item(name, item):
-    pkg, desc = description('torch', vdp({name: {'e_tol': 1e-6}}))
-    with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1, {item}'):
-        pkg.ControllerNonMPI(1, {'logger_level': 40}, desc)
-    assert name in jconv.__all__
+    """The classes that raised naming ROADMAP ``item`` until it was ported now run, and their runs equal the JAX
+    package's under this file's gate (tests/test_torch_estimators.py holds them to tighter ones)."""
+    runs = _newly_ported(name)
+    assert_parity(runs['jax'], runs['torch'], 1e-7, 1e-10)
+    assert len(entries(runs['torch'], 'niter')) >= 3 and name in jconv.__all__ and name in tconv.__all__
 
 
 def test_exports_are_names_of_the_jax_registry():
@@ -470,13 +492,20 @@ def test_per_step_newton_tol_reaches_the_batched_newton():
 
 
 def test_t_switch_override_raises_naming_its_item():
-    pkg, desc = description('torch', RUNS['vdp-P1'][0])
-    ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
-    ctrl.blocks[0].traced_keys = ('newton_tol', 't_switch')
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 13'):
-        ctrl._block_overrides(0)
-    with pytest.raises(ControllerError, match='item 13'):
-        ctrl.blocks[0].sweep(None, None, 0.1, None, 0, {'t_switch': 1.0})
+    """The per-step ``t_switch`` (which raised naming item 13 until the switch estimator was ported) reaches the
+    batched functions as a ``(P,)`` float64 tensor beside ``newton_tol``, with the JAX package's values."""
+    overrides = {}
+    for package in ('jax', 'torch'):
+        pkg, desc = description(package, RUNS['vdp-P1'][0])
+        ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
+        ctrl.blocks[0].traced_keys = ('newton_tol', 't_switch')
+        for step, t_switch in zip(ctrl.MS, (np.inf, 0.25)):
+            step.levels[0].prob.t_switch = t_switch
+        overrides[package] = ctrl._block_overrides(0)
+    for key in ('newton_tol', 't_switch'):
+        assert overrides['torch'][key].dtype == torch.float64 and overrides['torch'][key].shape == (2,)
+        assert overrides['torch'][key].tolist() == np.asarray(overrides['jax'][key]).tolist()
+    assert overrides['torch']['t_switch'].tolist() == [np.inf, 0.25]
 
 
 def test_rejected_block_state_crosses_between_the_packages():

@@ -379,8 +379,8 @@ def test_mesh_and_owner_chain_raise_naming_the_roadmap():
 
 
 def test_per_step_overrides_raise_naming_the_roadmap():
-    """``newton_tol`` on a problem is a per-step ``(P,)`` argument of the batched functions; ``t_switch`` waits
-    for the switch estimator and raises naming its item."""
+    """``newton_tol`` and ``t_switch`` on a problem are per-step ``(P,)`` arguments of the batched functions (the
+    second raised naming item 13 until the switch estimator was ported)."""
     pkg, desc = _description('torch', _single())
     ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
     assert ctrl._block_overrides(0) is None
@@ -401,7 +401,10 @@ def test_per_step_overrides_raise_naming_the_roadmap():
     assert torch.equal(plain.u, with_ov.u) and prob.newton_tol == 1e-9
 
     ctrl.blocks[0].traced_keys = ('newton_tol', 't_switch')
-    with pytest.raises(ControllerError, match='item 13'):
-        ctrl._block_overrides(0)
-    with pytest.raises(ControllerError, match='item 13'):
-        ctrl.blocks[0].sweep(None, None, 0.1, None, 0, {'t_switch': 1.0})
+    for step, t_switch in zip(ctrl.MS, (0.05, np.inf)):
+        step.levels[0].prob.t_switch = t_switch
+    ov = ctrl._block_overrides(0)
+    assert ov['t_switch'].tolist() == [0.05, np.inf] and ov['t_switch'].dtype == torch.float64
+    prob.t_switch = np.inf
+    with_ov = ctrl.blocks[0].sweep(state, t_arr, 0.1, mask, 0, ov)
+    assert torch.equal(plain.u, with_ov.u) and prob.t_switch == np.inf  # read while the sweep runs, then restored

@@ -116,8 +116,8 @@ def test_fused_adaptive_matches_live_jax_adaptive_lane():
 
 def test_run_autodispatch_lanes():
     """Default ``run()`` picks the fused lane for eligible configs, the adaptive fused lane for the adaptivity
-    stack (both estimator flavors) and the stage machine otherwise (tests/test_fused.py:205).  Its
-    ``AdaptivityResidual`` leg is not ported: the class raises naming its item."""
+    stack (both estimator flavors) and the stage machine otherwise, ``AdaptivityResidual`` among them
+    (tests/test_fused.py:205-248)."""
     Tend = 3e-2
 
     def controller(cc, **kw):
@@ -134,8 +134,8 @@ def test_run_autodispatch_lanes():
     lin = controller({'Adaptivity': {'e_tol': 1e-6, 'embedded_error_flavor': 'linearized'}})
     assert _lane_of(lin.run(u0, 0.0, Tend)[1]) == ['fused_adaptive']
     assert _lane_of(lin.run(u0, 0.0, Tend, lane='stage')[1]) == ['stage']
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, item 13'):
-        controller({'AdaptivityResidual': {'e_tol': 1e3, 'max_restol': 1e-11}})
+    res = controller({'AdaptivityResidual': {'e_tol': 1e3, 'max_restol': 1e-11}})
+    assert _lane_of(res.run(u0, 0.0, Tend)[1]) == ['stage']
 
 
 def test_fused_adaptive_rk_cash_karp():

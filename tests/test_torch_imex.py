@@ -68,7 +68,7 @@ def test_forced_problems_match_jax(problem):
     jf, tf = jprob.eval_f(np.asarray(u[0]), 0.3), tprob.eval_f(to_torch(u[0], 'cpu'), 0.3)
     before = tprob.work_counters['rhs'].niter
     jfb, tfb = jprob.eval_f_batched(np.asarray(u), ts), tprob.eval_f_batched(to_torch(u, 'cpu'), ts)
-    assert tprob.work_counters['rhs'].niter - before == 3
+    assert tprob.work_counters['rhs'].niter == before  # an evaluation ticks nothing: the level counts a sweep
     for got, want in ((tf, jf), (tfb, jfb)):
         assert type(got).__name__ == 'IMEX'
         for g, w in zip(got, want):

@@ -2,7 +2,7 @@
 
 ``pysdc_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
 ``pysdc_tpu``; entry points run on the card unless asked for the CPU and
-refuse to carry on without one; what the slice does not port yet raises.
+refuse to carry on without one; what the port does not have yet raises.
 """
 
 import os
@@ -93,15 +93,17 @@ def test_unported_parts_raise_naming_the_roadmap():
         ParaDiagController(2, {'logger_level': 40, 'alpha': 1e-4}, dict(desc, sweeper_params=dict(num_nodes=2)),
                            mesh='a mesh')
 
-    # the adaptivity classes that wait for their estimators; the fully implicit Allen-Cahn solve (item 9) solves
-    # now, and so do the first-order sweepers of item 12 (AdaptivityRK among them): nothing of the package names
-    # item 9 or item 12 any more
+    # the fully implicit Allen-Cahn solve (item 9) solves now, the first-order sweepers of item 12 (AdaptivityRK
+    # among them) run, and so do the convergence controllers of item 13: nothing of the package names item 9,
+    # item 11, item 12 or item 13 any more, and every class of the registry constructs (a convergence controller
+    # that needs no controller to register dependencies with)
     import pysdc_tpu_torch.convergence as conv
     from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND
 
-    for name, item in (('AdaptivityResidual', 'item 13'), ('EstimateEmbeddedErrorCollocation', 'item 13')):
-        with pytest.raises(NotImplementedError, match=f'ROADMAP queue 1, {item}'):
-            getattr(conv, name)(None, {}, desc)
+    for name in ('AdaptivityResidual', 'StopAtNan', 'EstimateContractionFactor', 'HotRod', 'SwitchEstimator'):
+        assert getattr(conv, name).__name__ == name
+    residual = conv.AdaptivityResidual(None, {'e_tol': 1e-6}, desc)
+    assert residual.params.e_tol == 1e-6 and residual.params.max_restol == 0
     prob = AllenCahnPeriodicND(nvars=(8, 8), eps=0.2, device='cpu')
     u = prob.u_exact(0.0)
     x = prob.solve_system(u, 1e-3, u, 0.0)
@@ -113,6 +115,7 @@ def test_unported_parts_raise_naming_the_roadmap():
                 with open(os.path.join(folder, name)) as f:
                     text = f.read()
                     assert 'item 9' not in text and 'item 11' not in text and 'item 12' not in text, name
+                    assert 'item 13' not in text, name
 
 
 def test_adaptive_lane_and_e_tol_run():
