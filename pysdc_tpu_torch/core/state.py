@@ -6,7 +6,8 @@ tuple of tensors with a leading node axis:
   - ``u``:   (M+1, *shape)   solution at [t0, node_1..node_M]
   - ``f``:   RHS, each component (M+1, *shape); a plain tensor for
              single-component problems, :class:`IMEX` for split problems,
-             :class:`Comp2` for multi-implicit ones.
+             :class:`Comp2` for multi-implicit ones, :class:`IMEXEXP` for
+             exponential SDC.
   - ``tau``: (M, *shape)     FAS correction (zeros when unused)
 
 RHS containers mirror the reference's ``imex_mesh`` / ``comp2_mesh``
@@ -32,6 +33,16 @@ class Comp2(NamedTuple):
 
     comp1: Any
     comp2: Any
+
+
+class IMEXEXP(NamedTuple):
+    """Three-way split RHS for exponential SDC (reference Monodomain
+    project): ``impl`` stiff/implicit, ``expl`` nonstiff/explicit, ``exp``
+    exponential Rush-Larsen terms f_exp(u) = lambda(u0) * (u - y_inf(u0))."""
+
+    impl: Any
+    expl: Any
+    exp: Any
 
 
 def components(f) -> tuple:

@@ -1,5 +1,6 @@
 """Problem classes of the port, under the JAX package's names."""
 
+from pysdc_tpu_torch.models.acoustic import AcousticAdvection1D
 from pysdc_tpu_torch.models.advdiff import AdvectionDiffusion1D
 from pysdc_tpu_torch.models.advection import AdvectionND
 from pysdc_tpu_torch.models.allen_cahn import (
@@ -17,6 +18,7 @@ from pysdc_tpu_torch.models.allen_cahn_spectral import (
     AllenCahnSpectralTimeForcing,
     AllenCahnTempSpectralND,
 )
+from pysdc_tpu_torch.models.boussinesq import Boussinesq2DIMEX
 from pysdc_tpu_torch.models.brusselator import Brusselator
 from pysdc_tpu_torch.models.dae_problems import (
     DAEProblem,
@@ -37,6 +39,8 @@ from pysdc_tpu_torch.models.gray_scott import (
     GrayScottMultiImplicitLinear,
 )
 from pysdc_tpu_torch.models.heat import HeatND, HeatNDForced
+from pysdc_tpu_torch.models.monodomain import MonodomainIMEX, MonodomainIMEXEXP
+from pysdc_tpu_torch.models.navier_stokes import NavierStokesVorticity2D
 from pysdc_tpu_torch.models.nls import NonlinearSchroedinger
 from pysdc_tpu_torch.models.odes import (
     Auzinger,
@@ -65,7 +69,11 @@ from pysdc_tpu_torch.models.particles import (
     PenningTrap3D,
 )
 from pysdc_tpu_torch.models.power_electronics import Battery, BatteryNCapacitors, BuckConverter, Piline
+from pysdc_tpu_torch.models.quench import Quench, QuenchIMEX
+from pysdc_tpu_torch.models.rayleigh_benard import CFLLimit, RayleighBenard, RayleighBenard3D
+from pysdc_tpu_torch.models.spectral_problems import Burgers1D, Heat2DChebyshev, HeatChebyshev1D
 from pysdc_tpu_torch.models.var_diffusion import VarCoeffDiffusion1D, VarCoeffDiffusion2D, VarCoeffDiffusionForced1D
+from pysdc_tpu_torch.models.wscc9 import WSCC9BusSystem
 
 __all__ = [
     'DAEProblem', 'DiscontinuousTestDAE', 'EMFields', 'FermiPastaUlamTsingou', 'FullSolarSystem', 'HarmonicOscillator',
@@ -81,4 +89,7 @@ __all__ = [
     'NonlinearODE1', 'NonlinearSchroedinger', 'PolynomialTestEquation', 'PolynomialTestEquationIMEX',
     'ProtheroRobinson', 'ProtheroRobinsonAutonomous', 'ProtheroRobinsonNonLinear', 'VanDerPol',
     'VarCoeffDiffusion1D', 'VarCoeffDiffusion2D', 'VarCoeffDiffusionForced1D',
+    'AcousticAdvection1D', 'Boussinesq2DIMEX', 'Burgers1D', 'CFLLimit', 'Heat2DChebyshev', 'HeatChebyshev1D',
+    'MonodomainIMEX', 'MonodomainIMEXEXP', 'NavierStokesVorticity2D', 'Quench', 'QuenchIMEX', 'RayleighBenard',
+    'RayleighBenard3D', 'WSCC9BusSystem',
 ]

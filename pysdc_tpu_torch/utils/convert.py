@@ -4,7 +4,7 @@
 ``numpy.asarray`` reads, such as arrays of the JAX package) to the port's
 tensors on a given device and dtype; ``to_numpy`` / ``state_to_numpy`` go
 back.  Containers are matched by their field names, so the JAX package's
-``IMEX``/``Comp2`` (RHS) and ``Particles``/``EMFields`` (second-order states
+``IMEX``/``Comp2``/``IMEXEXP`` (RHS) and ``Particles``/``EMFields`` (second-order states
 and the Boris sweeper's fields) become the port's, leaf by leaf.
 
 Complex fields (the nonlinear Schroedinger state) keep their imaginary part:
@@ -37,11 +37,12 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import complex_dtype
-from pysdc_tpu_torch.core.state import IMEX, Comp2, LevelState
+from pysdc_tpu_torch.core.state import IMEX, IMEXEXP, Comp2, LevelState
 from pysdc_tpu_torch.models.particles import EMFields, Particles
 from pysdc_tpu_torch.ops.sparse import BSR, DIA
 
-_CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2, Particles._fields: Particles, EMFields._fields: EMFields}
+_CONTAINERS = {IMEX._fields: IMEX, Comp2._fields: Comp2, IMEXEXP._fields: IMEXEXP, Particles._fields: Particles,
+               EMFields._fields: EMFields}
 
 
 def to_torch(x, device, dtype=None):

@@ -46,6 +46,12 @@ _NO_JAX = (
     'pysdc_tpu_torch.sweepers.verlet, pysdc_tpu_torch.sweepers.boris, pysdc_tpu_torch.sweepers.rkn, '
     'pysdc_tpu_torch.models.dae_problems, pysdc_tpu_torch.sweepers.dae; '
     'from pysdc_tpu_torch import ParaDiagController, QDiagonalization, QDiagonalizationIMEX',
+    'import pysdc_tpu_torch.sweepers.imexexp, pysdc_tpu_torch.models.ionic, pysdc_tpu_torch.models.monodomain, '
+    'pysdc_tpu_torch.models.navier_stokes, pysdc_tpu_torch.models.wscc9, pysdc_tpu_torch.models.quench, '
+    'pysdc_tpu_torch.models.acoustic, pysdc_tpu_torch.models.boussinesq, pysdc_tpu_torch.ops.spectral, '
+    'pysdc_tpu_torch.models.spectral_problems, pysdc_tpu_torch.models.rayleigh_benard; '
+    'from pysdc_tpu_torch.sweepers import IMEXEXPSweeper; from pysdc_tpu_torch.core.state import IMEXEXP; '
+    'from pysdc_tpu_torch.models import MonodomainIMEXEXP, NavierStokesVorticity2D, WSCC9BusSystem, RayleighBenard3D',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
     out = subprocess.run([sys.executable, '-c', imports + '\n' + _NO_JAX],
