@@ -132,7 +132,10 @@ raises and the script exits nonzero without printing the final line:
 29. implicit times — one sweep of the main path by kind of work (K1, cuFFT,
    the rest, idle); the sweep at 1024^2 and 128^2 and the 1024^2 sparse sweep
    with ``READ_EVERY`` 1 (the module's value) and 2 in 10 alternating pairs,
-   host reads and work a sweep.
+   host reads and work a sweep; the 128^2 sweep again with every K1 call
+   routed through its ``autograd.Function`` against the bare launch that
+   ``cross_stencil_2d`` makes where no gradient is asked, in 10 alternating
+   pairs, and one apply at 128^2 both ways (host ms a call).
 
 30. multi-implicit — the slice's main path: the multi-implicit splitting of
    examples/step_20_allen_cahn_campaign.py:65, ``AllenCahnPeriodicMultiImplicitND``
@@ -293,6 +296,47 @@ raises and the script exits nonzero without printing the final line:
    launches x its ms an apply), idle share, peak memory, the ionic RHS's
    operations an evaluation (a dispatch mode's count; each is one kernel).
 
+55. autograd kernels — K1 under autograd and ``torch.func`` on the card,
+   float32 and float64 at 2048^2: the heat table and the 2D periodic advection
+   tables (``'center'``: antisymmetric and centred, bands both ways;
+   ``'upwind'``: the general path both ways) and the heat table with the general
+   path forced: the forward and the adjoint each on the path expected, the
+   adjoint identity ``<K u, v> = <u, K^T v>`` within 2 n_terms eps sum|c|
+   (max|u| sum|v| + max|v| sum|u|), the adjoint equal to K1 of the mirrored table
+   bitwise and to its plain version within 2 n_terms eps sum|c| max|v|, the jvp
+   equal to K1 of the tangent bitwise; ``torch.func.vmap(prob.eval_f)`` over 8
+   fields equal to the batched apply with exactly one launch; ``gradcheck``
+   (fast mode) at 64^2 float64 on both paths; ``jacfwd`` of a 64^2 ``eval_f``
+   equal to the dense matrix, in two launches (the primal and all tangents).
+56. embedding — the slice's main path: step 26's device-side embedding
+   (examples/step_26_embedding_campaign.py:66-92) at the heat path's width,
+   HeatND 2048^2 periodic float64, ``GenericImplicit`` M=3 RADAU-RIGHT LU,
+   ``make_sdc_step_function(fixed_sweeps=4)``, 10 steps of dt 0.02 in a Python
+   loop, MSE against ``forward(u_exact(0))``, from u = 0: one value and
+   gradient with K1 launches counted (forward 10 x (2 + 4 x 3) = 140, backward
+   130, all on bands); the gradient against the same loss differentiated through
+   the plain rolls on the card (relative 1e-10); a directional derivative against
+   a central difference (1e-6; the loss is quadratic, so only rounding separates
+   them); 5 Adam steps with the loss falling; forward and backward ms (CUDA
+   events), K1's share (launches x its ms an apply), peak memory.
+57. step 26 — at the example's 48^2 (K1's general path): one value and
+   gradient from a seeded point, card against the port's CPU run (gradient
+   and loss to 1e-12 relative); the inversion with 300 Adam steps from u = 0
+   on the card, its loss below 5e-6 of the first and its log10 reduction
+   against the golden ``adjoint_loss_reduction_log10`` through the port's
+   ``GoldenStore`` (rtol 0.2; the phase refuses to run while the store's
+   write variable is set); ``ControllerAsStepper`` on the example's
+   own ``HeatNDForced`` march (128 points, IMEX) against the golden niter and
+   error, and the same march at 128^2 (through K1) card against CPU.
+58. matrix — ``ControllerMatrixNonMPI`` on HeatND 64^2 periodic float64, 2
+   steps, M=3 (each dense matrix 4.5 GiB): the operator by one vmapped K1
+   launch on bands; ``niter`` equal to ``ControllerNonMPI``'s, ``uend`` to
+   1e-12; the propagation matrix of 5 iterations reproduces the run.
+59. logtofile — ``LogToFile`` on the 2048^2 heat path (float32, 2 steps): the
+   records read back bitwise, the last one equal to ``uend``; ms a write.
+60. linearized — ``LinearizedImplicitParallel`` on HeatND 32^2 float64 (its
+   Jacobian by ``jacfwd`` through K1's jvp and vmap rules) card against CPU.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -304,6 +348,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -2681,6 +2726,43 @@ def _pairs_line(label, samples, wins, card, counted):
           + f'; READ_EVERY {loops.READ_EVERY} faster in {wins} of {pairs} pairs [{card}]')
 
 
+def _function_route_line(sweep, prob, card, pairs=10):
+    """The host cost of routing K1 through ``stencil._CrossStencil`` where no gradient is asked: ``sweep()`` timed
+    with every K1 call taking the bare launch (``cross_stencil_2d`` as it is) and with every call forced through the
+    Function (``stencil.differentiated`` answering True), in ``pairs`` pairs of alternating order (CUDA events and
+    the host clock, 3 calls a sample after one untimed); then one apply on ``prob``'s grid both ways, host ms a
+    call over 200 calls."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels import stencil
+
+    plain_test = stencil.differentiated
+    samples = {'bare': [], 'Function': []}
+    wins = 0
+    try:
+        for p in range(pairs):
+            pair = {}
+            for route in (('bare', 'Function') if p % 2 == 0 else ('Function', 'bare')):
+                stencil.differentiated = plain_test if route == 'bare' else (lambda u: True)
+                pair[route] = _event_ms(lambda i: sweep(), 3, warmup=1, host=True)
+                samples[route].append(pair[route])
+            wins += pair['bare'][1] < pair['Function'][1]
+    finally:
+        stencil.differentiated = plain_test
+    u = torch.randn(prob.shape, dtype=prob.dtype, device='cuda')
+    terms = prob.A._cross_terms
+    one = {'bare': _event_ms(lambda i: stencil._launch(u, terms, None), 200, warmup=20, host=True),
+           'Function': _event_ms(lambda i: stencil._CrossStencil.apply(u, terms, None, stencil._launch), 200,
+                                 warmup=20, host=True)}
+    parts = [f'{route}: median {_median([c for c, _ in rows]):.3f} ms on the card, '
+             f'{_median([h for _, h in rows]):.3f} ms host clock ({min(h for _, h in rows):.3f}-'
+             f'{max(h for _, h in rows):.3f}); one apply {one[route][0]:.4f} ms on the card, {one[route][1]:.4f} ms '
+             f'host' for route, rows in samples.items()]
+    print(f'times: implicit sweep {tuple(prob.shape)} fp64, K1 bare against through its autograd.Function, {pairs} '
+          f'pairs in alternating order: ' + '; '.join(parts) + f'; bare faster on the host clock in {wins} of '
+          f'{pairs} pairs [{card}]')
+
+
 def phase_implicit_times(implicit, sparse_ctrl, card):
     """One sweep of the main path at 1024^2 from the spread state (the first sweep of a step: Newton from the
     initial value) by kind of work; the sweep at 1024^2 and at 128^2 and the 1024^2 sparse sweep (from its spread
@@ -2723,6 +2805,7 @@ def phase_implicit_times(implicit, sparse_ctrl, card):
     samples, wins = _read_every_pairs(lambda: one_sweep(small, small_sweep, small_state),
                                       lambda: (small.host_reads, small.solver_applies))
     _pairs_line(f'implicit sweep {N_FI_SMALL}^2 fp64', samples, wins, card, 'operator applies')
+    _function_route_line(lambda: one_sweep(small, small_sweep, small_state), small, card)
 
     # the 1024^2 sparse sweep (PCG lane, float32) from its spread state, where the PCG solves iterate
     slvl = sparse_ctrl.MS[0].levels[0]
@@ -4770,6 +4853,511 @@ def phase_monodomain_times(card):
     return results
 
 
+# -- differentiating through the integrator (phases 55-60) ---------------------------------------------------------
+N_EMB, M_EMB, DT_EMB, STEPS_EMB, SWEEPS_EMB = 2048, 3, 0.02, 10, 4  # step 26's embedding at the heat path's width
+ADAM_EMB, LR_EMB = 5, 0.2  # Adam steps at 2048^2 and the example's learning rate
+N_S26, STEPS_S26, SWEEPS_S26, ADAM_S26, LR_S26 = 48, 10, 4, 300, 0.2  # examples/step_26_embedding_campaign.py:68
+N_GRADCHECK, N_MATRIX, STEPS_MATRIX, MAXITER_MATRIX = 64, 64, 2, 5
+N_LINEARIZED = 32
+# max|grad(K1) - grad(plain rolls)| / max|grad|, float64 at 2048^2: only the order of the taps' sums differs, in 270
+# applies; this script measured 4.5e-13 on an H100 80GB HBM3 at 700 W, and the gate leaves 200x
+EMB_GRAD_PLAIN_RTOL = 1e-10
+EMB_FD_RTOL = 1e-6  # central difference of the quadratic loss against <grad, d>: only rounding separates the two
+# step 26 at 48^2, one value_and_grad card against CPU: max|grad(card) - grad(CPU)| / max|grad(CPU)|, and the losses'
+# gap; K1's general path against the CPU's rolls over 10 steps x 4 sweeps, only the order of the taps' sums differs
+S26_GRAD_RTOL = 1e-12
+MATRIX_TOL = 1e-12  # fp64 64^2: |uend(matrix) - uend(ControllerNonMPI)|, and the propagation matrix's |u| gap
+
+
+def _emb_problem(n, device, dtype):
+    import torch
+
+    from pysdc_tpu_torch import GenericImplicit
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.utils.embedding import make_sdc_step_function
+
+    prob = HeatND(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=getattr(torch, dtype), device=device)
+    sweep = GenericImplicit({'num_nodes': M_EMB, 'quad_type': 'RADAU-RIGHT', 'QI': 'LU'})
+    return prob, make_sdc_step_function(prob, sweep, fixed_sweeps=SWEEPS_EMB)
+
+
+def _emb_loss(step, target, steps=STEPS_EMB, dt=DT_EMB):
+    """Step 26's loss: ``steps`` SDC steps of ``dt`` in a Python loop, MSE against ``target``."""
+    import torch
+
+    def forward(u):
+        t = 0.0
+        for _ in range(steps):
+            u, t = step(u, t, dt), t + dt
+        return u
+
+    def loss(u):
+        return torch.mean((forward(u) - target) ** 2)
+
+    return forward, loss
+
+
+def _value_and_grad(loss, u):
+    x = u.detach().clone().requires_grad_()
+    value = loss(x)
+    value.backward()
+    return value.detach(), x.grad
+
+
+def _adam(loss, u0, steps, lr):
+    """``steps`` of ``torch.optim.Adam`` (optax.adam's defaults) on ``loss`` from ``u0``: the losses before each
+    step, and the final iterate."""
+    import torch
+
+    u = u0.detach().clone().requires_grad_()
+    opt = torch.optim.Adam([u], lr=lr)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        value = loss(u)
+        value.backward()
+        opt.step()
+        losses.append(float(value.detach()))
+    return losses, u.detach()
+
+
+def phase_autograd_kernels(card):
+    """Phase 55: K1 under autograd and ``torch.func`` on the card, float32 and float64, on both paths (module
+    docstring)."""
+    import torch
+
+    from pysdc_tpu_torch.models.advection import AdvectionND
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, choose_path, cross_stencil_2d, mirrored_terms
+
+    n = N_EMB
+    heat = HeatND(nvars=(n, n), nu=0.1, freq=2, bc='periodic', device='cpu').A._cross_terms
+    centre = AdvectionND(nvars=(n, n), stencil_type='center', device='cpu').A._cross_terms
+    upwind = AdvectionND(nvars=(n, n), stencil_type='upwind', device='cpu').A._cross_terms
+    cases = [('heat', heat, None, 'bands'), ('advection center', centre, None, 'bands'),
+             ('advection upwind', upwind, None, 'general'), ('heat, general forced', heat, 'general', 'general')]
+    gen = torch.Generator(device='cuda').manual_seed(55)
+    for dtype in (torch.float32, torch.float64):
+        tol = None
+        for name, terms, forced, path in cases:
+            tol = _stencil_tolerance(terms, dtype)
+            sum_c = sum(abs(c) for coeff, _ in terms for c in coeff)
+            u, v, w = (torch.randn((n, n), generator=gen, device='cuda', dtype=dtype) for _ in range(3))
+            x = u.clone().requires_grad_()
+            before = dict(cross_stencil_2d.paths)
+            y = cross_stencil_2d(x, terms, path=forced)
+            (y * v).sum().backward()
+            torch.cuda.synchronize()
+            ran = {k: cross_stencil_2d.paths[k] - before[k] for k in before}
+            back = choose_path((n, n), mirrored_terms(terms), u.element_size())
+            if ran != {p: (p == path) + (p == back) for p in ran}:
+                raise AssertionError(f'autograd kernels: K1 {name} {dtype}: launches by path {ran}, expected the '
+                                     f'forward on {path} and the adjoint on {back}')
+            lhs = float((y.detach().double() * v.double()).sum())
+            rhs = float((u.double() * x.grad.double()).sum())
+            bound = tol * sum_c * (float(u.abs().max()) * float(v.abs().sum()) + float(v.abs().max()) *
+                                   float(u.abs().sum()))
+            if not abs(lhs - rhs) <= bound:
+                raise AssertionError(f'autograd kernels: K1 {name} {dtype}: <K u, v> - <u, K^T v> = {lhs - rhs:.3e}, '
+                                     f'bound {bound:.3e}')
+            mirror = cross_stencil_2d(v, mirrored_terms(terms))
+            plain_err = float((x.grad - _roll_cross_2d(v, mirrored_terms(terms))).abs().max())
+            if not (torch.equal(x.grad, mirror) and plain_err <= tol * sum_c * float(v.abs().max())):
+                raise AssertionError(f'autograd kernels: K1 {name} {dtype}: the adjoint differs from K1 of the '
+                                     f'mirrored table or from its plain version ({plain_err:.3e})')
+            _, tangent = torch.func.jvp(lambda a: cross_stencil_2d(a, terms, path=forced), (u,), (w,))
+            if not torch.equal(tangent, cross_stencil_2d(w, terms)):
+                raise AssertionError(f'autograd kernels: K1 {name} {dtype}: the jvp is not K1 of the tangent')
+            print(f'autograd kernels: K1 {name} {dtype} {n}^2: forward on {path}, adjoint on {back}; <K u, v> - '
+                  f'<u, K^T v> = {lhs - rhs:.3e} (bound {bound:.3e} = 2 n_terms eps sum|c| (max|u| sum|v| + '
+                  f'max|v| sum|u|)); adjoint against the plain mirrored rolls {plain_err:.3e}; jvp = K1 of the '
+                  f'tangent, bitwise')
+        # vmap of eval_f over 8 fields: one launch of the (8, n, n) batch
+        prob = HeatND(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=dtype, device='cuda')
+        batch = torch.randn((8, n, n), generator=gen, device='cuda', dtype=dtype)
+        want = prob.eval_f(batch, 0.0)
+        cross_stencil_2d.launches = 0
+        got = torch.func.vmap(lambda f: prob.eval_f(f, 0.0))(batch)
+        torch.cuda.synchronize()
+        if cross_stencil_2d.launches != 1 or not torch.equal(got, want):
+            raise AssertionError(f'autograd kernels: vmap of eval_f over 8 fields {dtype}: '
+                                 f'{cross_stencil_2d.launches} launches, equal to the batched apply: '
+                                 f'{torch.equal(got, want)}')
+        print(f'autograd kernels: torch.func.vmap(prob.eval_f) over 8 fields {n}^2 {dtype}: 1 launch, equal to the '
+              f'batched apply bitwise')
+
+    # gradcheck and jacfwd at 64^2 float64 (a float64 row of 64 columns is one band)
+    m = N_GRADCHECK
+    for name, make in (('heat', lambda: HeatND(nvars=(m, m), nu=0.1, freq=2, bc='periodic', device='cpu')),
+                       ('advection upwind', lambda: AdvectionND(nvars=(m, m), stencil_type='upwind', device='cpu'))):
+        terms = make().A._cross_terms
+        path = choose_path((m, m), terms, 8)
+        u = torch.randn((m, m), generator=gen, device='cuda', dtype=torch.float64, requires_grad=True)
+        if not torch.autograd.gradcheck(lambda a: cross_stencil_2d(a, terms), (u,), fast_mode=True):
+            raise AssertionError(f'autograd kernels: gradcheck of K1 {name} {m}^2 failed')
+        print(f'autograd kernels: gradcheck (fast_mode) of K1 {name} {m}^2 float64 on {path}: passed')
+    prob = HeatND(nvars=(m, m), nu=0.1, freq=2, bc='periodic', dtype=torch.float64, device='cuda')
+    terms = prob.A._cross_terms
+    u = torch.randn((m * m,), generator=gen, device='cuda', dtype=torch.float64)
+    cross_stencil_2d.launches = 0
+    J = torch.func.jacfwd(lambda a: prob.eval_f(a.reshape(m, m), 0.0).reshape(-1))(u)
+    torch.cuda.synchronize()
+    launches = cross_stencil_2d.launches
+    eye = torch.eye(m * m, dtype=torch.float64, device='cuda').reshape(m * m, m, m)
+    dense = _roll_cross_2d(eye, terms).reshape(m * m, m * m).T
+    err = float((J - dense).abs().max())
+    tol = _stencil_tolerance(terms, torch.float64) * sum(abs(c) for coeff, _ in terms for c in coeff)
+    if launches != 2 or not err <= tol:
+        raise AssertionError(f'autograd kernels: jacfwd of eval_f {m}^2: {launches} launches, |J - dense| {err:.3e} '
+                             f'(tol {tol:.3e})')
+    print(f'autograd kernels: jacfwd of eval_f {m}^2 float64: 2 launches (the primal and one of all {m * m} '
+          f'tangents), |J - dense matrix| {err:.3e} <= {tol:.3e} [{card}]')
+
+
+def phase_embedding(card):
+    """Phase 56: the slice's main path, step 26's device-side embedding at 2048^2 float64 (module docstring)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    prob, step = _emb_problem(N_EMB, 'cuda', 'float64')
+    with torch.no_grad():
+        forward, _ = _emb_loss(step, None)
+        target = forward(prob.u_exact(0.0))
+    _, loss = _emb_loss(step, target)
+    u0 = torch.zeros_like(target)
+    fwd_expected = STEPS_EMB * (2 + SWEEPS_EMB * M_EMB)
+    bwd_expected = STEPS_EMB * (2 + SWEEPS_EMB * M_EMB - 1)
+
+    # the main path: one value_and_grad, forward and backward counted apart
+    torch.cuda.synchronize()
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    x = u0.clone().requires_grad_()
+    value = loss(x)
+    torch.cuda.synchronize()
+    fwd_launches = cross_stencil_2d.launches
+    value.backward()
+    torch.cuda.synchronize()
+    bwd_launches = cross_stencil_2d.launches - fwd_launches
+    paths = dict(cross_stencil_2d.paths)
+    grad = x.grad
+    print(f'embedding: K1 launches of one value_and_grad at {N_EMB}^2 float64: forward {fwd_launches} (expected '
+          f'{STEPS_EMB} steps x (2 in the predictor + {SWEEPS_EMB} sweeps x M={M_EMB}) = {fwd_expected}), backward '
+          f'{bwd_launches} (expected {bwd_expected}: every forward apply but the last node\'s f of each step\'s last '
+          f'sweep, which nothing reads; the predictor\'s f at the left end gets a zero gradient and is launched too), '
+          f'by path {paths}')
+    if fwd_launches != fwd_expected or bwd_launches != bwd_expected or paths['general'] != 0:
+        raise AssertionError('embedding: K1 launches differ from what the sweeps imply, or left the bands path')
+    if not (torch.isfinite(grad).all() and float(grad.abs().max()) > 0):
+        raise AssertionError('embedding: the gradient is not finite or is zero')
+
+    # the same loss differentiated through the plain version (rolls) on the card
+    prob.A.disable_pallas()
+    before = cross_stencil_2d.launches
+    value_plain, grad_plain = _value_and_grad(loss, u0)
+    prob.A.enable_pallas()
+    if cross_stencil_2d.launches != before:
+        raise AssertionError('embedding: the plain run launched K1')
+    scale = float(grad_plain.abs().max())
+    grad_rel = float((grad - grad_plain).abs().max()) / scale
+    value_rel = abs(float(value.detach()) - float(value_plain)) / float(value_plain)
+    print(f'embedding: gradient through K1 against the plain rolls on the card: max rel {grad_rel:.3e} (gate '
+          f'{EMB_GRAD_PLAIN_RTOL:.0e}), loss rel {value_rel:.3e}, max|grad| {scale:.3e}')
+    if not (grad_rel <= EMB_GRAD_PLAIN_RTOL and value_rel <= EMB_GRAD_PLAIN_RTOL):
+        raise AssertionError('embedding: the gradient through K1 differs from the plain version\'s')
+
+    # a directional derivative against a central difference (the loss is quadratic in u: exact up to rounding)
+    gen = torch.Generator(device='cuda').manual_seed(56)
+    d = torch.randn(u0.shape, generator=gen, device='cuda', dtype=u0.dtype)
+    h = 1e-2
+    with torch.no_grad():
+        fd = (float(loss(u0 + h * d)) - float(loss(u0 - h * d))) / (2 * h)
+    directional = float((grad * d).sum())
+    fd_rel = abs(fd - directional) / abs(directional)
+    print(f'embedding: <grad, d> = {directional:.12e}, central difference (h {h}) {fd:.12e}, rel {fd_rel:.3e} '
+          f'(gate {EMB_FD_RTOL:.0e})')
+    if not fd_rel <= EMB_FD_RTOL:
+        raise AssertionError('embedding: the directional derivative disagrees with the central difference')
+
+    # a few Adam steps: the loss falls
+    losses, _ = _adam(loss, u0, ADAM_EMB, LR_EMB)
+    print(f'embedding: {ADAM_EMB} Adam steps (lr {LR_EMB}): losses {[f"{v:.6e}" for v in losses]}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError('embedding: the loss did not fall under Adam')
+
+    # times: forward and backward by CUDA events (best of 3 after the runs above), K1's share, peak memory
+    k1_one = _event_ms(lambda i: cross_stencil_2d(target, prob.A._cross_terms), 20)
+    nodes = target.unsqueeze(0).repeat(M_EMB, 1, 1)
+    k1_nodes = _event_ms(lambda i: cross_stencil_2d(nodes, prob.A._cross_terms), 20)
+    best = None
+    for _ in range(3):
+        x = u0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        h0 = time.perf_counter()
+        events[0].record()
+        value = loss(x)
+        events[1].record()
+        value.backward()
+        events[2].record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - h0)
+        run = (events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]), host_ms,
+               torch.cuda.max_memory_allocated() / 2**20)
+        best = run if best is None or sum(run[:2]) < sum(best[:2]) else best
+    fwd_ms, bwd_ms, host_ms, peak = best
+    k1_fwd = STEPS_EMB * (k1_nodes + (1 + SWEEPS_EMB * M_EMB) * k1_one)
+    k1_bwd = STEPS_EMB * (k1_nodes + SWEEPS_EMB * M_EMB * k1_one)
+    print(f'embedding times: one value_and_grad at {N_EMB}^2 float64 ({STEPS_EMB} steps x {SWEEPS_EMB} sweeps, M='
+          f'{M_EMB}): forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms on the card (CUDA events, best of 3), '
+          f'{host_ms:.3f} ms on the host clock; K1 an apply {k1_one:.4f} ms at ({N_EMB}, {N_EMB}), {k1_nodes:.4f} ms '
+          f'at ({M_EMB}, {N_EMB}, {N_EMB}) -> K1 {k1_fwd:.3f} ms of the forward ({100 * k1_fwd / fwd_ms:.1f}%), '
+          f'{k1_bwd:.3f} ms of the backward ({100 * k1_bwd / bwd_ms:.1f}%); peak {peak:.0f} MiB [{card}]')
+    return dict(forward=fwd_launches, backward=bwd_launches)
+
+
+def phase_step26(card):
+    """Phase 57: step 26 at the example's own sizes on the card (module docstring)."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, get_sorted
+    from pysdc_tpu_torch.models.heat import HeatNDForced
+    from pysdc_tpu_torch.ops.kernels.stencil import choose_path, cross_stencil_2d
+    from pysdc_tpu_torch.sweepers.imex import IMEXSweeper
+    from pysdc_tpu_torch.utils.embedding import ControllerAsStepper
+    from pysdc_tpu_torch.utils.golden import GoldenStore
+
+    store = GoldenStore(Path(__file__).resolve().parent / 'examples' / 'golden' / 'step_26_embedding.json')
+    if store.writing:
+        raise AssertionError(f'step 26: {GoldenStore.WRITE_ENV} is set, so the golden gates would record instead '
+                             f'of checking; unset it')
+
+    # K1's general path, forward and adjoint, at the example's size: one value_and_grad at a seeded point, card
+    # against the CPU's plain rolls
+    point = torch.as_tensor(np.random.default_rng(57).standard_normal((N_S26, N_S26)), dtype=torch.float64)
+    grads, losses_by_device = {}, {}
+    for device in ('cuda', 'cpu'):
+        prob, step = _emb_problem(N_S26, device, 'float64')
+        with torch.no_grad():
+            forward, _ = _emb_loss(step, None, STEPS_S26)
+            target = forward(prob.u_exact(0.0))
+        _, losses_by_device[device] = _emb_loss(step, target, STEPS_S26)
+        cross_stencil_2d.launches = 0
+        cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+        value, grad = _value_and_grad(losses_by_device[device], point.to(device))
+        grads[device] = (float(value), grad.cpu(), cross_stencil_2d.launches, dict(cross_stencil_2d.paths))
+    (value, grad, vg_launches, vg_paths), (value_cpu, grad_cpu, _, _) = grads['cuda'], grads['cpu']
+    grad_rel = float((grad - grad_cpu).abs().max()) / float(grad_cpu.abs().max())
+    value_rel = abs(value - value_cpu) / value_cpu
+    print(f'step 26: one value_and_grad at {N_S26}^2 float64 from a seeded point, card against CPU: gradient max rel '
+          f'{grad_rel:.3e}, loss rel {value_rel:.3e} (gate {S26_GRAD_RTOL:.0e}), {vg_launches} K1 launches by path '
+          f'{vg_paths}')
+    if choose_path((N_S26, N_S26), _emb_problem(N_S26, 'cpu', 'float64')[0].A._cross_terms, 8) != 'general' or \
+            vg_paths['bands'] != 0 or vg_launches == 0:
+        raise AssertionError('step 26: the 48^2 value_and_grad did not run on the general path of K1')
+    if not (grad_rel <= S26_GRAD_RTOL and value_rel <= S26_GRAD_RTOL):
+        raise AssertionError('step 26: the card\'s gradient differs from the CPU\'s')
+
+    # the example's inversion on the card from u = 0: 300 Adam steps, held to the golden file and to the example's
+    # convergence
+    loss = losses_by_device['cuda']
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    t0 = time.perf_counter()
+    losses, u = _adam(loss, torch.zeros((N_S26, N_S26), dtype=torch.float64, device='cuda'), ADAM_S26, LR_S26)
+    with torch.no_grad():
+        lT = float(loss(u))
+    seconds = time.perf_counter() - t0
+    inversion_launches, paths, l0 = cross_stencil_2d.launches, dict(cross_stencil_2d.paths), losses[0]
+    reduction = math.log10(l0 / lT)
+    print(f'step 26: inversion at {N_S26}^2 float64, {ADAM_S26} Adam steps (lr {LR_S26}) through {STEPS_S26} SDC steps '
+          f'x {SWEEPS_S26} sweeps: loss {l0:.6e} -> {lT:.6e} on the card ({seconds:.1f} s, {inversion_launches} K1 '
+          f'launches by path {paths}); log10 reduction {reduction:.6f}')
+    if paths['bands'] != 0 or inversion_launches == 0:
+        raise AssertionError('step 26: the 48^2 inversion did not run on the general path of K1')
+    if not lT < 5e-6 * l0:
+        raise AssertionError('step 26: the gradient through the integrator did not converge')
+    store.check('adjoint_loss_reduction_log10', [reduction], rtol=0.2)
+
+    # the host-side march: the example's own configuration (1D, 128 points) against the golden file, then the same
+    # at 128^2 (its operator on K1) card against CPU
+    for nvars in (128, (128, 128)):
+        marches = {}
+        for device in ('cuda', 'cpu'):
+            desc = dict(problem_class=HeatNDForced,
+                        problem_params=dict(nu=0.1, freq=2, nvars=nvars, bc='periodic', device=device),
+                        sweeper_class=IMEXSweeper, sweeper_params=dict(quad_type='RADAU-RIGHT', num_nodes=3, QI='LU'),
+                        level_params=dict(restol=1e-10, dt=0.05), step_params=dict(maxiter=20))
+            stepper = ControllerAsStepper(ControllerNonMPI, desc, {'logger_level': 40}, 0.05)
+            P = stepper.controller.MS[0].levels[0].prob
+            cross_stencil_2d.launches = 0
+            u, t = P.u_exact(0.0), 0.0
+            for _ in range(8):
+                u = stepper.apply(u, t)
+                t += 0.05
+            marches[device] = ([v for _, v in get_sorted(stepper.stats, type='niter')],
+                               float((u - P.u_exact(t)).abs().max()), u.cpu(), cross_stencil_2d.launches)
+        (iters, err, u_card, launches), (iters_cpu, _, u_cpu, _) = marches['cuda'], marches['cpu']
+        gap = float((u_card - u_cpu).abs().max())
+        print(f'step 26: host-side march HeatNDForced {nvars} IMEX, 8 applies: niter {iters} (CPU {iters_cpu}), err '
+              f'{err:.6e}, card against CPU {gap:.3e}, K1 launches {launches}')
+        if iters != iters_cpu or not gap <= 1e-11 * float(u_cpu.abs().max()):
+            raise AssertionError(f'step 26: the host-side march {nvars} differs between the card and the CPU')
+        if nvars == 128:
+            store.check('host_march_niter', iters)
+            store.check('host_march_err', [err], rtol=1e-6, atol=1e-12)
+        elif launches == 0:
+            raise AssertionError('step 26: the 128^2 march did not go through K1')
+    print(f'step 26: golden gates of examples/golden/step_26_embedding.json hold for the port on the card [{card}]')
+    return dict(inversion=inversion_launches, march=launches)
+
+
+def phase_matrix(card):
+    """Phase 58: the matrix controller through vmapped K1 (module docstring)."""
+    import gc
+
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, GenericImplicit, get_sorted
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+    from pysdc_tpu_torch.parallel.matrix_controller import ControllerMatrixNonMPI
+
+    n, steps = N_MATRIX, STEPS_MATRIX
+    nbig = steps * M_EMB * n * n
+    print(f'matrix: HeatND {n}^2 periodic float64, {steps} steps, M={M_EMB}: each dense block matrix is '
+          f'({steps} x {M_EMB} x {n * n})^2 x 8 B = {nbig**2 * 8 / 2**30:.2f} GiB')
+
+    def desc(restol, maxiter):
+        return dict(problem_class=HeatND,
+                    problem_params=dict(nvars=(n, n), nu=0.1, freq=2, bc='periodic', dtype=torch.float64,
+                                        device='cuda'),
+                    sweeper_class=GenericImplicit,
+                    sweeper_params=dict(quad_type='RADAU-RIGHT', num_nodes=M_EMB, QI='LU', initial_guess='spread'),
+                    level_params=dict(restol=restol, dt=0.01), step_params=dict(maxiter=maxiter))
+
+    cp = {'logger_level': 40, 'all_to_done': True, 'mssdc_jac': True}
+    launches = {}
+    for restol, maxiter in ((1e-10, 50), (-1.0, MAXITER_MATRIX)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cross_stencil_2d.launches = 0
+        cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+        t0 = time.perf_counter()
+        cm = ControllerMatrixNonMPI(steps, cp, desc(restol, maxiter))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches[restol] = (cross_stencil_2d.launches, dict(cross_stencil_2d.paths))
+        if launches[restol][0] != 1 or launches[restol][1]['bands'] != 1:
+            raise AssertionError(f'matrix: dense_from_apply took {launches[restol]} K1 launches, expected one on bands')
+        P = cm.MS[0].levels[0].prob
+        u0 = P.u_exact(0.0)
+        um, sm = cm.run(u0, 0.0, steps * 0.01)
+        niter_m = [v for _, v in get_sorted(sm, type='niter')]
+        if restol > 0:
+            us, ss = ControllerNonMPI(steps, cp, desc(restol, maxiter)).run(u0, 0.0, steps * 0.01)
+            niter_s = [v for _, v in get_sorted(ss, type='niter')]
+            gap = float((um - us).abs().max())
+            print(f'matrix: built in {build_s:.2f} s (A by one vmapped K1 launch of ({n * n}, {n}, {n}) on bands), '
+                  f'niter {niter_m} against ControllerNonMPI {niter_s}, |uend gap| {gap:.3e}, peak '
+                  f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+            if niter_m != niter_s or not gap <= MATRIX_TOL:
+                raise AssertionError('matrix: the matrix controller differs from ControllerNonMPI')
+        else:
+            t0 = time.perf_counter()
+            mat = cm.build_propagation_matrix(niter=MAXITER_MATRIX)
+            torch.cuda.synchronize()
+            gap = float((mat @ u0.reshape(-1) - um.reshape(-1)).abs().max())
+            print(f'matrix: propagation matrix for {MAXITER_MATRIX} iterations in {time.perf_counter() - t0:.2f} s, '
+                  f'niter {niter_m}, |mat u0 - uend| {gap:.3e}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} '
+                  f'GiB [{card}]')
+            if niter_m != [MAXITER_MATRIX] * steps or not gap <= MATRIX_TOL:
+                raise AssertionError('matrix: the propagation matrix does not reproduce the run')
+            del mat
+        del cm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches[1e-10][0]
+
+
+def phase_logtofile(card):
+    """Phase 59: ``LogToFile`` on the 2048^2 heat path (module docstring)."""
+    import tempfile
+
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI
+    from pysdc_tpu_torch.utils.fieldsio import FieldsIO, LogToFile
+
+    desc = _heat_description(N_MAIN, torch.float32, 'cuda', restol=-1.0, maxiter=4)
+    with tempfile.TemporaryDirectory() as folder:
+        probe = ControllerNonMPI(1, {'logger_level': 40}, desc).MS[0].levels[0].prob
+        logger = LogToFile(folder, probe)
+        written = []
+        add = logger.io.addField
+
+        def timed(t, field):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            add(t, field)
+            written.append((1e3 * (time.perf_counter() - t0), field.detach().cpu().clone()))
+
+        logger.io.addField = timed
+        ctrl = ControllerNonMPI(1, {'logger_level': 40, 'hook_class': [logger.hook_class]}, desc)
+        uend, _ = ctrl.run(probe.u_exact(0.0), 0.0, 2 * DT)
+        back = FieldsIO.fromFile(logger.file_name)
+        if back.nFields != 2:
+            raise AssertionError(f'logtofile: {back.nFields} records, expected 2')
+        for i, (_, field) in enumerate(written):
+            t, data = back.readField(i)
+            if not (abs(t - (i + 1) * DT) < 1e-12 and np.array_equal(data.reshape(field.shape), field.numpy())):
+                raise AssertionError(f'logtofile: record {i} does not read back bitwise')
+        if not np.array_equal(back.readField(-1)[1].reshape(uend.shape), uend.cpu().numpy()):
+            raise AssertionError('logtofile: the last record is not uend')
+        size = Path(logger.file_name).stat().st_size
+    ms = [w for w, _ in written]
+    print(f'logtofile: {len(written)} records of {N_MAIN}^2 float32 read back bitwise; a write (copy to the host and '
+          f'append) {ms[0]:.2f} / {ms[1]:.2f} ms, file {size / 2**20:.1f} MiB [{card}]')
+
+
+def phase_linearized(card):
+    """Phase 60: ``LinearizedImplicitParallel`` on a K1 problem runs through ``jacfwd`` (module docstring)."""
+    import torch
+
+    from pysdc_tpu_torch import ControllerNonMPI, LinearizedImplicitParallel, get_sorted
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        desc = dict(problem_class=HeatND,
+                    problem_params=dict(nvars=(N_LINEARIZED, N_LINEARIZED), nu=0.1, freq=2, bc='periodic',
+                                        dtype=torch.float64, device=device),
+                    sweeper_class=LinearizedImplicitParallel,
+                    sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', jacobian=0, basis='Q'),
+                    level_params=dict(dt=0.01, restol=1e-10), step_params=dict(maxiter=20))
+        ctrl = ControllerNonMPI(1, {'logger_level': 40}, desc)
+        prob = ctrl.MS[0].levels[0].prob
+        cross_stencil_2d.launches = 0
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # a multithreaded complex solve of this CPU torch can hang (MKL)
+        try:
+            uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, 0.02)
+        finally:
+            torch.set_num_threads(threads)
+        runs[device] = ([v for _, v in get_sorted(stats, type='niter')], uend.cpu(), cross_stencil_2d.launches,
+                        float((uend - prob.u_exact(0.02)).abs().max()))
+    (niter, u_card, launches, err), (niter_cpu, u_cpu, _, _) = runs['cuda'], runs['cpu']
+    gap = float((u_card - u_cpu).abs().max())
+    print(f'linearized: LinearizedImplicitParallel on HeatND {N_LINEARIZED}^2 float64 (Jacobian by jacfwd through K1): '
+          f'niter {niter} (CPU {niter_cpu}), card against CPU {gap:.3e}, err {err:.3e}, {launches} K1 launches [{card}]')
+    if niter != niter_cpu or not gap <= 1e-11 or launches == 0:
+        raise AssertionError('linearized: the card\'s run differs from the CPU\'s or launched no K1')
+    return launches
+
+
 def main():
     import torch
 
@@ -4845,6 +5433,12 @@ def main():
     phase(phase_navier_stokes, card)
     phase(phase_models_parity)
     phase(phase_monodomain_times, card)
+    phase(phase_autograd_kernels, card)
+    emb_launches = phase(phase_embedding, card)
+    s26_launches = phase(phase_step26, card)
+    matrix_launches = phase(phase_matrix, card)
+    phase(phase_logtofile, card)
+    linearized_launches = phase(phase_linearized, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
@@ -4855,7 +5449,11 @@ def main():
                'rk ARK548L2SA': rk_launches['ARK548L2SA'], 'rk adaptive': rk_adaptive_launches,
                'paradiag': sum(pd_launches.values()), 'resilience': res_launches,
                'adaptivity flavours': flavour_launches, 'inexactness': inexact_launches,
-               'monodomain esdc': mono_launches['esdc'], 'monodomain imex': mono_launches['imex']}
+               'monodomain esdc': mono_launches['esdc'], 'monodomain imex': mono_launches['imex'],
+               'embedding forward': emb_launches['forward'], 'embedding backward': emb_launches['backward'],
+               'step 26 inversion 48^2': s26_launches['inversion'], 'step 26 march 128^2': s26_launches['march'],
+               'matrix vmap': matrix_launches,
+               'linearized jacfwd': linearized_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

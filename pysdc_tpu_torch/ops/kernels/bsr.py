@@ -30,7 +30,7 @@ from types import SimpleNamespace
 
 import torch
 
-from pysdc_tpu_torch.ops.kernels.build import current_stream, load
+from pysdc_tpu_torch.ops.kernels.build import current_stream, load, refuse_differentiated
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -226,11 +226,13 @@ def bsr_spmm(bsr, u: torch.Tensor, path=None) -> torch.Tensor:
     plain SpMV).  Returns (N_rows, B).
 
     On a CUDA tensor one launch of a K3 kernel (``path`` forces ``'stream'``
-    or ``'general'``); on a CPU tensor the plain ``BSR.spmv``."""
+    or ``'general'``); on a CPU tensor the plain ``BSR.spmv``.  A CUDA tensor
+    that a gradient is asked of raises (the kernel has no adjoint yet)."""
     if u.device.type == 'cpu':
         return bsr.spmv(u)
     if u.device.type != 'cuda':
         raise ValueError(f'bsr_spmm runs on cuda or cpu tensors, got {u.device}')
+    refuse_differentiated('bsr_spmm', u)
     return _launch(bsr, u, path)
 
 

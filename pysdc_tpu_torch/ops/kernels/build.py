@@ -19,6 +19,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.autograd.forward_ad as forward_ad
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -88,6 +89,46 @@ def current_stream(index: int) -> int:
     making a ``torch.cuda.Stream`` object per launch)."""
     raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
     return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+_FUNCTORCH = getattr(torch._C, '_functorch', None)  # torch.func's wrapper tests: no public API offers them
+
+
+def functorch_wrapped(u: torch.Tensor) -> bool:
+    """True when a ``torch.func`` transform (``grad``, ``vmap``, ``jvp``, ``jacfwd``) wraps ``u``."""
+    check = getattr(_FUNCTORCH, 'is_functorch_wrapped_tensor', None)
+    return bool(check is not None and check(u))
+
+
+def mapped(u: torch.Tensor) -> bool:
+    """True when a ``torch.func.vmap`` maps ``u`` at some level of its wrappers: its values cannot be read on
+    the host.  Under ``grad`` or ``jvp`` alone they can."""
+    batched, unwrap = getattr(_FUNCTORCH, 'is_batchedtensor', None), getattr(_FUNCTORCH, 'get_unwrapped', None)
+    while functorch_wrapped(u):
+        if batched is None or unwrap is None or batched(u):
+            return True
+        u = unwrap(u)
+    return False
+
+
+def differentiated(u: torch.Tensor) -> bool:
+    """True when a gradient will be asked of ``u``: it requires grad with grad
+    mode on, a ``torch.func`` transform wraps it (``grad``, ``vmap``,
+    ``jacfwd``), or it is a forward-mode dual tensor.  A kernel launched
+    through ``ctypes`` writes into a tensor that no autograd graph records, so
+    a wrapper either routes such a tensor through an ``autograd.Function`` or
+    refuses it."""
+    if u.requires_grad and torch.is_grad_enabled():
+        return True
+    return functorch_wrapped(u) or forward_ad.unpack_dual(u).tangent is not None
+
+
+def refuse_differentiated(name: str, u: torch.Tensor) -> None:
+    """Raise for a tensor that :func:`differentiated` flags: the kernel ``name`` has no adjoint yet."""
+    if differentiated(u):
+        raise NotImplementedError(
+            f'{name} has no adjoint, jvp or vmap rule on the card (ROADMAP queue 2, "adjoints of K2 and K3"): '
+            f'a gradient through its launch would silently drop this term; detach the input or run on the CPU')
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,7 +18,7 @@ from types import SimpleNamespace
 
 import torch
 
-from pysdc_tpu_torch.ops.kernels.build import current_stream, load
+from pysdc_tpu_torch.ops.kernels.build import current_stream, load, refuse_differentiated
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -97,11 +97,14 @@ def dia_spmv(dia, u: torch.Tensor) -> torch.Tensor:
     over the trailing axis of ``u``; leading axes batch.
 
     On a CUDA tensor one launch of the K2 kernel applies every diagonal to
-    every batch row; on a CPU tensor the plain ``DIA.spmv`` runs."""
+    every batch row; on a CPU tensor the plain ``DIA.spmv`` runs.  A CUDA
+    tensor that a gradient is asked of raises (the kernel has no adjoint
+    yet)."""
     if u.device.type == 'cpu':
         return dia.spmv(u)
     if u.device.type != 'cuda':
         raise ValueError(f'dia_spmv runs on cuda or cpu tensors, got {u.device}')
+    refuse_differentiated('dia_spmv', u)
     return _launch(dia, u)
 
 

@@ -30,6 +30,17 @@ view (not contiguous) raises.
 ``cross_stencil_2d.launches`` counts the launches, ``cross_stencil_2d.paths``
 counts them by path.  ``path='general'`` (or ``'bands'``) forces a path, for
 checks and timings; forcing ``'bands'`` where it does not apply raises.
+
+Gradients (the counterpart of the JAX kernel's ``custom_vmap`` rule and of
+``jax.grad`` through it): a tensor that a gradient is asked of
+(:func:`~pysdc_tpu_torch.ops.kernels.build.differentiated`) goes through
+:class:`_CrossStencil`, an ``autograd.Function`` whose rules are launches of
+the same kernel.  The operator is linear, so nothing is saved: the adjoint is
+K1 with the mirrored table (:func:`mirrored_terms`), the tangent of ``K u`` is
+``K`` of the tangent, and a ``torch.func.vmap`` moves the mapped axis in front
+as one more leading batch axis and launches once.  On the CPU the same
+Function runs with the plain version as its launch, so the CPU tests drive
+every rule; only the CUDA launch is left to the card.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from types import SimpleNamespace
 
 import torch
 
-from pysdc_tpu_torch.ops.kernels.build import current_stream
+from pysdc_tpu_torch.ops.kernels.build import current_stream, differentiated
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -53,16 +64,6 @@ BAND_ROW_CHOICES = (128, 64, 32, 16)  #: rows a warp marches over, largest first
 BAND_TARGET_ITEMS = 1024  #: bands a launch should have at least: about 8 warps on each of 132 SMs
 
 
-class KernelTraceError(RuntimeError):
-    """K1 was handed a tensor of a ``torch.func`` transform (``vmap``,
-    ``jacfwd``) on the card: its ``ctypes`` launch cannot be traced."""
-
-
-def _is_traced(u) -> bool:
-    check = getattr(torch._C._functorch, 'is_functorch_wrapped_tensor', None)
-    return bool(check is not None and check(u))
-
-
 def _roll_cross_2d(u, terms):
     """Plain version: the same function as the kernel, as a sum of rolls."""
     (coeff_x, offs_x), (coeff_y, offs_y) = terms
@@ -72,6 +73,55 @@ def _roll_cross_2d(u, terms):
     for c, s in zip(coeff_y, offs_y):
         acc = acc + float(c) * torch.roll(u, -int(s), dims=-1)
     return acc
+
+
+def _plain(u, terms, path=None):
+    """The plain version with the signature of :func:`_launch` (``path`` has no meaning there)."""
+    return _roll_cross_2d(u, terms)
+
+
+@functools.lru_cache(maxsize=64)
+def mirrored_terms(terms):
+    """The tap table of the adjoint: ``roll(u, -s)`` transposed is
+    ``roll(u, s)``, so every offset changes sign.  The pairs stay in order of
+    offset, so a centred table ``-r..r`` stays centred with its coefficients
+    reversed, and the adjoint takes the path the forward takes."""
+    out = []
+    for coeff, offs in terms:
+        pairs = sorted((-int(s), float(c)) for c, s in zip(coeff, offs))
+        out.append((tuple(c for _, c in pairs), tuple(s for s, _ in pairs)))
+    return tuple(out)
+
+
+class _CrossStencil(torch.autograd.Function):
+    """``launch(u, terms, path)`` under autograd and ``torch.func``.
+
+    ``launch`` is :func:`_launch` on the card and :func:`_plain` on the CPU.
+    Every rule is one more call of ``launch``: the backward with the mirrored
+    table, the jvp on the tangent, the vmap rule once on the batch folded in
+    front (the JAX kernel's ``custom_vmap`` rule, ``ops/pallas/stencil.py:116``)."""
+
+    @staticmethod
+    def forward(u, terms, path, launch):
+        return launch(u, terms, path)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.terms, ctx.launch = inputs[1], inputs[3]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _CrossStencil.apply(grad.contiguous(), mirrored_terms(ctx.terms), None, ctx.launch), None, None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _CrossStencil.apply(tangent.contiguous(), ctx.terms, None, ctx.launch)
+
+    @staticmethod
+    def vmap(info, in_dims, u, terms, path, launch):
+        if in_dims[0] is None:
+            return _CrossStencil.apply(u, terms, path, launch), None
+        return _CrossStencil.apply(u.movedim(in_dims[0], 0).contiguous(), terms, path, launch), 0
 
 
 def centred_radius(offs) -> int | None:
@@ -268,18 +318,21 @@ def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
     On a CUDA tensor one launch of a K1 kernel computes all taps in one
     pass over device memory (``path`` forces ``'bands'`` or ``'general'``);
     on a CPU tensor the plain version runs.  A complex tensor goes through
-    its interleaved real view with :func:`interleaved_terms`."""
+    its interleaved real view with :func:`interleaved_terms`.  A tensor that a
+    gradient is asked of goes through :class:`_CrossStencil` (backward, jvp
+    and vmap by launches of the same kernel)."""
     if u.is_complex():
         out = cross_stencil_2d(interleaved(u), interleaved_terms(terms), path)
         return torch.view_as_complex(out.view(tuple(u.shape) + (2,)))
     if u.device.type == 'cpu':
-        return _roll_cross_2d(u, terms)
-    if u.device.type != 'cuda':
+        launch = _plain
+    elif u.device.type == 'cuda':
+        launch = _launch
+    else:
         raise ValueError(f'cross_stencil_2d runs on cuda or cpu tensors, got {u.device}')
-    if _is_traced(u):
-        raise KernelTraceError('cross_stencil_2d launches its CUDA kernel through ctypes, which a torch.func '
-                               'transform (vmap, jacfwd) cannot trace')
-    return _launch(u, terms, path)
+    if differentiated(u):
+        return _CrossStencil.apply(u, terms, path, launch)
+    return launch(u, terms, path)
 
 
 cross_stencil_2d.launches = 0

@@ -20,7 +20,12 @@ loop's stopping test on the device instead:
 - while a CUDA graph is being captured the loop never reads: it runs a fixed
   number of iterations (``maxiter``, or a smaller ``depth``) and, where the
   depth cut a system that would have gone on, sets a device flag ``failed``
-  (made before the capture) that the fused lane's one fetch reads.
+  (made before the capture) that the fused lane's one fetch reads;
+- on a carry that ``torch.func.vmap`` maps (a value of a mapped tensor
+  cannot be read) the loop reads nothing either and runs all ``maxiter``
+  iterations, masked per lane: each lane ends with the count and the carry
+  it would have had alone, as under ``jax.vmap`` of ``lax.while_loop``.
+  Under ``grad`` or ``jvp`` alone it reads as it does eager.
 
 ``READ_EVERY`` is 1, by measurement (``chip_smoke.py``, phase "implicit
 times", on an NVIDIA H100 80GB HBM3 at 700 W): eager, a sweep of the fully
@@ -42,6 +47,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from pysdc_tpu_torch.ops.kernels.build import mapped
 
 #: iterations between two host reads of an eager loop (the module docstring says why 1)
 READ_EVERY = 1
@@ -97,6 +104,7 @@ def masked_loop(body, cond, carry: tuple, maxiter: int, *, active=None, depth=No
     counts = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
     capture = capturing(flags)
     n = int(maxiter) if (depth is None or not capture) else min(int(maxiter), int(depth))
+    capture = capture or any(mapped(x) for x in (flags,) + carry if isinstance(x, torch.Tensor))
     reads = 0
     host_counts = None
     i = 0

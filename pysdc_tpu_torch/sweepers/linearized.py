@@ -21,9 +21,9 @@ per node for the non-fixed variant.
 The M complex dense solves are one batched ``torch.linalg.solve`` (complex128
 for float64 fields, complex64 for float32).  Jacobians come from the problem's
 ``eval_jacobian`` where it has one, else from ``torch.func.jacfwd`` of the
-flattened RHS, one system at a time.  A dense Jacobian is for small systems:
-where ``eval_f`` applies kernel K1 on the card (a ``ctypes`` launch, which
-``jacfwd`` cannot trace) the sweeper raises naming ``eval_jacobian``.  Leading
+flattened RHS, one system at a time.  A dense Jacobian is for small systems;
+where ``eval_f`` applies kernel K1 on the card, ``jacfwd`` reaches it through
+K1's jvp and vmap rules: one batched launch a Jacobian.  Leading
 axes in front of the problem's shape (a block's time axis) are independent
 systems.  ``torch.linalg.solve`` reads its error flag on the host, so the
 fused lanes refuse this sweeper (``graph_capture_blocker``).
@@ -35,9 +35,8 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import complex_dtype
-from pysdc_tpu_torch.core.errors import ParameterError, ProblemError
+from pysdc_tpu_torch.core.errors import ParameterError
 from pysdc_tpu_torch.core.state import LevelState
-from pysdc_tpu_torch.ops.kernels.stencil import KernelTraceError
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit
 
 
@@ -89,14 +88,9 @@ class LinearizedImplicitParallel(GenericImplicit):
         times = t.reshape(-1) if isinstance(t, torch.Tensor) else np.broadcast_to(np.asarray(t, dtype=float), (S,))
         shape = u.shape[1:]
         out = []
-        try:
-            for s in range(S):
-                ts = times[s] if isinstance(times, torch.Tensor) else float(times[s])
-                out.append(torch.func.jacfwd(lambda v: prob.eval_f(v.reshape(shape), ts).reshape(-1))(u[s].reshape(-1)))
-        except KernelTraceError as err:
-            raise ProblemError(
-                f'{type(prob).__name__}.eval_f applies kernel K1 on the card, which torch.func.jacfwd cannot trace; '
-                f'LinearizedImplicitParallel needs the problem to give its Jacobian by eval_jacobian(u, t)') from err
+        for s in range(S):
+            ts = times[s] if isinstance(times, torch.Tensor) else float(times[s])
+            out.append(torch.func.jacfwd(lambda v: prob.eval_f(v.reshape(shape), ts).reshape(-1))(u[s].reshape(-1)))
         return torch.stack(out)
 
     def _jacobians(self, prob, u_nodes, u0, ts, t, B):

@@ -52,6 +52,10 @@ _NO_JAX = (
     'pysdc_tpu_torch.models.spectral_problems, pysdc_tpu_torch.models.rayleigh_benard; '
     'from pysdc_tpu_torch.sweepers import IMEXEXPSweeper; from pysdc_tpu_torch.core.state import IMEXEXP; '
     'from pysdc_tpu_torch.models import MonodomainIMEXEXP, NavierStokesVorticity2D, WSCC9BusSystem, RayleighBenard3D',
+    'import pysdc_tpu_torch.utils.embedding, pysdc_tpu_torch.utils.golden, pysdc_tpu_torch.utils.fieldsio, '
+    'pysdc_tpu_torch.parallel.matrix_controller; '
+    'from pysdc_tpu_torch.utils.embedding import ControllerAsStepper, make_sdc_step_function; '
+    'from pysdc_tpu_torch.parallel.matrix_controller import ControllerMatrixNonMPI, dense_from_apply',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
     out = subprocess.run([sys.executable, '-c', imports + '\n' + _NO_JAX],

@@ -28,7 +28,7 @@ from pysdc_tpu.sweepers.explicit import ExplicitSweeper as JaxExplicit
 from pysdc_tpu.sweepers.linearized import LinearizedImplicitParallel as JaxLinearized
 from pysdc_tpu.sweepers.multi_implicit import MultiImplicitSweeper as JaxMultiImplicit
 from pysdc_tpu_torch import ExplicitSweeper, GenericImplicit, LinearizedImplicitParallel, MultiImplicitSweeper
-from pysdc_tpu_torch.core.errors import ControllerError, ParameterError, ProblemError
+from pysdc_tpu_torch.core.errors import ControllerError, ParameterError
 from pysdc_tpu_torch.models import allen_cahn as tac
 from pysdc_tpu_torch.models import dahlquist as tdahl
 from pysdc_tpu_torch.models import fisher as tfisher
@@ -138,18 +138,19 @@ def test_linearized_rejects_bad_params_and_names_eval_jacobian(monkeypatch):
         LinearizedImplicitParallel(dict(num_nodes=3, jacobian=7))
     with pytest.raises(ParameterError):
         LinearizedImplicitParallel(dict(num_nodes=3, basis='S'))
-    # on the card K1 refuses a torch.func transform's tensor: stand that refusal in for the CPU's plain version
-    plain = stencil._roll_cross_2d
+    # a problem whose eval_f applies K1 and gives no eval_jacobian: jacfwd reaches K1 through its jvp and vmap
+    # rules (on the card as here: one primal launch and one launch of every tangent), so nothing raises any more
+    shapes = []
+    plain = stencil._plain
 
-    def refusing(u, terms):
-        if stencil._is_traced(u):
-            raise stencil.KernelTraceError('K1 under a transform')
-        return plain(u, terms)
+    def counting(u, terms, path=None):
+        shapes.append(tuple(u.shape))
+        return plain(u, terms, path)
 
-    monkeypatch.setattr(stencil, '_roll_cross_2d', refusing)
+    monkeypatch.setattr(stencil, '_plain', counting)
     prob = tac.AllenCahnPeriodicSemiImplicitND(nvars=(16, 16), device='cpu')
     u = prob.u_exact(0.0)
-    assert torch.equal(prob.A.apply(u), plain(u, prob.A._cross_terms))
+    assert torch.equal(prob.A.apply(u), plain(u, prob.A._cross_terms)) and shapes == [(16, 16)]
 
     class NoJacobian:
         def __init__(self, prob):
@@ -158,8 +159,11 @@ def test_linearized_rejects_bad_params_and_names_eval_jacobian(monkeypatch):
         def eval_f(self, u, t):
             return self.prob.A.apply(u)
 
-    with pytest.raises(ProblemError, match='eval_jacobian'):
-        LinearizedImplicitParallel._jac(NoJacobian(prob), u.unsqueeze(0), 0.0)
+    shapes.clear()
+    J = LinearizedImplicitParallel._jac(NoJacobian(prob), u.unsqueeze(0), 0.0)
+    eye = torch.eye(256, dtype=u.dtype).reshape(256, 16, 16)
+    assert torch.equal(J[0], plain(eye, prob.A._cross_terms).reshape(256, 256).T)
+    assert sorted(shapes) == [(16, 16), (256, 16, 16)]
 
 
 # -- multistep -------------------------------------------------------------------------
