@@ -337,6 +337,38 @@ raises and the script exits nonzero without printing the final line:
 60. linearized — ``LinearizedImplicitParallel`` on HeatND 32^2 float64 (its
    Jacobian by ``jacfwd`` through K1's jvp and vmap rules) card against CPU.
 
+61. mesh halo — ``halo_stencil_apply``, ``halo_cross_apply`` and
+   ``halo_cross_apply_batched`` on ``make_mesh(n_space=k, devices=['cuda:0'] * k)``
+   for k = 2 and 4, at 2048^2 and 4 x 2048^2, float32 and float64, centred
+   tables of radius 1, 2 and 3: one K1 launch a slab, all on bands; against K1
+   on the whole field and against the plain halo version (the JAX slices, on
+   the CPU) within phase 2's bound 2 n_terms eps sum|c| max|u|; a radius deeper
+   than a slab raises before any launch.
+62. mesh main — the heat path (HeatND 2048^2 periodic float32, M=4 RADAU-RIGHT
+   LU, dt 0.01, 4 steps of 8 sweeps) through ``ShardedController(4).run`` on a
+   2 x 2 (time, space) mesh and on a 4-position time mesh of the card (where
+   ``'auto'`` must pick the 'owner' chain), and the PFASST block of
+   bench.py:512-531 (512^2 / 256^2, 8 steps) on a 4-position time mesh, each
+   against the same controller without a mesh: equal ``niter`` and lane,
+   ``uend`` within 1e-5 (phase 15's bound; the 2 x 2 mesh against the block
+   that also solves by the full complex FFT, as a space-sharded mesh does, and
+   within 5e-4 of the half-spectrum one), K1 launches equal to the shards'
+   operator applies (one a slab under the halo apply), all on bands; then the
+   float64 PFASST block at 128^2 / 64^2 on a 2 x 2 mesh, card against CPU
+   (equal ``niter``, ``uend`` to 1e-11).
+63. mesh paradiag — bench_paradiag's block (512^2 float32, M=3, L=8, alpha
+   1e-4) with its step axis on 8 time positions of the card against the
+   unsharded block: equal ``niter``, ``uend`` within phase 39's bound, K1
+   launches 8 a iteration (one a shard) on the unsharded block's path.
+64. mesh fieldsio — a 2048^2 float32 field sharded over a (4, 2) mesh of the
+   card, written slab by slab: byte-equal to the host write.
+65. mesh times — each run of phase 62 against the same block without a mesh
+   (and, for the 2 x 2 mesh, without a mesh but with the full complex FFT
+   solves), on the fused lane that ``run()`` takes and on the stage lane: ms on the
+   card (CUDA events) and the host clock, busy time and idle share (profiler),
+   copies and gathers a block.  On one card that is what the layout's
+   bookkeeping costs, not a scaling figure.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -473,6 +505,11 @@ FLAVOUR_DT_RTOL, FLAVOUR_UEND_TOL, FLAVOUR_EST_RTOL, EST_FLOOR = 1e-8, 1e-11, 1e
 INEXACT_RATIO = 1e-2  # NewtonInexactness on phase 25's path: newton_tol = ratio x residual after each iteration
 RESIDUAL_FLOOR = 1e-13  # the rounding gap of a residual between the block's batched sweep and one step's, |u| <= 1
 SWITCH_T_TOL, SWITCH_P, SWITCH_BLOCK_TEND = 1e-12, 4, 1.8  # t_switch card against CPU; the block run's size
+# the mesh (one controller over positions that all lie on the one card): the halo applies on 2 and 4 space
+# positions; the heat path and the PFASST block on meshes against the same block without one (phase 15's bound); the
+# float64 PFASST block at 128^2 on a 2 x 2 mesh, card against CPU
+MESH_SPACE, MESH_UEND_BOUND, N_MESH_PARITY = (2, 4), 1e-5, 128
+BURNIN = {'predict_type': 'pfasst_burnin'}
 
 
 def _card():
@@ -3361,13 +3398,13 @@ def _paradiag_description(n, dtype, device, restol=RESTOL_PD, maxiter=MAXITER_PD
                 level_params=dict(dt=dt, restol=restol), step_params=dict(maxiter=maxiter))
 
 
-def _paradiag_run(desc, L=L_PD, alpha=ALPHA_PD, plain=False, n_blocks=1):
-    """``ParaDiagController(L).run`` over ``n_blocks`` blocks from ``u_exact(0)``, the K1 counts set to 0 just before
-    the run: niter, the final residual of each step, the K1 launches by path, ``uend``."""
+def _paradiag_run(desc, L=L_PD, alpha=ALPHA_PD, plain=False, n_blocks=1, mesh=None):
+    """``ParaDiagController(L, mesh=mesh).run`` over ``n_blocks`` blocks from ``u_exact(0)``, the K1 counts set to 0
+    just before the run: niter, the final residual of each step, the K1 launches by path, ``uend``."""
     from pysdc_tpu_torch import ParaDiagController, get_sorted
     from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 
-    ctrl = ParaDiagController(L, {'logger_level': 30, 'alpha': alpha}, desc)
+    ctrl = ParaDiagController(L, {'logger_level': 30, 'alpha': alpha}, desc, mesh=mesh)
     prob = ctrl.template.levels[0].prob
     if plain:
         prob.A.disable_pallas()
@@ -5358,6 +5395,308 @@ def phase_linearized(card):
     return launches
 
 
+def _mesh_of(n_time=1, n_space=1, n_node=1, device='cuda:0'):
+    """A mesh of positions that all lie on ``device``: the one card stands in for as many as the mesh has."""
+    from pysdc_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_time=n_time, n_space=n_space, n_node=n_node, devices=[device] * (n_time * n_space * n_node))
+
+
+def phase_mesh_halo(card):
+    """The three halo applies on meshes of 2 and 4 space positions of the card, against K1 on the whole field and the
+    plain halo version (the JAX slices, on the CPU).  Returns the K1 launches and the largest error against K1."""
+    import torch
+
+    from pysdc_tpu_torch.ops import halo
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    tables = _fd_tables()
+    gen = torch.Generator(device='cuda').manual_seed(2024)
+    five = (-4.0, 1.0, 1.5)  # c0, cx, cy of the 5-point apply
+    launches, worst_abs, worst = 0, 0.0, {}
+    for k in MESH_SPACE:
+        mesh, cpu_mesh = _mesh_of(n_space=k), _mesh_of(n_space=k, device='cpu')
+        for dtype in (torch.float32, torch.float64):
+            for order in (2, 4, 6):
+                terms = tables[f'order{order}']
+                for shape in ((N_MAIN, N_MAIN), (M_MAIN, N_MAIN, N_MAIN)):
+                    u = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+                    cases = [('batched', terms, lambda x, m: halo.halo_cross_apply_batched(x, m, terms))]
+                    if len(shape) == 2:
+                        cases.append(('cross', terms, lambda x, m: halo.halo_cross_apply(x, m, terms)))
+                        if order == 2:
+                            cases.append(('5-point', halo._five_point_terms(*five),
+                                          lambda x, m: halo.halo_stencil_apply(x, m, *five)))
+                    for name, t, fn in cases:
+                        tol = _stencil_tolerance(t, dtype)
+                        scale = sum(abs(c) for coeff, _ in t for c in coeff) * u.abs().max().item()
+                        whole = cross_stencil_2d(u, t)
+                        before, bands = cross_stencil_2d.launches, cross_stencil_2d.paths['bands']
+                        got = fn(u, mesh)
+                        torch.cuda.synchronize()
+                        n, n_bands = cross_stencil_2d.launches - before, cross_stencil_2d.paths['bands'] - bands
+                        if n != k or n_bands != k:
+                            raise AssertionError(f'mesh halo {name} {dtype} {shape} on {k} positions: {n} K1 launches, '
+                                                 f'{n_bands} on bands, expected {k} and {k}')
+                        launches += n
+                        err_k1 = (got - whole).abs().max().item()
+                        err_plain = (got.cpu() - fn(u.cpu(), cpu_mesh)).abs().max().item()
+                        rel = max(err_k1, err_plain) / scale
+                        if got.shape != u.shape or not (math.isfinite(rel) and rel <= tol):
+                            raise AssertionError(f'mesh halo {name} order {order} {dtype} {shape} on {k} positions: '
+                                                 f'|halo - K1| {err_k1:.3e}, |halo - plain| {err_plain:.3e}, rel '
+                                                 f'{rel:.3e} > {tol:.3e}')
+                        key = (name, str(dtype))
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                        if dtype == torch.float32:
+                            worst_abs = max(worst_abs, err_k1)
+    # a radius deeper than a slab raises, before any launch
+    before = cross_stencil_2d.launches
+    for fn in (halo.halo_cross_apply_batched, halo.halo_cross_apply):
+        try:
+            fn(torch.zeros((8, N_MAIN), device='cuda'), _mesh_of(n_space=4), tables['order6'])
+        except ValueError as err:
+            if 'exceeds local shard size 2' not in str(err):
+                raise
+        else:
+            raise AssertionError('mesh halo: a stencil radius of 3 on slabs of 2 rows did not raise')
+    if cross_stencil_2d.launches != before:
+        raise AssertionError('mesh halo: a refused apply launched K1')
+    print(f'mesh halo: the three halo applies on {list(MESH_SPACE)} space positions of the card, {N_MAIN}^2 and '
+          f'{M_MAIN} x {N_MAIN}^2, float32 and float64, centred tables of radius 1-3: one K1 launch a slab, all on '
+          f'bands ({launches} launches); max rel err against K1 on the whole field and the plain halo version on the '
+          f'CPU by apply and dtype {({f"{a} {b[6:]}": float(f"{v:.3e}") for (a, b), v in worst.items()})} <= 2 '
+          f'n_terms eps sum|c| max|u|; radius 3 on 2-row slabs raises [{card}]')
+    return launches, worst_abs
+
+
+def _mesh_run(desc, num_procs, mesh, lane='auto', coarse_mode='auto', n_blocks=1, full_fft=False,
+              **controller_params):
+    """``n_blocks`` blocks through ``ShardedController(num_procs, mesh=mesh).run``, the counts set to 0 just before:
+    uend, niter, lane, K1 launches (by path), operator applies, halo slabs and the mesh's copies and gathers.
+    ``full_fft`` takes the full complex FFT solves that a space-sharded mesh sets (``disable_rfft``) without one."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops import halo
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    ctrl = ShardedController(num_procs, {'logger_level': 30, **controller_params}, desc, mesh=mesh,
+                             coarse_mode=coarse_mode)
+    prob = ctrl.MS[0].levels[0].prob
+    if full_fft:
+        for step in ctrl.MS:
+            for lvl in step.levels:
+                lvl.prob.A.disable_rfft()
+    applies = _count_applies(ctrl, set())
+    dt = desc['level_params']['dt']
+    cross_stencil_2d.launches = 0
+    cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+    halo.halo_cross_apply_batched.shard_applies = 0
+    if mesh is not None:
+        mesh.reset_traffic()
+    uend, stats = ctrl.run(prob.u_exact(0.0), 0.0, n_blocks * num_procs * dt, lane=lane)
+    torch.cuda.synchronize()
+    return SimpleNamespace(ctrl=ctrl, uend=uend, niter=_niter(stats), lane=[v for k, v in stats.items() if
+                                                                             k.type == 'lane'],
+                           launches=cross_stencil_2d.launches, paths=dict(cross_stencil_2d.paths),
+                           applies=sum(applies.values()), slabs=halo.halo_cross_apply_batched.shard_applies,
+                           traffic=dict(mesh.traffic) if mesh is not None else None)
+
+
+def _mesh_gate(label, run, ref, bound, card):
+    """A mesh run against the same block without a mesh: equal niter, uend within ``bound``, K1 launches equal to
+    the shards' applies (a slab each under the halo apply), all on bands."""
+    import torch
+
+    mesh = run.ctrl.mesh
+    halo_on = run.ctrl.MS[0].levels[0].prob.A._halo is not None
+    n_space = mesh.shape['space'] if halo_on else 1
+    diff = (run.uend - ref.uend).abs().max().item()
+    if run.niter != ref.niter or not diff <= bound:
+        raise AssertionError(f'{label}: niter {run.niter} against {ref.niter} without a mesh, |d uend| {diff:.3e} > '
+                             f'{bound}')
+    if run.lane != ref.lane or run.uend.shape != ref.uend.shape or not bool(torch.isfinite(run.uend).all()):
+        raise AssertionError(f'{label}: lane {run.lane} against {ref.lane}, or uend not finite of the grid shape')
+    if run.launches < 1 or run.launches != run.applies * n_space or run.paths != {'bands': run.launches, 'general': 0}:
+        raise AssertionError(f'{label}: K1 launches {run.launches} by path {run.paths}, operator applies {run.applies} '
+                             f'x {n_space} slabs')
+    if halo_on and run.slabs != run.launches:
+        raise AssertionError(f'{label}: {run.slabs} halo slabs against {run.launches} K1 launches')
+    print(f'{label}: mesh {dict(mesh.shape)} on one card, coarse chain {run.ctrl.coarse_mode!r}, lane {run.lane[0]}: '
+          f'niter {run.niter} = without a mesh, |uend - uend without a mesh| {diff:.3e} <= {bound}; K1 launches '
+          f'{run.launches} = {run.applies} operator applies x {n_space} slab(s), all on bands; copies and gathers '
+          f'{run.traffic} ' + ('(warm-up and capture of the fused lane) ' if run.lane == ['fused'] else '')
+          + f'[{card}]')
+
+
+def phase_mesh_main(card):
+    """The heat path (2048^2 float32, M=4 LU, dt 0.01) through ``ShardedController(4)`` on a 2 x 2 (time, space) mesh
+    and a 4-position time mesh of the card, the PFASST block of bench.py:512-531 on a 4-position time mesh, each
+    against the same block without a mesh; the float64 PFASST block at 128^2 on a 2 x 2 mesh, card against CPU.
+    Returns the runs (for the times) and the K1 launches by path."""
+    import torch
+
+    heat = _heat_description(N_MAIN, torch.float32, 'cuda', restol=-1.0, maxiter=SWEEPS)
+    ref = _mesh_run(heat, 4, None)
+    runs, launches = {}, {}
+    for shape in ((2, 1, 2), (4, 1, 1)):
+        n_time, _, n_space = shape
+        run = _mesh_run(heat, 4, _mesh_of(n_time=n_time, n_space=n_space))
+        # a space-sharded mesh solves by the full complex FFT (as the JAX package's): the block without a mesh
+        # that does the same arithmetic is the one held to the bound; the half-spectrum one rounds differently
+        same = _mesh_run(heat, 4, None, full_fft=True) if n_space > 1 else ref
+        _mesh_gate(f'mesh main: HeatND {N_MAIN}^2 fp32 M={M_MAIN} LU, 4 steps of {SWEEPS} sweeps', run, same,
+                   MESH_UEND_BOUND, card)
+        if n_space > 1:
+            diff = (run.uend - ref.uend).abs().max().item()
+            if run.niter != ref.niter or not diff <= UEND_PLAIN_BOUND:
+                raise AssertionError(f'mesh main: against the half-spectrum solves niter {ref.niter}, |d uend| '
+                                     f'{diff:.3e} > {UEND_PLAIN_BOUND}')
+            print(f'mesh main: the 2 x 2 mesh against the block without a mesh that solves by the half-spectrum FFT: '
+                  f'niter equal, |d uend| {diff:.3e} <= {UEND_PLAIN_BOUND} (the two round differently) [{card}]')
+        if n_space == 1 and run.ctrl.coarse_mode != 'owner':
+            raise AssertionError(f'mesh main: coarse_mode \'auto\' gave {run.ctrl.coarse_mode!r} on a time-only mesh')
+        if n_space > 1 and run.ctrl.MS[0].levels[0].prob.A._halo is None:
+            raise AssertionError('mesh main: no halo apply on a time x space mesh')
+        runs[f'heat {shape}'] = (heat, 4, run, ref)
+        launches[f'mesh heat {n_time}x{n_space}'] = run.launches
+
+    pfasst = _pfasst_description(N_PFASST, NC_PFASST, torch.float32, 'cuda', RESTOL_PFASST)
+    ref_p = _mesh_run(pfasst, P_PFASST, None, **BURNIN)
+    run_p = _mesh_run(pfasst, P_PFASST, _mesh_of(n_time=4), **BURNIN)
+    if run_p.ctrl.coarse_mode != 'owner' or not all(k < 50 for k in run_p.niter):
+        raise AssertionError(f'mesh main: PFASST coarse mode {run_p.ctrl.coarse_mode!r}, niter {run_p.niter}')
+    _mesh_gate(f'mesh main: PFASST HeatND {N_PFASST}^2/{NC_PFASST}^2 fp32, burn-in, {P_PFASST} steps', run_p, ref_p,
+               MESH_UEND_BOUND, card)
+    runs['pfasst (4, 1, 1)'] = (pfasst, P_PFASST, run_p, ref_p)
+    launches['mesh pfasst 4x1'] = run_p.launches
+
+    # float64 on a 2 x 2 mesh: the halo applies launch K1 on the card and take the slices on the CPU
+    got = {}
+    for where, device in (('card', 'cuda'), ('host', 'cpu')):
+        desc = _pfasst_description(N_MESH_PARITY, N_MESH_PARITY // 2, torch.float64, device, 5e-10)
+        got[where] = _mesh_run(desc, 4, _mesh_of(n_time=2, n_space=2, device=device), lane='stage', **BURNIN)
+    on_card, on_host = got['card'], got['host']
+    diff = (on_card.uend.cpu() - on_host.uend).abs().max().item()
+    if (on_card.niter != on_host.niter or not diff <= PARITY_UEND_TOL or on_card.slabs < 1
+            or on_card.launches != on_card.slabs):
+        raise AssertionError(f'mesh parity: niter card {on_card.niter} cpu {on_host.niter}, uend diff {diff:.3e}, K1 '
+                             f'launches {on_card.launches}, halo slabs {on_card.slabs}')
+    launches['mesh parity 2x2'] = on_card.launches
+    print(f'mesh parity: PFASST {N_MESH_PARITY}^2/{N_MESH_PARITY // 2}^2 fp64 restol 5e-10 on a 2 x 2 (time, space) '
+          f'mesh, stage lane: niter {on_card.niter} on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}; on '
+          f'the card {on_card.launches} K1 launches = halo slabs [{card}]')
+    return runs, launches
+
+
+def phase_mesh_paradiag(card):
+    """bench_paradiag's block (512^2 float32, M=3, L=8, alpha 1e-4) with its step axis on 8 time positions of the
+    card, against the unsharded block.  Returns the K1 launches."""
+    import torch
+
+    desc = _paradiag_description(N_PD, torch.float32, 'cuda')
+    ref = _paradiag_run(desc)
+    run = _paradiag_run(desc, mesh=_mesh_of(n_time=L_PD))
+    diff = (run.uend - ref.uend).abs().max().item()
+    its = run.niter[0]
+    if not run.ctrl._time_sharded or run.niter != ref.niter or not diff <= PD_PLAIN_BOUND:
+        raise AssertionError(f'mesh paradiag: niter {run.niter} against {ref.niter}, |d uend| {diff:.3e}')
+    if not all(r <= RESTOL_PD for r in run.residuals) or run.launches != L_PD * its:
+        raise AssertionError(f'mesh paradiag: residuals {run.residuals}, K1 launches {run.launches} for {its} iterations')
+    if [p for p, v in run.paths.items() if v] != [p for p, v in ref.paths.items() if v]:
+        raise AssertionError(f'mesh paradiag: K1 paths {run.paths} against {ref.paths} unsharded')
+    print(f'mesh paradiag: HeatND {N_PD}^2 fp32, L={L_PD} M={M_PD} alpha {ALPHA_PD}, the block on {L_PD} time '
+          f'positions of the card: niter {run.niter} = unsharded, |uend - uend unsharded| {diff:.3e} <= {PD_PLAIN_BOUND}, '
+          f'K1 launches {run.launches} = {L_PD} shards x {its} iterations, on {run.paths} [{card}]')
+    # one iteration each way, from the same block (eager: the controller reads its norms once an iteration)
+    t_arr = np.arange(L_PD) * DT_PD
+    for label, ctrl in (('unsharded', ref.ctrl), (f'on {L_PD} time positions', run.ctrl)):
+        u0 = ref.prob.u_exact(0.0)
+        u = ctrl._predict(u0)
+        step = ctrl._iteration_sharded if ctrl._time_sharded else ctrl._iteration
+        if ctrl._time_sharded:
+            ctrl.mesh.reset_traffic()
+        step(u, u0, t_arr, DT_PD)
+        traffic = dict(ctrl.mesh.traffic) if ctrl._time_sharded else None
+        _timed_block(lambda: step(u, u0, t_arr, DT_PD), f'mesh paradiag: one iteration {label}', card)
+        if ctrl._time_sharded:
+            print(f'times: mesh paradiag: copies and gathers an iteration {traffic}')
+    return run.launches
+
+
+def phase_mesh_fieldsio(card):
+    """A 2048^2 float32 field sharded over a (4, 2) mesh of the card, written slab by slab, against a host write."""
+    import tempfile
+
+    import torch
+
+    from pysdc_tpu_torch.parallel import mesh as meshlib
+    from pysdc_tpu_torch.utils.fieldsio import Rectilinear
+
+    mesh = meshlib.Mesh(np.asarray([torch.device('cuda', 0)] * 8, dtype=object).reshape(4, 2), ('a', 'b'))
+    u = torch.randn((N_MAIN, N_MAIN), generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
+    sharded = meshlib.device_put(u, meshlib.NamedSharding(mesh, meshlib.PartitionSpec('a', 'b')))
+    coords = [np.arange(N_MAIN, dtype=float)] * 2
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for name, field in (('sharded', sharded), ('host', u.cpu().numpy())):
+            io = Rectilinear(np.float32, str(Path(tmp) / f'{name}.pysdc'))
+            io.setHeader(nVar=1, coords=coords)
+            io.initialize()
+            start = time.perf_counter()
+            io.addField(0.25, field)
+            files[name] = (Path(io.file_name).read_bytes(), 1e3 * (time.perf_counter() - start))
+    if files['sharded'][0] != files['host'][0]:
+        raise AssertionError('mesh fieldsio: the sharded write differs from the host write')
+    print(f'mesh fieldsio: a {N_MAIN}^2 fp32 field on a (4, 2) mesh of the card, {len(sharded.addressable_shards)} '
+          f'slabs of {tuple(sharded.addressable_shards[0].data.shape)}, written slab by slab: byte-equal to the host '
+          f'write ({len(files["host"][0])} bytes); ms a record, sharded {files["sharded"][1]:.1f}, host '
+          f'{files["host"][1]:.1f} (host clock, the copy to the host included) [{card}]')
+
+
+def phase_mesh_times(runs, card):
+    """Each mesh run of phase 62 against the same block without a mesh: ms on the card (CUDA events) and the host
+    clock, busy time and idle share (profiler), on the fused lane that ``run()`` takes and on the stage lane; the
+    copies and gathers a block.  On one card this is the cost of the layout's bookkeeping, not a scaling figure."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+
+    for label, (desc, num_procs, run, ref) in runs.items():
+        cp = {'logger_level': 30, **(BURNIN if label.startswith('pfasst') else {})}
+        # a space-sharded mesh solves by the full complex FFT: the block without a mesh that does the same tells
+        # the halo's cost from the solves'
+        variants = [('no mesh', None), ('mesh', run.ctrl.mesh)]
+        if run.ctrl.mesh.shape['space'] > 1:
+            variants.insert(1, ('no mesh, full complex FFT', None))
+        for lane in ('auto', 'stage'):
+            times = {}
+            for name, mesh in variants:
+                ctrl = ShardedController(num_procs, cp, desc, mesh=mesh)
+                prob = ctrl.MS[0].levels[0].prob
+                if name.endswith('FFT'):
+                    for lvl in ctrl.MS[0].levels:
+                        lvl.prob.A.disable_rfft()
+                u0, Tend = prob.u_exact(0.0), num_procs * desc['level_params']['dt']
+                if mesh is not None:
+                    mesh.reset_traffic()
+                ctrl.run(u0, 0.0, Tend, lane=lane)
+                # one block (on the fused lane the graphs replay its copies unseen)
+                traffic = dict(mesh.traffic) if mesh is not None else None
+                _, times[name] = _timed_block(lambda: ctrl.run(u0, 0.0, Tend, lane=lane),
+                                              f'mesh {label} {name}, lane {lane!r}', card)
+                if mesh is not None and lane == 'stage':
+                    print(f'times: mesh {label}, stage lane: copies and gathers a block {traffic}')
+                del ctrl
+                torch.cuda.empty_cache()
+            full = times.get('no mesh, full complex FFT')
+            print(f'times: mesh {label}, lane {lane!r}: {times["mesh"]:.3f} ms with the mesh against '
+                  f'{times["no mesh"]:.3f} ms without, x{times["mesh"] / times["no mesh"]:.3f} on one card'
+                  + (f'; without a mesh but with its full complex FFT solves {full:.3f} ms, the mesh '
+                     f'x{times["mesh"] / full:.3f} of that' if full else '') + f' [{card}]')
+
+
 def main():
     import torch
 
@@ -5439,6 +5778,11 @@ def main():
     matrix_launches = phase(phase_matrix, card)
     phase(phase_logtofile, card)
     linearized_launches = phase(phase_linearized, card)
+    phase(phase_mesh_halo, card)
+    mesh_runs, mesh_launches = phase(phase_mesh_main, card)
+    mesh_pd_launches = phase(phase_mesh_paradiag, card)
+    phase(phase_mesh_fieldsio, card)
+    phase(phase_mesh_times, mesh_runs, card)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
@@ -5453,7 +5797,7 @@ def main():
                'embedding forward': emb_launches['forward'], 'embedding backward': emb_launches['backward'],
                'step 26 inversion 48^2': s26_launches['inversion'], 'step 26 march 128^2': s26_launches['march'],
                'matrix vmap': matrix_launches,
-               'linearized jacfwd': linearized_launches}
+               'linearized jacfwd': linearized_launches, **mesh_launches, 'mesh paradiag': mesh_pd_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),

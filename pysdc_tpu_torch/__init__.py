@@ -15,7 +15,9 @@ run through ``ControllerNonMPI``, as do the Runge-Kutta tableaus
 multistep methods (:mod:`pysdc_tpu_torch.sweepers.multistep`); the FAS
 transfers (``MeshTransfer``, ``FFTTransfer``, ``NoCoarseTransfer``) are in
 :mod:`pysdc_tpu_torch.transfer`.  ``ShardedController`` keeps a block of time
-steps in tensors with a time axis (one card, no mesh yet) and runs it on the
+steps in tensors with a time axis, on one card or sharded over a device mesh
+(``make_mesh``: one controller over a list of ``torch.device``, time shards,
+halo applies through K1 along 'space'), and runs it on the
 stage machine or, by default where eligible, on the fused lane or, for the
 step-size adaptivity stack of :mod:`pysdc_tpu_torch.convergence`, on the
 adaptive fused lane (:mod:`pysdc_tpu_torch.parallel.fused`: replayed CUDA
@@ -54,6 +56,7 @@ from pysdc_tpu_torch.core.precision import configure_default_matmul_precision
 # numerics policy: no TF32 in matmuls or convolutions (core/precision.py)
 configure_default_matmul_precision()
 
+from pysdc_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI  # noqa: E402
 from pysdc_tpu_torch.parallel.paradiag import ParaDiagController  # noqa: E402
 from pysdc_tpu_torch.parallel.sharded import ShardedController  # noqa: E402
@@ -71,6 +74,7 @@ __all__ = [
     'ControllerNonMPI',
     'ShardedController',
     'ParaDiagController',
+    'make_mesh',
     'QDiagonalization',
     'QDiagonalizationIMEX',
     'GenericImplicit',

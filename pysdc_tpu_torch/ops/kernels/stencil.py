@@ -4,8 +4,8 @@ The counterpart of ``pysdc_tpu/ops/pallas/stencil.py`` (``cross_stencil_2d``,
 ``stencil2d_periodic`` and the plain ``_roll_cross_2d``).  The kernels live in
 ``pysdc_tpu_torch/csrc/cross_stencil.cu``; they replace the Pallas kernels
 ``_cross2d_rows_db_kernel`` and ``_cross2d_kernel`` and need no alignment
-of the grid.  The sharded halo applies of the JAX module wait for the
-mesh half of the sharded controller (ROADMAP queue 1, item 10b).
+of the grid.  The sharded halo applies of the JAX module are in
+:mod:`pysdc_tpu_torch.ops.halo`: one launch of K1 on each ghost-extended slab.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches a kernel
 or raises.  Two kernels share the work, chosen by :func:`choose_path` from

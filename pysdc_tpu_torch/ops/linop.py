@@ -21,8 +21,9 @@ tensors are made once per (dtype, device) and kept.  The iterative solves of
 ``solver_type='CG'|'GMRES'`` are ``jax.scipy``'s CG and GMRES
 (:mod:`pysdc_tpu_torch.ops.krylov`) on the shifted apply.
 :class:`SpectralOperator` is the exact Fourier operator of the spectral
-models (cuFFT on the card).  The halo apply waits for the mesh half of the
-sharded controller (ROADMAP queue 1, item 10b).
+models (cuFFT on the card).  On a mesh whose 'space' axis is sharded,
+:meth:`SeparableFDOperator.enable_halo` routes the applies through the halo
+exchange of :mod:`pysdc_tpu_torch.ops.halo` (one K1 launch per slab).
 """
 
 from __future__ import annotations
@@ -138,6 +139,7 @@ class SeparableFDOperator:
                 for d in self._dims
             )
         self._pallas = True
+        self._halo = None  # (mesh, axis) of the halo apply
 
     def _const(self, name: str, arr: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         """``arr`` as a tensor of ``dtype`` on ``device``, made once and kept."""
@@ -171,6 +173,19 @@ class SeparableFDOperator:
     def enable_pallas(self):
         self._pallas = True
 
+    def enable_halo(self, mesh, axis: str = 'space'):
+        """Space-decomposed apply: the field's first axis cut into one slab
+        for each position along ``axis``, one ``rx``-deep halo copy each way
+        and one K1 launch per slab
+        (:func:`~pysdc_tpu_torch.ops.halo.halo_cross_apply_batched`).  For 2D
+        all-periodic operators."""
+        if self._cross_terms is None:
+            raise ProblemError('halo apply needs a 2D all-periodic cross-stencil operator')
+        self._halo = (mesh, axis)
+
+    def disable_halo(self):
+        self._halo = None
+
     # ------------------------------------------------------------------
     def apply(self, u):
         """A @ u, matrix-free.  2D all-periodic operators go through kernel
@@ -178,7 +193,13 @@ class SeparableFDOperator:
         interleaved real view, as ParaDiag's state is); otherwise
         periodic axes use rolls and general axes one dense product each.
         The BC rhs vector is NOT included (matches the reference, which
-        keeps b separate)."""
+        keeps b separate).  With :meth:`enable_halo`, a real field applies
+        slab by slab over the mesh's space positions."""
+        if self._halo is not None and not u.is_complex() and u.dim() >= 2:
+            from pysdc_tpu_torch.ops.halo import halo_cross_apply_batched
+
+            mesh, axis = self._halo
+            return halo_cross_apply_batched(u, mesh, self._cross_terms, axis=axis)
         if self._cross_terms is not None and self._pallas:
             from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 

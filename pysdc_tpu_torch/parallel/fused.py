@@ -42,6 +42,12 @@ intermediate sweeps) -> IT_COARSE (serialized Gauss-Seidel chain) -> IT_UP
 ``tests/test_torch_fused.py`` gates uend and per-step iteration counts against
 the virtual controllers of both packages.
 
+On a mesh the pieces run the block's functions on its time shards (the
+carry's buffers are the shards' tensors, the copies between shards are
+captured with the rest).  A capture is one device's: a mesh whose positions
+span more than one device is refused by name, and ``lane='auto'`` takes the
+stage machine for it.
+
 Eligibility is checked (ineligible raises ControllerError so callers fall
 back to the stage-machine path), including the registered hooks: only hooks
 whose entries the fused lane actually produces are allowed.  Per-sweep
@@ -73,12 +79,13 @@ from pysdc_tpu_torch.convergence.basic_restarting import BasicRestarting
 from pysdc_tpu_torch.convergence.check_convergence import CheckConvergence
 from pysdc_tpu_torch.convergence.spread_step_sizes import SpreadStepSizesBlockwise
 from pysdc_tpu_torch.core.errors import ControllerError
+from pysdc_tpu_torch.parallel.mesh import TimeShards
 
 
 
 class _Carry(NamedTuple):
-    states: tuple  # LevelState per level, leaves (M+1, P, *shape)
-    uends: tuple  # (P, *shape_l) per level
+    states: tuple  # LevelState per level, leaves (M+1, P, *shape) (on a mesh: TimeShards of them)
+    uends: tuple  # (P, *shape_l) per level (on a mesh: TimeShards)
     done: torch.Tensor  # (P,) bool
     iters: torch.Tensor  # (P,) int32
     res_hist: torch.Tensor  # (maxiter+2, P) residuals at each IT_CHECK
@@ -94,8 +101,8 @@ def _plain_hook_allowlist():
 
 
 class _AdaptiveCarry(NamedTuple):
-    states: tuple  # LevelState per level, leaves (M+1, P, *shape)
-    uends: tuple  # (P, *shape_l) per level
+    states: tuple  # LevelState per level, leaves (M+1, P, *shape) (on a mesh: TimeShards of them)
+    uends: tuple  # (P, *shape_l) per level (on a mesh: TimeShards)
     res_hist: torch.Tensor  # (maxiter+1, P) residuals at each IT_CHECK
     e_hist: torch.Tensor  # (maxiter+1, P) embedded estimates at each IT_CHECK
     prev_last: torch.Tensor  # (P, *shape): the last node's value before the latest iteration's work
@@ -129,6 +136,11 @@ def _shared_eligibility(ctrl):
             )
     if ctrl.params.predict_type not in (None, 'fine_only', 'pfasst_burnin', 'fmg'):
         raise ControllerError(f'unknown predict_type {ctrl.params.predict_type!r}')
+    if ctrl.mesh is not None and len(ctrl.mesh.device_set) > 1:
+        raise ControllerError(
+            f'fused block execution captures one CUDA graph per piece on one device; this mesh spans '
+            f'{len(ctrl.mesh.device_set)} devices: run it with lane=\'stage\''
+        )
     for lvl in ctrl.MS[0].levels:
         reason = lvl.prob.graph_capture_blocker
         if reason is not None:
@@ -227,6 +239,7 @@ def _build_parts(ctrl):
     predict_type = ctrl.params.predict_type
     mssdc_jac = bool(ctrl.params.mssdc_jac)
     coarse_raw = {
+        'owner': blocks[-1].raw.coarse_owner,
         'pipelined': blocks[-1].raw.coarse_pipelined,
         'replicated': blocks[-1].raw.coarse_replicated,
         'diag': blocks[-1].raw.coarse_diag,
@@ -360,7 +373,7 @@ def _build_parts(ctrl):
         """SPREAD + coarse-carry materialization."""
         u0_block = u0.unsqueeze(0).expand((P,) + tuple(u0.shape)).contiguous()
         states = [blocks[0].raw.predict(u0_block, t_arr, dts[0])]
-        uends = [torch.zeros((P,) + blocks[0].level.prob.shape, dtype=u0.dtype, device=u0.device)]
+        uends = [blocks[0].new_uend(u0.dtype)]
         # materialize coarse-level carries (overwritten by every restriction).  Where the predictor
         # restricts anyway, that restriction is the one kept: XLA drops the dead one from the JAX
         # package's program, here it is left out by hand
@@ -369,7 +382,7 @@ def _build_parts(ctrl):
             if not predictor_restricts:
                 Gs, _, _ = transfers[l - 1].restrict_raw(states[l - 1], t_arr, dts[l], dts[l - 1])
             states.append(Gs)
-            uends.append(torch.zeros((P,) + blocks[l].level.prob.shape, dtype=u0.dtype, device=u0.device))
+            uends.append(blocks[l].new_uend(u0.dtype))
         return states, uends
 
     def predict(states, uends, t_arr, dts, window):
@@ -407,6 +420,8 @@ def _rebuild(template, leaves):
     if isinstance(template, torch.Tensor):
         return next(leaves)
     parts = [_rebuild(part, leaves) for part in template]
+    if isinstance(template, TimeShards):
+        return TimeShards(parts)
     return type(template)(*parts) if hasattr(template, '_fields') else tuple(parts)
 
 
@@ -587,7 +602,7 @@ class _FusedBlock(_Programs):
         else:
             raise ControllerError('fused block did not terminate within maxiter + 1 checks')
         c = prog.carry
-        return c.uends[0].clone(), c.iters.clone(), c.res_hist.clone(), c.k.clone()
+        return self.ctrl.blocks[0].whole(c.uends[0]).clone(), c.iters.clone(), c.res_hist.clone(), c.k.clone()
 
 
 def build_fused_block(ctrl):
@@ -643,7 +658,7 @@ class _FusedAdaptiveBlock(_Programs):
                 uends=tuple(uends),
                 res_hist=hist,
                 e_hist=hist.clone(),
-                prev_last=states[0].u[-1].clone(),
+                prev_last=blocks[0].last_node(states[0]).clone(),
                 k=torch.zeros((), dtype=torch.int32, device=u0.device),
             )
 
@@ -655,7 +670,7 @@ class _FusedAdaptiveBlock(_Programs):
             res = blocks[0].raw.residual(states[0], dts[0])
             row = (rows == c.k) & window
             res_hist = torch.where(row, res.to(c.res_hist.dtype), c.res_hist)
-            cur = states[0].u[-1]
+            cur = blocks[0].last_node(states[0])
             e = step_norm(cur - c.prev_last)
             if rel_error:
                 # an inactive step's norm may be 0: mask before dividing
@@ -666,7 +681,7 @@ class _FusedAdaptiveBlock(_Programs):
         def work(c, t_arr, window, dts):
             # prev_last entering the final check = u^{maxiter-1}[-1]: the host injects it as L.uold so the
             # genuine EstimateEmbeddedError policy computes the final estimate itself (advance_fused_adaptive)
-            prev_last = c.states[0].u[-1]
+            prev_last = blocks[0].last_node(c.states[0])
             states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts.unbind(0), window, no_prev)
             return c._replace(states=states, uends=uends, prev_last=prev_last)
 

@@ -24,8 +24,14 @@ The coefficient tables are device tensors, made once in the constructor in the
 field's complex precision: complex128 for float64 fields, complex64 for
 float32 ones (the JAX package's numpy tables are complex128 under x64).
 
-Not ported: ``mesh=`` (the block's time axis sharded over devices) waits for
-ROADMAP queue 1, item 10b, and raises by name.
+``mesh=`` with a 'time' axis dividing ``L`` shards the block's step axis over
+the time rows (:func:`pysdc_tpu_torch.parallel.mesh.make_mesh`): the block is
+a :class:`~pysdc_tpu_torch.parallel.mesh.TimeShards` of ``(L / n_time, M,
+*shape)`` parts, each on its row's first position.  The node evaluations,
+the residual and the diagonalized per-step solves run on each shard; the
+``u0`` chain copies one field across each shard boundary; each of the two
+weighted DFTs is the JAX package's all-to-all: the shards gathered on the
+controller's device, one dense ``(L, L)`` product, the result split again.
 """
 
 from __future__ import annotations
@@ -39,9 +45,8 @@ from pysdc_tpu_torch.core.errors import ControllerError, ParameterError
 from pysdc_tpu_torch.core.state import f_total
 from pysdc_tpu_torch.core.step import Step
 from pysdc_tpu_torch.parallel.controller import Controller
+from pysdc_tpu_torch.parallel.mesh import Mesh, TimeShards
 from pysdc_tpu_torch.sweepers.paradiag import QDiagonalization, compute_diagonalization
-
-MESH_ITEM = 'ROADMAP queue 1, item 10b'
 
 
 def get_fft_matrix(N: int) -> np.ndarray:
@@ -87,9 +92,8 @@ class ParaDiagController(Controller):
             raise ParameterError('Please supply alpha as a parameter to the ParaDiag controller!')
         if controller_params.get('all_to_done', True) is False:
             raise NotImplementedError('ParaDiag only implemented with option all_to_done=True')
-        if mesh is not None:
-            raise ControllerError(f'ParaDiagController(mesh=...) is not ported yet ({MESH_ITEM}: the block\'s time '
-                                  f'axis sharded over devices)')
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ControllerError(f'mesh must be a pysdc_tpu_torch.parallel.mesh.Mesh (make_mesh), got {mesh!r}')
         controller_params = {'average_jacobian': True, 'all_to_done': True, **controller_params}
 
         description = dict(description)
@@ -134,6 +138,29 @@ class ParaDiagController(Controller):
         self._tables = {name: table(getattr(self, name)) for name in ('W_fft', 'W_ifft', 'S', 'S_inv', 'G_inv', 'w')}
         self._tables['q'] = table(lvl.sweep.coll.q)
 
+        # the block's step axis over the mesh's time rows, where the time axis divides L
+        self.mesh = mesh
+        self._time_sharded = (
+            mesh is not None
+            and 'time' in mesh.axis_names
+            and mesh.shape['time'] > 1
+            and L % mesh.shape['time'] == 0
+        )
+        if self._time_sharded:
+            for d in mesh.device_set:
+                if d.type != prob.device.type:
+                    raise ControllerError(f'the problem lives on {prob.device} and the mesh has a position on {d}: '
+                                          'build the problem on the devices of the mesh')
+            n_time = mesh.shape['time']
+            self._homes = [mesh.row_device(c) for c in range(n_time)]
+            self._B = L // n_time
+            # each shard's rows of the per-step tables, on its device
+            self._shard_tables = [
+                {name: tab[c * self._B:(c + 1) * self._B].to(d) for name, tab in self._tables.items()
+                 if name in ('S', 'S_inv', 'G_inv', 'w')} | {'q': self._tables['q'].to(d)}
+                for c, d in enumerate(self._homes)
+            ]
+
     def all_steps(self):
         return self.MS
 
@@ -173,10 +200,74 @@ class ParaDiagController(Controller):
         incr = torch.matmul(tab['W_ifft'], incr_hat.reshape(L, -1))
         return u + incr.reshape(u.shape), res_norms
 
+    def _iteration_sharded(self, u, u0, t_arr, dt):
+        """One iteration on the time shards ``u`` (TimeShards of ``(B, M,
+        *shape)``): the same arithmetic, shard by shard, with the two weighted
+        DFTs as gather, ``(L, L)`` product, split.  Returns ``(u_new,
+        residual_norms)``, the norms an ``(L,)`` tensor on the controller's device."""
+        prob = self.template.levels[0].prob
+        B, homes, tab = self._B, self._homes, self._tables
+        device = prob.device
+        L = self.n_steps
+        M = u[0].shape[1]
+        shape = tuple(u[0].shape[2:])
+        ts = self._node_times(t_arr, dt)
+
+        res, norms = [], []
+        for c, (uc, d) in enumerate(zip(u, homes)):
+            with self.mesh.time_row(c):
+                ts_c = ts[c * B:(c + 1) * B]
+                f = prob.eval_f_batched(uc.reshape((B * M,) + shape), ts_c.reshape(-1))
+                ft = f_total(f).reshape(uc.shape)
+                # the u0 chain: the first step of shard c takes the last node of shard c - 1's last step
+                left = u0.unsqueeze(0).to(uc.dtype).to(d) if c == 0 else self.mesh.copy_to(u[c - 1][-1:, -1], d)
+                u0_steps = torch.cat([left, uc[:-1, -1]])
+                integral = dt * torch.matmul(self._shard_tables[c]['q'], ft.reshape(B, M, -1)).reshape(uc.shape)
+                r = integral + u0_steps.unsqueeze(1) - uc
+                res.append(r)
+                norms.append(torch.linalg.vector_norm(r.reshape(B, -1), ord=float('inf'), dim=1))
+        res_norms = self.mesh.gather(norms, device)
+
+        u_avg = None
+        if self.params.average_jacobian and prob.jacobian_reads_state:
+            total = sum(uc.sum(dim=(0, 1)).to(device) for uc in u)
+            u_avg = (total / (L * M)).real.to(prob.dtype)
+
+        def dft(W, parts):
+            """The all-to-all: the shards gathered, one (L, L) product over the step axis, split again."""
+            whole = self.mesh.gather([p.reshape(B, -1) for p in parts], device)
+            out = torch.matmul(W, whole)
+            return [self.mesh.copy_to(out[c * B:(c + 1) * B], d) for c, d in enumerate(homes)]
+
+        res_hat = dft(tab['W_fft'], res)
+        incr_hat = []
+        for c, (rh, d) in enumerate(zip(res_hat, homes)):
+            with self.mesh.time_row(c):
+                st = self._shard_tables[c]
+                x1 = torch.matmul(st['S_inv'], rh.reshape(B, M, -1))
+                avg = None if u_avg is None else u_avg.to(d)
+                x2 = prob.solve_jacobian_batched(x1.reshape((B, M) + shape), dt * st['w'], avg,
+                                                 ts[c * B:(c + 1) * B])
+                incr_hat.append(torch.matmul(st['G_inv'], torch.matmul(st['S'], x2.reshape(B, M, -1))))
+        incr = dft(tab['W_ifft'], incr_hat)
+        return TimeShards(uc + ic.reshape(uc.shape) for uc, ic in zip(u, incr)), res_norms
+
     def _predict(self, u0):
-        """The block: ``u0`` at every step and node, in the field's complex precision."""
+        """The block: ``u0`` at every step and node, in the field's complex
+        precision (on a time-sharded mesh, each shard's steps on its device)."""
         L, M = self.n_steps, self.template.levels[0].sweep.coll.num_nodes
+        if self._time_sharded:
+            u0c = u0.to(self.cdtype)
+            return TimeShards(self.mesh.copy_to(u0c, d).expand((self._B, M) + tuple(u0.shape)).clone()
+                              for d in self._homes)
         return u0.to(self.cdtype).expand((L, M) + tuple(u0.shape)).clone()
+
+    def _last_node(self, u, j):
+        """The last node of step ``j`` of the block (a view)."""
+        if self._time_sharded:
+            c, i = divmod(j, self._B)
+            return u[c][i, -1]
+        return u[j, -1]
 
     # ------------------------------------------------------------------
     def _fire(self, point, step, lvl, **kw):
@@ -193,7 +284,7 @@ class ParaDiagController(Controller):
             L0 = step.levels[0]
             L0.status.residual = res_norms[j]
             L0.status.updated = False
-            ue = u[j, -1]
+            ue = self._last_node(u, j)
             L0.uend = ue if is_complex else ue.real.to(L0.prob.dtype)
 
     def run(self, u0, t0, Tend):
@@ -242,7 +333,8 @@ class ParaDiagController(Controller):
                 for step in self.MS:
                     step.status.iter = niter + 1
                     self._fire('pre_iteration', step, 0)
-                u, res_norms = self._iteration(u, uend, t_arr, dt)
+                iteration = self._iteration_sharded if self._time_sharded else self._iteration
+                u, res_norms = iteration(u, uend, t_arr, dt)
                 niter += 1
                 norms = res_norms.tolist()  # the one host read of an iteration
                 self._sync_shadows(u, norms, niter)
@@ -255,7 +347,7 @@ class ParaDiagController(Controller):
                 step.status.done = True
                 self._fire('post_step', step, 0)
 
-            uend_c = u[-1, -1]
+            uend_c = self._last_node(u, L - 1).to(prob.device)
             uend = (uend_c if prob.dtype.is_complex else uend_c.real).to(prob.dtype).clone()
             t_block = float(t_arr[-1]) + dt
 

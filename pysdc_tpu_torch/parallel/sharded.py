@@ -1,8 +1,8 @@
-"""Block PFASST controller: the time axis as a tensor axis, on one card.
+"""Block PFASST controller: the time axis as a tensor axis, on one card or a mesh.
 
-The counterpart of ``pysdc_tpu/parallel/sharded.py`` for ``mesh=None``.  The
-whole block of ``num_procs`` time steps lives in single tensors with a time
-axis, and every sweep, residual and transfer serves all steps with one call:
+The counterpart of ``pysdc_tpu/parallel/sharded.py``.  The whole block of
+``num_procs`` time steps lives in tensors with a time axis, and every sweep,
+residual and transfer serves all steps with one call:
 
   - "send/recv" of ``uend -> u0``  = a shift along the time axis;
   - sweeps/residuals/transfers     = the one-step functions of the sweepers,
@@ -10,9 +10,10 @@ axis, and every sweep, residual and transfer serves all steps with one call:
     ``jax.vmap`` does in the JAX package, written out: the kernels of this
     package are launched through ``ctypes`` and cannot be traced);
   - the serialized coarse chain    = a loop over the steps ('replicated' and
-    'pipelined' differ only across devices and are one loop here), or the same
-    chain in the operator's diagonal basis ('diag': one batched transform of
-    the block in, P elementwise sweep links, one transform out);
+    'pipelined' differ only on a mesh), the owner-computes chain on a
+    time-sharded mesh ('owner'), or the same chain in the operator's diagonal
+    basis ('diag': one batched transform of the block in, P elementwise sweep
+    links, one transform out);
   - converged steps are frozen by where-masks.
 
 Layout: a block's :class:`LevelState` has leaves ``(M+1, P, *shape)`` (node
@@ -22,21 +23,40 @@ the stencil kernel needs stay what they are for one step; ``uend`` blocks are
 The JAX package keeps ``(P, M+1, *shape)``; what the entry points take and
 return is the same.
 
+On a mesh (:func:`pysdc_tpu_torch.parallel.mesh.make_mesh`, one controller
+for all positions): the time axis splits into ``n_time`` contiguous shards of
+``P / n_time`` steps, a :class:`~pysdc_tpu_torch.parallel.mesh.TimeShards`
+whose part ``c`` lives on the first position of time row ``c``, and every
+batched function runs once per shard on its device (what ``shard_map`` runs
+once per device).  The ``uend -> u0`` shift across a shard boundary copies
+one field to the next shard; residual norms are gathered into one ``(P,)``
+tensor on the controller's device; the 'replicated' chain gathers the coarse
+block onto that device, the 'pipelined' chain moves one step's state there
+per link, and the 'owner' chain lets only the shard owning a step sweep it
+while ``uend`` rides the ring to the next shard.  Along 'space', each
+operator apply of a shard runs the halo exchange over its time row's space
+positions (:mod:`pysdc_tpu_torch.ops.halo`: one K1 launch per slab);
+everything else of a shard (the FFT solves, the node contractions) runs whole
+on the shard's device, which is where a gather of its slabs would put it.  A
+node axis is accepted and kept in the layout (:meth:`_BlockLevel._spec`);
+the node contractions need every node, so its positions compute nothing
+apart.  The mesh's ``traffic`` counts the copies and gathers.
+
 The policy layer is not reimplemented: :class:`ShardedController` derives
 from the virtual controller and inherits its loop over blocks, every hook point
 and the ordered convergence-controller stack.  Only the stage handlers are
 overridden: each one runs the batched functions and then refreshes per-step
 *shadow views* (slices of the block) on the ``Step``/``Level`` objects that
 hooks and policies read.  Iteration counts and the stats dictionary match the
-virtual controller entry for entry (gated in tests/test_torch_sharded.py).
+virtual controller entry for entry (gated in tests/test_torch_sharded.py and,
+on meshes, tests/test_torch_sharded_mesh.py).
 
 Per-step problem scalars (``newton_tol``, ``t_switch``, which policies such as
 ``NewtonInexactness`` and ``SwitchEstimator`` write per step) enter the batched
 functions as ``(P,)`` float64 tensors on the device (``overrides``); the
-problems broadcast them against the block's ``(M+1, P, *shape)`` fields.
-
-Not ported: the mesh half (a ``mesh`` other than ``None``, the owner-computes
-chain) waits for ROADMAP queue 1, item 10b, and raises by name.
+problems broadcast them against the block's ``(M+1, P, *shape)`` fields.  The
+owner-computes chain takes them too (the JAX package's keeps the template
+values there).
 """
 
 from __future__ import annotations
@@ -48,9 +68,8 @@ import torch
 
 from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.core.state import LevelState, map_components
+from pysdc_tpu_torch.parallel.mesh import Mesh, PartitionSpec, TimeShards
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI
-
-MESH_ITEM = 'ROADMAP queue 1, item 10b'
 
 
 def _where_mask(mask, new, old, axis=0):
@@ -82,19 +101,118 @@ def _step_of(state: LevelState, j: int) -> LevelState:
 
 class _BlockLevel:
     """One level's device data for ALL steps of the block: a LevelState with
-    a time axis behind the node axis + the batched functions on it."""
+    a time axis behind the node axis (on a mesh, one such state per time
+    shard) + the batched functions on it."""
 
     def __init__(self, level, num_procs, mesh=None):
-        if mesh is not None:
-            raise ControllerError(f'a device mesh is not ported yet ({MESH_ITEM}: the mesh half of sharded.py)')
         self.level = level  # template Level (holds problem + sweeper + params)
         self.P = num_procs
-        self.mesh = None
-        self.state: LevelState | None = None
-        self.uend = None  # (P, *shape)
+        self.mesh = mesh
+        self.state: LevelState | TimeShards | None = None
+        self.uend = None  # (P, *shape), or its time shards
         self.uold = None
         self.fold = None
+        if mesh is not None:
+            self.n_time = mesh.shape['time']
+            self.B = num_procs // self.n_time  # steps of a time shard
+            self.homes = [mesh.row_device(c) for c in range(self.n_time)]
         self._build_kernels()
+        if mesh is not None:
+            self._build_mesh_kernels()
+
+    # -- sharding -------------------------------------------------------
+    def _spec(self, leaf):
+        """The leaf's layout on the mesh, for this package's leaves: ``(M+1, P,
+        *shape)`` block leaves get ('node', 'time', 'space', ...), with the
+        node axis only where the mesh has one and the node count divides;
+        ``(P, *shape)`` leaves get ('time', 'space', ...)."""
+        ndim_space = len(self.level.prob.shape)
+        mid = leaf.dim() - ndim_space
+        axes = [None] * mid
+        axes[mid - 1] = 'time'
+        names = self.mesh.axis_names
+        if 'node' in names and mid >= 2:
+            n_node = self.mesh.shape['node']
+            if n_node > 1 and leaf.shape[0] % n_node == 0:
+                axes[0] = 'node'
+        if ndim_space > 0 and 'space' in names:
+            axes += ['space'] + [None] * (ndim_space - 1)
+        else:
+            axes += [None] * ndim_space
+        return PartitionSpec(*axes)
+
+    def _part(self, leaf, c):
+        """Time shard ``c`` of a whole leaf: a contiguous copy of steps
+        ``c B .. (c+1) B - 1`` on time row ``c``'s device."""
+        axis = self._spec(leaf).index('time')
+        return self.mesh.copy_to(leaf.narrow(axis, c * self.B, self.B).contiguous(), self.homes[c])
+
+    def _shard(self, leaf):
+        """The leaf's time shards."""
+        return TimeShards(self._part(leaf, c) for c in range(self.n_time))
+
+    def shard_tree(self, tree):
+        """A whole block (a state or a tensor) split into its time shards."""
+        if self.mesh is None:
+            return tree
+        if isinstance(tree, LevelState):
+            return TimeShards(_map_state(lambda a, c=c: self._part(a, c), tree) for c in range(self.n_time))
+        return self._shard(tree)
+
+    def whole(self, tree):
+        """The whole block of time shards, gathered on the controller's device."""
+        if not isinstance(tree, TimeShards):
+            return tree
+        device = self.level.prob.device
+        if isinstance(tree[0], LevelState):
+            return _map_state(lambda *parts: self.mesh.gather(parts, device, dim=1), *tree)
+        return self.mesh.gather(tree, device, dim=0)
+
+    def last_node(self, state):
+        """``u[-1]`` of every step, ``(P, *shape)`` on the controller's device."""
+        if isinstance(state, TimeShards):
+            return self.mesh.gather([s.u[-1] for s in state], self.level.prob.device)
+        return state.u[-1]
+
+    def step_state(self, j):
+        """Views of step ``j``'s leaves."""
+        if self.mesh is None:
+            return _step_of(self.state, j)
+        c, i = divmod(j, self.B)
+        return _step_of(self.state[c], i)
+
+    def step_uend(self, j):
+        if self.mesh is None:
+            return self.uend[j]
+        c, i = divmod(j, self.B)
+        return self.uend[c][i]
+
+    def new_uend(self, dtype=None):
+        """Zero end points of the block (of its time shards on a mesh)."""
+        prob = self.level.prob
+        dtype = prob.dtype if dtype is None else dtype
+        if self.mesh is None:
+            return torch.zeros((self.P,) + prob.shape, dtype=dtype, device=prob.device)
+        return TimeShards(torch.zeros((self.B,) + prob.shape, dtype=dtype, device=d) for d in self.homes)
+
+    # the arguments of shard c of a per-shard call: control vectors (times, masks, per-step scalars) sliced and
+    # moved plainly (they are not fields, and the mesh's traffic does not count them), a 0-d dt tensor moved
+    def ctl(self, x, c):
+        return x[c * self.B:(c + 1) * self.B].to(self.homes[c])
+
+    def scal(self, x, c):
+        return x.to(self.homes[c]) if isinstance(x, torch.Tensor) else x
+
+    def ovs(self, overrides, c):
+        return {key: self.ctl(v, c) for key, v in (overrides or {}).items()}
+
+    def per_shard(self, fn, *args):
+        """``[fn(c, *args) for each shard c]``, each call as time row ``c``."""
+        out = []
+        for c in range(self.n_time):
+            with self.mesh.time_row(c):
+                out.append(fn(c, *args))
+        return out
 
     # -- kernels --------------------------------------------------------
     def _build_kernels(self):
@@ -150,26 +268,37 @@ class _BlockLevel:
             u0_cand = torch.cat([states.u[0, :1], uend[:-1]])
             return set_u0_one(states, u0_cand, t_arr, recv_mask)
 
-        def coarse_chain_serial(states, uend, t_arr, dt, recv_mask, active, k, overrides=None):
-            """Serial Gauss-Seidel chain over the time axis: step q takes the
-            end point its predecessor just produced, sweeps, hands forward.
-            Inactive steps keep their data (the sweep is computed and masked:
-            under a CUDA graph there is no branch to skip it)."""
-            carry = states.u[0, 0]
-            new_u, new_f, new_uend = [], [], []
-            for q in range(P):
-                t_q, act_q = t_arr[q], active[q]
-                s_q = set_u0_one(_step_of(states, q), carry, t_q, recv_mask[q] & act_q)
+        def link(s_q, carry, t_q, recv_q, act_q, ov_q, ue_old, dt, k):
+            """One link of the Gauss-Seidel chain: step ``s_q`` takes ``carry``
+            as its u0, sweeps and hands its end point on.  Returns the step's
+            new ``u`` and ``f`` and the carry.  An inactive step keeps its
+            data (the sweep is computed and masked: under a CUDA graph there
+            is no branch to skip it)."""
+            s_q = set_u0_one(s_q, carry, t_q, recv_q & act_q)
+            s_sw = _with_ov(lambda: sweep.update_nodes(prob, s_q, t_q, dt, k), ov_q)
+            ue_sw = sweep.compute_end_point(s_sw, t_q, dt)
+            u = torch.where(act_q, s_sw.u, s_q.u)
+            f = map_components(lambda a, b: torch.where(act_q, a, b), s_sw.f, s_q.f)
+            return u, f, torch.where(act_q, ue_sw, ue_old)
+
+        def stack_steps(us, fs, tau):
+            return LevelState(u=torch.stack(us, dim=1),
+                              f=map_components(lambda *leaves: torch.stack(leaves, dim=1), *fs), tau=tau)
+
+        def coarse_chain_serial(states, uend, t_arr, dt, recv_mask, active, k, overrides=None, carry=None):
+            """Serial Gauss-Seidel chain over the block's steps: step q takes
+            the end point its predecessor just produced, sweeps, hands forward.
+            ``carry`` is the first step's u0 candidate (default: its own u0)."""
+            carry = states.u[0, 0] if carry is None else carry
+            us, fs, ues = [], [], []
+            for q in range(states.u.shape[1]):
                 ov_q = {key: v[q] for key, v in (overrides or {}).items()}
-                s_sw = _with_ov(lambda: sweep.update_nodes(prob, s_q, t_q, dt, k), ov_q)
-                ue_sw = sweep.compute_end_point(s_sw, t_q, dt)
-                new_u.append(torch.where(act_q, s_sw.u, s_q.u))
-                new_f.append(map_components(lambda a, b: torch.where(act_q, a, b), s_sw.f, s_q.f))
-                carry = torch.where(act_q, ue_sw, uend[q])
-                new_uend.append(carry)
-            new = LevelState(u=torch.stack(new_u, dim=1),
-                             f=map_components(lambda *leaves: torch.stack(leaves, dim=1), *new_f), tau=states.tau)
-            return new, torch.stack(new_uend)
+                u, f, carry = link(_step_of(states, q), carry, t_arr[q], recv_mask[q], active[q], ov_q, uend[q],
+                                   dt, k)
+                us.append(u)
+                fs.append(f)
+                ues.append(carry)
+            return stack_steps(us, fs, states.tau), torch.stack(ues)
 
         # -- diagonal-basis serial chains (linear diagonalizable problems) --
         # The Gauss-Seidel chain and the burn-in wavefront are the Amdahl
@@ -185,6 +314,7 @@ class _BlockLevel:
         diag_op = getattr(prob, 'diagonalizable_operator', None)
         self._diag_eligible = (
             diag_op is not None
+            and self.mesh is None
             # exactly GenericImplicit: subclasses override update_nodes with different sweep math
             and type(sweep) is GenericImplicit
             and not sweep.k_dependent
@@ -240,22 +370,10 @@ class _BlockLevel:
             return _hat_teardown(states, uend, torch.stack(new_uhat, dim=1), torch.stack(new_uendhat), lam, active)
 
         # made here, not at first use: a tensor first made inside a graph capture holds nothing until a replay
-        ar = torch.arange(P, device=prob.device)
-
-        def wavefront(states, uend, t_arr, dt, window, n_rounds):
-            """Burn-in staggered coarse wavefront (nonmpi.py _burnin): round q
-            sweeps slots >= q and shifts uend forward.  ``n_rounds`` is a host
-            integer; rounds past the window's length are masked out whole, so
-            a caller that cannot know the length on the host passes P."""
-            for q in range(n_rounds):
-                m = (ar >= q) & window
-                states = do_sweep(states, t_arr, dt, m, 0)
-                uend = endpoint(states, t_arr, dt, m, uend)
-                states = shift_recv(states, uend, t_arr, (ar >= q + 1) & window)
-            return states, uend
+        self._ar = ar = torch.arange(P, device=prob.device)
 
         def wavefront_diag(states, uend, t_arr, dt, window, n_rounds):
-            """The same wavefront with ALL rounds in the diagonal basis."""
+            """The burn-in wavefront with ALL rounds in the diagonal basis."""
             uhat, tauhat, lam, (QI, W, qd) = _hat_setup(states, 0)
             uendhat = diag_op.diag_forward(uend)
             dtQI = _dt_table(dt, 0)
@@ -268,61 +386,192 @@ class _BlockLevel:
                 uhat = torch.cat([torch.where(recv, u0c, uhat[0]).unsqueeze(0), uhat[1:]])
             return _hat_teardown(states, uend, uhat, uendhat, lam, window)
 
+        self._coarse_serial = coarse_chain_serial
+        # what the time shards' functions call once per shard (_build_mesh_kernels)
+        self._one = SimpleNamespace(predict=predict, sweep=do_sweep, residual=residual, endpoint=endpoint,
+                                    set_u0_one=set_u0_one, link=link, stack_steps=stack_steps,
+                                    coarse_serial=coarse_chain_serial)
+        self._install(predict, do_sweep, residual, endpoint, shift_recv,
+                      coarse_chain_serial, coarse_chain_serial, None, coarse_chain_diag, wavefront_diag)
+
+    def _install(self, predict, sweep, residual, endpoint, shift_recv, replicated, pipelined, owner, diag=None,
+                 wavefront_diag=None):
+        """The batched functions under the names the stage machine and the fused lane (parallel/fused.py)
+        call; nothing is jitted here, so ``raw`` holds the functions themselves."""
+        ar = self._ar
+
+        def wavefront(states, uend, t_arr, dt, window, n_rounds):
+            """Burn-in staggered coarse wavefront (nonmpi.py _burnin): round q
+            sweeps slots >= q and shifts uend forward.  ``n_rounds`` is a host
+            integer; rounds past the window's length are masked out whole, so
+            a caller that cannot know the length on the host passes P."""
+            for q in range(n_rounds):
+                m = (ar >= q) & window
+                states = sweep(states, t_arr, dt, m, 0)
+                uend = endpoint(states, t_arr, dt, m, uend)
+                states = shift_recv(states, uend, t_arr, (ar >= q + 1) & window)
+            return states, uend
+
         self.predict = predict
-        self.sweep = do_sweep
+        self.sweep = sweep
         self.residual = residual
         self.endpoint = endpoint
         self.shift_recv = shift_recv
-        self._coarse_serial = coarse_chain_serial
-        self._coarse_diag = coarse_chain_diag
-        self.coarse_chain = coarse_chain_serial
-
-        # the same building blocks under the names the fused lane composes
-        # (parallel/fused.py); nothing is jitted here, so ``raw`` holds the
-        # functions themselves
+        self._coarse_replicated = replicated
+        self._coarse_pipelined = pipelined
+        self._coarse_owner = owner
+        self._coarse_diag = diag
+        self.coarse_chain = replicated
         self.raw = SimpleNamespace(
             predict=predict,
-            sweep=do_sweep,
+            sweep=sweep,
             residual=residual,
             endpoint=endpoint,
             shift_recv=shift_recv,
-            # one card: both names of the JAX package give the serial loop
-            coarse_replicated=coarse_chain_serial,
-            coarse_pipelined=coarse_chain_serial,
-            coarse_diag=coarse_chain_diag,
+            coarse_replicated=replicated,
+            coarse_pipelined=pipelined,
+            coarse_owner=owner,
+            coarse_diag=diag,
             wavefront=wavefront,
             wavefront_diag=wavefront_diag,
             # resolved by select_coarse_impl: the burn-in implementation the fused lane uses
             wavefront_active=wavefront,
         )
 
-    def select_coarse_impl(self, mode='auto'):
+    def _build_mesh_kernels(self):
+        """The batched functions on the time shards: each single-card function
+        once per shard, as that shard's time row, with the copies between
+        shards that the JAX package's collectives make."""
+        one, B, homes = self._one, self.B, self.homes
+        ctl, scal, ovs, per_shard = self.ctl, self.scal, self.ovs, self.per_shard
+        device = self.level.prob.device  # the controller's device: where gathers land
+
+        def predict(u0_block, t_arr, dt):
+            u0s = self._shard(u0_block)
+            return TimeShards(per_shard(lambda c: one.predict(u0s[c], ctl(t_arr, c), scal(dt, c))))
+
+        def do_sweep(states, t_arr, dt, active, k, overrides=None):
+            return TimeShards(per_shard(
+                lambda c: one.sweep(states[c], ctl(t_arr, c), scal(dt, c), ctl(active, c), k, ovs(overrides, c))))
+
+        def residual(states, dt):
+            return self.mesh.gather(per_shard(lambda c: one.residual(states[c], scal(dt, c))), device)
+
+        def endpoint(states, t_arr, dt, active, uend_old):
+            return TimeShards(per_shard(
+                lambda c: one.endpoint(states[c], ctl(t_arr, c), scal(dt, c), ctl(active, c), uend_old[c])))
+
+        def shift_recv(states, uend, t_arr, recv_mask):
+            """u0[j] <- uend[j-1]: within a shard a shift, across a shard
+            boundary one field copied to the next shard (the ``ppermute``)."""
+
+            def shard(c):
+                left = states[0].u[0, :1] if c == 0 else self.mesh.copy_to(uend[c - 1][-1:], homes[c])
+                return one.set_u0_one(states[c], torch.cat([left, uend[c][:-1]]), ctl(t_arr, c), ctl(recv_mask, c))
+
+            return TimeShards(per_shard(shard))
+
+        def coarse_replicated(states, uend, t_arr, dt, recv_mask, active, k, overrides=None):
+            """The whole coarse block gathered on the controller's device, the
+            serial chain computed there (as time row 0), the result split again."""
+            with self.mesh.time_row(0):
+                s, ue = one.coarse_serial(self.whole(states), self.whole(uend), t_arr.to(device), scal(dt, 0),
+                                          recv_mask.to(device), active.to(device), k, overrides)
+            return self.shard_tree(s), self.shard_tree(ue)
+
+        def coarse_pipelined(states, uend, t_arr, dt, recv_mask, active, k, overrides=None):
+            """One step's state per link moved to the controller's device,
+            swept there (as time row 0) and handed back to its shard: the
+            block stays sharded, one step is ever whole in one place."""
+            carry = self.mesh.copy_to(states[0].u[0, 0], device)
+            us, fs, ues = [[] for _ in homes], [[] for _ in homes], [[] for _ in homes]
+            t_arr, recv_mask, active = t_arr.to(device), recv_mask.to(device), active.to(device)
+            for q in range(self.P):
+                c, j = divmod(q, B)
+                s_q = _map_state(lambda a: self.mesh.copy_to(a[:, j], device), states[c])
+                ov_q = {key: v[q].to(device) for key, v in (overrides or {}).items()}
+                with self.mesh.time_row(0):
+                    u, f, carry = one.link(s_q, carry, t_arr[q], recv_mask[q], active[q], ov_q,
+                                           self.mesh.copy_to(uend[c][j], device), scal(dt, 0), k)
+                us[c].append(self.mesh.copy_to(u, homes[c]))
+                fs[c].append(map_components(lambda a, c=c: self.mesh.copy_to(a, homes[c]), f))
+                ues[c].append(self.mesh.copy_to(carry, homes[c]))
+            return (TimeShards(one.stack_steps(us[c], fs[c], states[c].tau) for c in range(self.n_time)),
+                    TimeShards(torch.stack(ue) for ue in ues))
+
+        def coarse_owner(states, uend, t_arr, dt, recv_mask, active, k, overrides=None):
+            """Owner-computes chain: shard ``c`` sweeps its own steps in turn,
+            starting from the end point its predecessor handed over the ring;
+            no step is swept twice and the block never leaves its shards."""
+            new_s, new_ue = [], []
+            carry = states[0].u[0, 0]
+            for c in range(self.n_time):
+                if c > 0:
+                    carry = self.mesh.copy_to(new_ue[-1][-1], homes[c])
+                with self.mesh.time_row(c):
+                    s, ue = one.coarse_serial(states[c], uend[c], ctl(t_arr, c), scal(dt, c), ctl(recv_mask, c),
+                                              ctl(active, c), k, ovs(overrides, c), carry=carry)
+                new_s.append(s)
+                new_ue.append(ue)
+            return TimeShards(new_s), TimeShards(new_ue)
+
+        self._install(predict, do_sweep, residual, endpoint, shift_recv, coarse_replicated, coarse_pipelined,
+                      coarse_owner)
+
+    def _owner_chain_eligible(self):
+        """The owner-computes chain needs the block time-sharded on a
+        time-only mesh."""
+        m = self.mesh
+        return (
+            m is not None
+            and 'time' in m.axis_names
+            and m.shape['time'] > 1
+            and self.P % m.shape['time'] == 0
+            and all(m.shape[ax] == 1 for ax in m.axis_names if ax != 'time')
+        )
+
+    def select_coarse_impl(self, mode='auto', threshold_bytes=4 << 20):
         """Pick the Gauss-Seidel chain implementation.
 
         'diag' runs the whole serial chain (and the burn-in wavefront) in
         the operator's diagonal basis — one batched transform in/out, P
-        elementwise sweep links — for linear diagonalizable coarse problems.
-        'replicated' and 'pipelined' are the serial loop over the steps (they
-        differ only across devices).  'owner' needs a mesh.  'auto' prefers
-        'diag' where the level is eligible, else 'replicated'."""
+        elementwise sweep links — for linear diagonalizable coarse problems
+        without a mesh.  'owner' keeps the block time-sharded and only the
+        owning shard sweeps each step (uend rides the ring to the successor).
+        'replicated' gathers the coarse block once per chain and computes the
+        chain on the controller's device; 'pipelined' moves one step's state
+        there per link.  Without a mesh the last two are the same serial loop.
+        'auto' prefers 'diag', then 'owner' on eligible meshes, then sizes
+        between the other two via ``threshold_bytes``."""
         if mode == 'auto':
-            mode = 'diag' if self._diag_eligible else 'replicated'
-        if mode == 'owner':
-            raise ControllerError(f'the owner-computes coarse chain needs a device mesh, not ported yet ({MESH_ITEM})')
+            if self._diag_eligible:
+                mode = 'diag'
+            elif self._owner_chain_eligible():
+                mode = 'owner'
+            else:
+                prob = self.level.prob
+                M = self.level.sweep.coll.num_nodes
+                itemsize = torch.empty((), dtype=prob.dtype).element_size()
+                est = self.P * int(np.prod(prob.shape)) * itemsize * (3 * M + 2)
+                mode = 'pipelined' if est > threshold_bytes else 'replicated'
+        if mode == 'owner' and not self._owner_chain_eligible():
+            raise ControllerError('owner coarse chain needs a time-only mesh dividing P')
         if mode == 'diag' and not self._diag_eligible:
             raise ControllerError(
-                'diag coarse chain needs a diagonalizable operator and a fixed-QI generic-implicit sweeper'
+                'diag coarse chain needs a diagonalizable operator, a fixed-QI generic-implicit sweeper, '
+                'and no device mesh'
             )
-        if mode not in ('diag', 'replicated', 'pipelined'):
+        chains = {'owner': self._coarse_owner, 'pipelined': self._coarse_pipelined,
+                  'replicated': self._coarse_replicated, 'diag': self._coarse_diag}
+        if mode not in chains:
             raise ControllerError(f'unknown coarse_mode {mode!r}')
-        self.coarse_chain = self._coarse_diag if mode == 'diag' else self._coarse_serial
+        self.coarse_chain = chains[mode]
         self.raw.wavefront_active = self.raw.wavefront_diag if mode == 'diag' else self.raw.wavefront
         return mode
 
     def reset(self):
-        prob = self.level.prob
         self.state = None
-        self.uend = torch.zeros((self.P,) + prob.shape, dtype=prob.dtype, device=prob.device)
+        self.uend = self.new_uend()
         self.uold = None
         self.fold = None
 
@@ -330,20 +579,29 @@ class _BlockLevel:
 class _BlockTransfer:
     """Batched FAS transfer between two block levels: ``BaseTransfer``'s
     state functions on blocks (the time axis rides behind the node axis
-    through the space transfers, the node matrices and the coarse ``eval_f``)."""
+    through the space transfers, the node matrices and the coarse ``eval_f``);
+    on a mesh once per time shard."""
 
     def __init__(self, base_transfer, fine_block, coarse_block):
         self.bt = base_transfer
         self.fine = fine_block
         self.coarse = coarse_block
         bt = base_transfer
+        blk = fine_block
 
         def restrict(F_states, t_arr, dt_c, dt_f):
-            G = bt._restrict_state(F_states, t_arr, dt_c, dt_f)
-            return G, G.u, G.f
+            if blk.mesh is None:
+                G = bt._restrict_state(F_states, t_arr, dt_c, dt_f)
+                return G, G.u, G.f
+            Gs = TimeShards(blk.per_shard(lambda c: bt._restrict_state(
+                F_states[c], blk.ctl(t_arr, c), blk.scal(dt_c, c), blk.scal(dt_f, c))))
+            return Gs, TimeShards(G.u for G in Gs), TimeShards(G.f for G in Gs)
 
         def prolong(F_states, G_states, G_uold, t_arr, dt_f):
-            return bt._prolong_state(F_states, G_states, G_uold, t_arr, dt_f)
+            if blk.mesh is None:
+                return bt._prolong_state(F_states, G_states, G_uold, t_arr, dt_f)
+            return TimeShards(blk.per_shard(lambda c: bt._prolong_state(
+                F_states[c], G_states[c], G_uold[c], blk.ctl(t_arr, c), blk.scal(dt_f, c))))
 
         self.restrict = self.restrict_raw = restrict
         self.prolong = self.prolong_raw = prolong
@@ -355,17 +613,17 @@ class ShardedController(ControllerNonMPI):
 
     def __init__(self, num_procs: int, controller_params: dict, description: dict, mesh=None,
                  coarse_mode: str = 'auto'):
-        if mesh is not None:
-            raise ControllerError(
-                f'ShardedController(mesh=...) is not ported yet ({MESH_ITEM}: the mesh half of sharded.py, '
-                'parallel/mesh.py and the halo applies on torch.distributed); pass mesh=None for one card'
-            )
-        self.mesh = None
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ControllerError(f'mesh must be a pysdc_tpu_torch.parallel.mesh.Mesh (make_mesh), got {mesh!r}')
+        self.mesh = mesh
         super().__init__(num_procs, controller_params, description)
+
+        if mesh is not None:
+            self._fit_to_mesh(mesh, num_procs)
 
         template = self.MS[0]
         self.num_procs = num_procs
-        self.blocks = [_BlockLevel(lvl, num_procs) for lvl in template.levels]
+        self.blocks = [_BlockLevel(lvl, num_procs, mesh) for lvl in template.levels]
         self.transfers = [
             _BlockTransfer(bt, self.blocks[i], self.blocks[i + 1])
             for i, bt in enumerate(template.base_transfers)
@@ -375,6 +633,46 @@ class ShardedController(ControllerNonMPI):
         #: device values read on the host by a fused lane's last run: ``cont`` flags and fetches (of iteration
         #: counts and residual histories; on the adaptive lane one per block, with the error estimates), by kind
         self.host_reads = {'cont': 0, 'fetch': 0}
+
+    def _fit_to_mesh(self, mesh, num_procs):
+        """Check the mesh against the problem and set the operators up for it:
+        full complex FFT solves where the space axis is sharded (as the JAX
+        package's GSPMD workaround), the halo apply on space-sharded meshes
+        without a node axis where the slabs are at least one stencil radius
+        deep, and the dense space transfers there.  The applies of each shard
+        stay on K1: a shard is a plain tensor on its device, so nothing forces
+        the rolls that GSPMD forced in the JAX package (``disable_pallas``)."""
+        from pysdc_tpu_torch.ops.linop import SeparableFDOperator
+        from pysdc_tpu_torch.transfer.space_mesh import MeshTransfer
+
+        device = self.MS[0].levels[0].prob.device
+        for d in mesh.device_set:
+            if d.type != device.type:
+                raise ControllerError(f'the problem lives on {device} and the mesh has a position on {d}: build the '
+                                      'problem on the devices of the mesh')
+        n_time = mesh.shape['time']
+        if num_procs % n_time:
+            raise ControllerError(f'{num_procs} steps do not divide over the {n_time} time positions of the mesh')
+        n_sp = mesh.shape.get('space', 1)
+        space_sharded = n_sp > 1
+        space_only = space_sharded and mesh.shape.get('node', 1) == 1
+        for S in self.MS:
+            for lvl in S.levels:
+                for attr in vars(lvl.prob).values():
+                    if isinstance(attr, SeparableFDOperator):
+                        if space_sharded:
+                            attr.disable_rfft()
+                        if (
+                            space_only
+                            and attr._cross_terms is not None
+                            and attr.shape[-2] % n_sp == 0
+                            and attr.shape[-2] // n_sp >= max(abs(s) for c, o in attr._cross_terms for s in o)
+                        ):
+                            attr.enable_halo(mesh)
+            if space_sharded:
+                for bt in S.base_transfers:
+                    if isinstance(bt.space_transfer, MeshTransfer):
+                        bt.space_transfer.disable_stencils()
 
     @property
     def template(self):
@@ -506,9 +804,9 @@ class ShardedController(ControllerNonMPI):
         for step in running:
             j = step.status.slot
             L = step.levels[lvl_idx]
-            L.state = _step_of(blk.state, j)
+            L.state = blk.step_state(j)
             if blk.uend is not None:
-                L.uend = blk.uend[j]
+                L.uend = blk.step_uend(j)
             L.status.unlocked = True
 
     def _set_residuals(self, running, lvl_idx, stage, norms, read=False):

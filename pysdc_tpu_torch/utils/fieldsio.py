@@ -7,9 +7,10 @@ registered per structure ID.  The bytes are those the JAX package writes, so a
 file written by either package reads back in the other.  Restart =
 ``FieldsIO.fromFile(name).readField(idx)`` (reference GPU project
 configs/base_config.py:168-192).  A torch tensor on any device is written
-from its host copy; the JAX package's collective write of a device-sharded
-field, shard by shard into its slab of the record, waits for the mesh half of
-the sharded controller (ROADMAP queue 1, item 10b).
+from its host copy; a field sharded over a mesh
+(:class:`~pysdc_tpu_torch.parallel.mesh.ShardedTensor`) is written shard by
+shard into its slab of the record, as the JAX package writes a
+device-sharded ``jax.Array``.
 """
 
 from __future__ import annotations
@@ -99,9 +100,28 @@ class FieldsIO:
 
     def addField(self, time, field):
         """Append one (time, field) record (a numpy array or a torch tensor on
-        any device, written from its host copy)."""
+        any device, written from its host copy).
+
+        A field sharded over a mesh
+        (:class:`~pysdc_tpu_torch.parallel.mesh.ShardedTensor`) is written
+        without ever being whole on the host: the record's slab is reserved,
+        then each distinct shard (``replica_id`` 0) is written once into its
+        index of a memmap of the record, the counterpart of the reference's
+        MPI-IO collective writes (fieldsIO.py:505-560).  A replicated one is
+        written once, from one of its copies.  Scope: one process owning the
+        file, as in the JAX package."""
         if not self.initialized:
             raise RuntimeError('FieldsIO not initialized')
+        from pysdc_tpu_torch.parallel.mesh import ShardedTensor
+
+        if isinstance(field, ShardedTensor):
+            if int(np.prod(field.shape)) != self.nDoF:
+                raise ValueError(f'expected {self.nDoF} DoF, got {int(np.prod(field.shape))}')
+            if field.is_fully_replicated:
+                field = field.addressable_shards[0].data
+            else:
+                self._add_sharded(time, field)
+                return
         if isinstance(field, torch.Tensor):
             field = field.detach().cpu().numpy()
         arr = np.ascontiguousarray(np.asarray(field, dtype=self.dtype))
@@ -110,6 +130,18 @@ class FieldsIO:
         with open(self.file_name, 'ab') as f:
             f.write(struct.pack('<d', float(time)))
             f.write(arr.tobytes())
+
+    def _add_sharded(self, time, field):
+        with open(self.file_name, 'ab') as f:
+            offset0 = f.tell()
+            f.write(struct.pack('<d', float(time)))
+            f.truncate(offset0 + self.fSize)  # reserve the record's slab space
+        mm = np.memmap(self.file_name, dtype=self.dtype, mode='r+', offset=offset0 + 8, shape=field.shape)
+        for sh in field.addressable_shards:
+            if sh.replica_id == 0:  # each slab written exactly once
+                mm[sh.index] = sh.data.detach().cpu().numpy().astype(self.dtype, copy=False)
+        mm.flush()
+        del mm
 
     def formatIndex(self, idx):
         n = self.nFields

@@ -371,11 +371,15 @@ def test_run_fused_of_an_adaptive_shape_names_the_adaptive_lane():
 
 
 def test_mesh_and_owner_chain_raise_naming_the_roadmap():
+    """The mesh is ported (ROADMAP item 10b): what is not a mesh is refused by name, and the owner-computes chain
+    names the time-only mesh it needs."""
     pkg, desc = _description('torch', _step6())
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
+    with pytest.raises(ControllerError, match='mesh must be a pysdc_tpu_torch.parallel.mesh.Mesh'):
         pkg.ShardedController(2, {'logger_level': 40}, desc, mesh=object())
-    with pytest.raises(ControllerError, match='item 10b'):
+    with pytest.raises(ControllerError, match='owner coarse chain needs a time-only mesh dividing P'):
         pkg.ShardedController(2, {'logger_level': 40}, desc, coarse_mode='owner')
+    mesh = pkg.make_mesh(n_time=2, devices=['cpu'] * 2)
+    assert pkg.ShardedController(2, {'logger_level': 40}, desc, mesh=mesh, coarse_mode='owner').coarse_mode == 'owner'
 
 
 def test_per_step_overrides_raise_naming_the_roadmap():

@@ -165,10 +165,16 @@ def test_fused_adaptive_rk_cash_karp():
 
 
 def test_fused_adaptive_on_device_mesh():
-    """The adaptive lane under a mesh (tests/test_fused.py:384) waits for the mesh half of the block controller."""
+    """The adaptive lane under a time mesh (tests/test_fused.py:384; the gate against the JAX package's mesh run is
+    in tests/test_torch_mesh_lanes.py): the same lane, niter, restarts and dts as without a mesh."""
     pkg, desc = description('torch', vdp({'Adaptivity': {'e_tol': 1e-6}}))
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
-        pkg.ShardedController(4, {'logger_level': 40}, desc, mesh=object())
+    got = []
+    for mesh in (None, pkg.make_mesh(n_time=4, devices=['cpu'] * 4)):
+        ctrl = pkg.ShardedController(4, {'logger_level': 40}, desc, mesh=mesh)
+        uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.03)
+        got.append(summary(pkg, ctrl, uend, stats))
+    assert _lane_of(got[0]['stats']) == _lane_of(got[1]['stats']) == ['fused_adaptive']
+    assert_parity(got[0], got[1], 1e-7, 1e-10)
 
 
 def test_lane_stats_contract():

@@ -56,6 +56,8 @@ _NO_JAX = (
     'pysdc_tpu_torch.parallel.matrix_controller; '
     'from pysdc_tpu_torch.utils.embedding import ControllerAsStepper, make_sdc_step_function; '
     'from pysdc_tpu_torch.parallel.matrix_controller import ControllerMatrixNonMPI, dense_from_apply',
+    'import pysdc_tpu_torch.parallel.mesh, pysdc_tpu_torch.ops.halo; '
+    'from pysdc_tpu_torch import make_mesh; from pysdc_tpu_torch.parallel.mesh import device_put, TimeShards',
 ])
 def test_imports_no_jax_and_no_pysdc_tpu(imports):
     out = subprocess.run([sys.executable, '-c', imports + '\n' + _NO_JAX],
@@ -87,21 +89,24 @@ def test_unported_parts_raise_naming_the_roadmap():
     u = sparse.u_exact(0.0)
     assert torch.allclose(sparse.A.solve_shifted_gmres(u, 0.1, u), sparse.A.solve_shifted(u, 0.1), atol=1e-10)
 
-    # the block controller: a mesh and the owner-computes chain
-    from pysdc_tpu_torch import GenericImplicit, ShardedController
+    # the block controller's mesh and owner-computes chain (item 10b) are ported: a mesh runs, the owner chain
+    # needs one, and what is not a mesh is refused by name
+    from pysdc_tpu_torch import GenericImplicit, ParaDiagController, ShardedController, make_mesh
     from pysdc_tpu_torch.core.errors import ControllerError
 
     desc = dict(problem_class=HeatND, problem_params=dict(nvars=8, device='cpu'), sweeper_class=GenericImplicit,
                 sweeper_params=dict(num_nodes=2), level_params=dict(dt=0.1))
-    for kwargs in (dict(mesh='a mesh'), dict(coarse_mode='owner')):
-        with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
-            ShardedController(2, {'logger_level': 40}, desc, **kwargs)
-    # ParaDiag (item 11) is ported; its time axis sharded over a mesh waits for 10b
-    from pysdc_tpu_torch import ParaDiagController
-
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
-        ParaDiagController(2, {'logger_level': 40, 'alpha': 1e-4}, dict(desc, sweeper_params=dict(num_nodes=2)),
-                           mesh='a mesh')
+    with pytest.raises(ControllerError, match='mesh must be a pysdc_tpu_torch.parallel.mesh.Mesh'):
+        ShardedController(2, {'logger_level': 40}, desc, mesh='a mesh')
+    with pytest.raises(ControllerError, match='owner coarse chain needs a time-only mesh dividing P'):
+        ShardedController(2, {'logger_level': 40}, desc, coarse_mode='owner')
+    mesh = make_mesh(n_time=2, devices=['cpu'] * 2)
+    assert ShardedController(2, {'logger_level': 40}, desc, mesh=mesh).coarse_mode == 'owner'
+    pd = dict(desc, sweeper_params=dict(num_nodes=2))
+    del pd['sweeper_class']
+    with pytest.raises(ControllerError, match='mesh must be'):
+        ParaDiagController(2, {'logger_level': 40, 'alpha': 1e-4}, pd, mesh='a mesh')
+    assert ParaDiagController(2, {'logger_level': 40, 'alpha': 1e-4}, pd, mesh=mesh)._time_sharded
 
     # the fully implicit Allen-Cahn solve (item 9) solves now, the first-order sweepers of item 12 (AdaptivityRK
     # among them) run, and so do the convergence controllers of item 13: nothing of the package names item 9,
@@ -125,7 +130,7 @@ def test_unported_parts_raise_naming_the_roadmap():
                 with open(os.path.join(folder, name)) as f:
                     text = f.read()
                     assert 'item 9' not in text and 'item 11' not in text and 'item 12' not in text, name
-                    assert 'item 13' not in text, name
+                    assert 'item 13' not in text and 'item 10b' not in text, name
 
 
 def test_adaptive_lane_and_e_tol_run():

@@ -1,7 +1,7 @@
 """ParaDiag of the PyTorch port against the JAX package (float64, CPU).
 
-Each case of tests/test_paradiag.py (the mesh case is held by the port's
-item-10b raise instead) and the golden configuration of
+Each case of tests/test_paradiag.py (the mesh case is in
+tests/test_torch_mesh.py) and the golden configuration of
 tests/test_golden_regression.py:138-153 run through both packages'
 ``ParaDiagController``: equal ``niter`` per step, ``uend`` to 1e-12, and the
 stats entries equal by type, step and iteration (residuals to rtol 1e-8 above
@@ -133,7 +133,7 @@ def test_paradiag_parameters_and_the_mesh():
         ParaDiagController(4, {'logger_level': 40}, desc)
     with pytest.raises(NotImplementedError):
         ParaDiagController(4, {'logger_level': 40, 'alpha': 1e-4, 'all_to_done': False}, desc)
-    with pytest.raises(ControllerError, match='ROADMAP queue 1, item 10b'):
+    with pytest.raises(ControllerError, match='mesh must be a pysdc_tpu_torch.parallel.mesh.Mesh'):
         ParaDiagController(4, {'logger_level': 40, 'alpha': 1e-4}, desc, mesh='a mesh')
     with pytest.raises(ControllerError):
         ParaDiagController(4, {'logger_level': 40, 'alpha': 1e-4},
