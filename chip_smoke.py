@@ -101,7 +101,7 @@ raises and the script exits nonzero without printing the final line:
    lane: VanDerPol with 1 and 4 steps a block, both estimator flavours, and
    Allen-Cahn 32^2 / 16^2: equal ``niter`` and ``restart``, ``dt`` and
    ``uend`` to 1e-10 (Allen-Cahn's ``dt`` to 1e-7: its estimates sit close
-   above float64 roundoff), the Newton flag clear.
+   above float64 roundoff).
 23. adaptive times — each march by lane: ms on the card and on the host
    clock, kernels and busy time by the profiler, idle share, host reads, ms a
    graph.
@@ -122,9 +122,10 @@ raises and the script exits nonzero without printing the final line:
 26. implicit parity — the same at 128^2 on the card against the CPU: equal
    ``niter`` and traces, ``uend`` to 1e-11.
 27. implicit fused — the 128^2 problem through ``ShardedController(4).run``:
-   ``'auto'`` takes the fused lane (Newton and PCG captured as fixed-depth
-   masked loops) and equals the stage lane (``niter``, ``uend`` to 1e-10,
-   Newton flags clear); a replayed block passes the K1 wrapper 0 times.
+   ``'auto'`` takes the fused lane (Newton and PCG captured as device
+   ``while`` loops, run to tolerance) and equals the stage lane (``niter``,
+   ``uend`` to 1e-10); a replayed block passes the K1 wrapper 0 times and runs
+   as many K1 kernels (profiler) as the stage lane's applies.
 28. krylov and spectral — HeatND 512^2 float64 with CG and GMRES (lintol
    1e-10) against the direct solve, and at 128^2 card against CPU (equal counts
    a solve); each spectral model at 64^2 card against CPU; the multi-implicit
@@ -142,7 +143,7 @@ raises and the script exits nonzero without printing the final line:
    1024^2 float64 (eps 0.04, newton_tol 1e-10), ``MultiImplicitSweeper`` M=3
    RADAU-RIGHT Q1=Q2=LU, dt 2e-4, restol 1e-8, maxiter 12, 4 steps, through
    ``ControllerNonMPI``: every step converges, every pointwise Newton solve
-   reaches newton_tol (flag clear), the K1 launch count (counts set to 0 just
+   reaches newton_tol (below newton_maxiter), the K1 launch count (counts set to 0 just
    before) equals the eval_f applies, all on bands at shapes phase 24 covered;
    against the same run through the plain apply: equal ``niter``, ``uend`` to
    1e-10.
@@ -207,8 +208,7 @@ raises and the script exits nonzero without printing the final line:
 42. dae — float64 card against CPU: ``FullyImplicitDAE`` and ``SemiImplicitDAE``
    on ``SimpleDAE``, ``FullyImplicitDAE`` on ``Pendulum2D`` (constraint to 1e-10,
    each component to its stated tolerance), ``EDIRK4DAE``: equal ``niter``,
-   ``uend`` to 1e-11, every Newton solve stopped before its maxiter and its
-   failure flag clear.
+   ``uend`` to 1e-11, every Newton solve stopped before its maxiter.
 43. paradiag times — one ParaDiag iteration at 512^2 and 2048^2: ms on the card
    and the host clock, busy time by kind of kernel (K1, cuFFT, the complex
    products, the rest) and the idle share, and from a CUDA graph of one
@@ -368,6 +368,29 @@ raises and the script exits nonzero without printing the final line:
    card (CUDA events) and the host clock, busy time and idle share (profiler),
    copies and gathers a block.  On one card that is what the layout's
    bookkeeping costs, not a scaling figure.
+66. graph loop — ``device_while`` (``ops/graph_loop.py``, a CUDA conditional
+   WHILE node built into a stream capture, ``csrc/graph_loop.cu``) alone: one
+   captured graph of a loop and one of a nested pair, replayed with inputs that
+   ask for 0, 1, 37 and more than ``GL_MAXITER`` trips; carry and counter equal
+   the plain loop's bit for bit; a replay's ms by trips.
+67. sparse fused — the slice's main path: the sparse lane of
+   ``bench.py:343-377`` (VarCoeffDiffusion2D 1024^2 float32, M=4 LU, dt 1e-3)
+   through ``ShardedController(4).run``, 2 blocks, restol 1e-6, maxiter 8:
+   ``'auto'`` takes the fused lane (each PCG solve a device loop with K2
+   inside); against ``lane='stage'``: equal ``niter``, ``uend`` within
+   SPARSE_FUSED_BOUND; K2 in one replayed block (counted on the card by the
+   wrapper at each launch; the profiler's count no more than
+   PROFILER_SHORTFALL below it, in one of PROFILER_TRIES profiles) equal to the
+   stage lane's SpMVs, which its PCG
+   counts imply; ms a block on both lanes, host reads, idle share.
+68. krylov fused — HeatND 2048^2 float64 with CG, then GMRES (lintol 1e-10,
+   dt 0.01) through ``ShardedController(4).run``, one block cut to 2 iterations
+   a step: ``'auto'`` takes the fused lane; against the stage lane equal
+   ``niter``, ``uend`` to 1e-10; K1 in a replayed block (counted on the card by
+   the wrapper at each launch: the profiler does not see a node inside a node;
+   for CG, whose loops do not nest, its count printed) equal to the stage
+   lane's applies, all on bands; ms a block on both lanes; K1 in float64 beside
+   ``F.conv2d`` (its library yardstick) at (2048, 2048) and (3, 2048, 2048).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -2254,7 +2277,7 @@ def phase_adaptive_allen_cahn(card, covered):
 
 
 def phase_adaptive_parity():
-    """Float64, the adaptive lane on the card (graphs, fixed-depth Newton) against the CPU (eager pieces)."""
+    """Float64, the adaptive lane on the card (graphs, Newton as device loops) against the CPU (eager pieces)."""
     import torch
 
     from pysdc_tpu_torch import GenericImplicit, ShardedController
@@ -2283,15 +2306,14 @@ def phase_adaptive_parity():
         for device in ('cuda', 'cpu'):
             ctrl = ShardedController(num_procs, {'logger_level': 30, 'predict_type': 'pfasst_burnin', **cp}, make(device))
             uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, Tend)
-            flags = [bool(f) for f in ctrl._fused_adaptive_fn.newton_flags]
-            runs[device] = (uend.cpu(), stats, flags, len(ctrl._fused_adaptive_fn._programs))
-        (u_card, s_card, flags, programs), (u_cpu, s_cpu, _, _) = runs['cuda'], runs['cpu']
+            runs[device] = (uend.cpu(), stats, len(ctrl._fused_adaptive_fn._programs))
+        (u_card, s_card, programs), (u_cpu, s_cpu, _) = runs['cuda'], runs['cpu']
         lanes = [v for k, v in s_card.items() if k.type == 'lane'] + [v for k, v in s_cpu.items() if k.type == 'lane']
         niter, restart, dts = (_entries(s_card, kind) for kind in ('niter', 'restart', 'dt'))
         same = niter == _entries(s_cpu, 'niter') and restart == _entries(s_cpu, 'restart') and len(dts) == len(_entries(s_cpu, 'dt'))
-        if lanes != ['fused_adaptive'] * 2 or not same or any(flags) or programs != 1:
+        if lanes != ['fused_adaptive'] * 2 or not same or programs != 1:
             raise AssertionError(f'adaptive parity: {name}: lanes {lanes}, niter {niter} / restart {restart} on the card, '
-                                 f'{_entries(s_cpu, "niter")} / {_entries(s_cpu, "restart")} on the CPU, Newton flags {flags}')
+                                 f'{_entries(s_cpu, "niter")} / {_entries(s_cpu, "restart")} on the CPU')
         dt_gap = max(abs(a - b) / b for a, b in zip(dts, _entries(s_cpu, 'dt')))
         diff = (u_card - u_cpu).abs().max().item()
         dt_tol = ADAPTIVE_PARITY_DT_TOL_AC if name.startswith('Allen-Cahn') else ADAPTIVE_PARITY_TOL
@@ -2299,7 +2321,7 @@ def phase_adaptive_parity():
             raise AssertionError(f'adaptive parity: {name}: dt gap {dt_gap:.3e}, uend diff {diff:.3e}, restarts {sum(restart)}')
         print(f'adaptive parity: {name}, fp64, adaptive fused lane on card and CPU: {len(niter)} steps, niter all '
               f'{niter[0]}, {sum(restart)} restarted steps, {len(set(dts))} distinct dt, equal niter and restart, dt within '
-              f'{dt_gap:.3e} <= {dt_tol}, uend within {diff:.3e} <= {ADAPTIVE_PARITY_TOL}; Newton flags {flags} (clear) [1 program]')
+              f'{dt_gap:.3e} <= {dt_tol}, uend within {diff:.3e} <= {ADAPTIVE_PARITY_TOL}; Newton in device loops [1 program]')
 
 
 def phase_adaptive_times(runs, card):
@@ -2374,6 +2396,9 @@ def _implicit_k1_cases():
          [(N_KRYLOV, N_KRYLOV), (m, N_KRYLOV, N_KRYLOV)]),
         (f'krylov heat {N_KRYLOV_PARITY}', taps(HeatND, N_KRYLOV_PARITY, nu=0.1, freq=2, bc='periodic'),
          [(N_KRYLOV_PARITY, N_KRYLOV_PARITY), (m, N_KRYLOV_PARITY, N_KRYLOV_PARITY)]),
+        (f'krylov fused heat {KRYLOV_FUSED_N}', taps(HeatND, KRYLOV_FUSED_N, nu=0.1, freq=2, bc='periodic'),
+         [(KRYLOV_FUSED_N, KRYLOV_FUSED_N), (P_FI, KRYLOV_FUSED_N, KRYLOV_FUSED_N),
+          (m, P_FI, KRYLOV_FUSED_N, KRYLOV_FUSED_N)]),
     ]
 
 
@@ -2469,7 +2494,7 @@ def phase_implicit(card, covered):
     if run.paths != {'bands': run.launches, 'general': 0}:
         raise AssertionError(f'{label}: K1 launches by path {run.paths}, expected all on bands')
     _covered_by(covered, prob.A._cross_terms, run.shapes, label)
-    if prob.host_reads != reads or bool(prob.newton_failed):
+    if prob.host_reads != reads:
         raise AssertionError(f'{label}: host reads {prob.host_reads}, expected {reads} = ceil(k / {R}) + 1 a loop')
     if run.uend.shape != (N_FI, N_FI) or run.uend.dtype != torch.float64 or not bool(torch.isfinite(run.uend).all()):
         raise AssertionError(f'{label}: uend is not a finite float64 field of the grid shape')
@@ -2487,7 +2512,7 @@ def phase_implicit(card, covered):
           f'{run.launches} = {evals} eval_f + {applies} in the solves (1 + sum(3 + PCG steps computed) a solve, with '
           f'READ_EVERY {R}), all on bands at {sorted(run.shapes)}; host reads {prob.host_reads} = ceil(k/{R}) + 1 a '
           f'loop ({prob.host_reads / sum(niter):.1f} a sweep; a PCG solve {min(per_pcg)}-{max(per_pcg)} reads for '
-          f'{min(pcg)}-{max(pcg)} iterations); Newton flag clear; through the plain apply: niter and every trace '
+          f'{min(pcg)}-{max(pcg)} iterations); through the plain apply: niter and every trace '
           f'equal, |uend - uend_plain_apply| {diff:.3e} <= {FI_PLAIN_BOUND}; wall {run.wall:.3f} s (K1) / '
           f'{plain.wall:.3f} s (plain) [{card}]')
     print(f'implicit: Newton and PCG iterations per solve, the first 12 solves: {trace[:12]}')
@@ -2507,10 +2532,42 @@ def phase_implicit_parity():
           f'{len(card.trace)} Newton / PCG traces equal on card and CPU, uend diff {diff:.3e} <= {PARITY_UEND_TOL}')
 
 
+def _counting_launches(phase):
+    """``phase`` with K1's and K2's device-side launch counts armed (``cross_stencil_2d.device_count``,
+    ``dia_spmv.device_count``, the tensors of :data:`_LAUNCH_COUNTS`): each wrapper adds one on the card at each
+    launch, on the launch's stream, so a graph that captured the launch counts it again at every replay, inside
+    conditional bodies too, where the profiler sees the kernels of one level of loops but not those of a loop
+    inside a loop (a Newton step's PCG, a GMRES restart's Arnoldi steps) on an H100 80GB HBM3 with CUDA 12.9 and
+    driver 13.0.  Armed for the whole phase, since its first runs capture the graphs; the counters are never
+    freed, because those graphs write them."""
+    import functools
+
+    @functools.wraps(phase)
+    def run(*args):
+        import torch
+
+        from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+        from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+        for name in ('k1', 'k2'):
+            _LAUNCH_COUNTS.setdefault(name, torch.zeros((), dtype=torch.int64, device='cuda'))
+        cross_stencil_2d.device_count, dia_spmv.device_count = _LAUNCH_COUNTS['k1'], _LAUNCH_COUNTS['k2']
+        try:
+            return phase(*args)
+        finally:
+            cross_stencil_2d.device_count = dia_spmv.device_count = None
+
+    return run
+
+
+_LAUNCH_COUNTS = {}  # 'k1', 'k2': the 0-d int64 launch counters on the card that _counting_launches arms
+
+
+@_counting_launches
 def phase_implicit_fused(card, covered):
     """The fully implicit path through ``ShardedController(4).run``: ``'auto'`` must take the fused lane (Newton
-    and PCG captured as fixed-depth masked loops) and agree with the stage lane.  Returns the K1 launches of the
-    wrapper in the first run (warm-up and capture)."""
+    and PCG captured as device ``while`` loops, the PCG node inside the Newton node's body, both run to tolerance)
+    and agree with the stage lane.  Returns the K1 launches of the wrapper in the first run (warm-up and capture)."""
     import torch
 
     from pysdc_tpu_torch import ShardedController
@@ -2519,6 +2576,7 @@ def phase_implicit_fused(card, covered):
     desc = _implicit_description(N_FI_SMALL, torch.float64, 'cuda')
     ctrl = ShardedController(P_FI, {'logger_level': 30}, desc)
     stage = ShardedController(P_FI, {'logger_level': 30}, desc)
+    k1_count = _LAUNCH_COUNTS['k1']
     prob = ctrl.MS[0].levels[0].prob
     u0, Tend = prob.u_exact(0.0), STEPS_FI * DT_FI
     shapes = set()
@@ -2530,35 +2588,52 @@ def phase_implicit_fused(card, covered):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, by_path, reads = cross_stencil_2d.launches, dict(cross_stencil_2d.paths), dict(ctrl.host_reads)
+    sprob = stage.MS[0].levels[0].prob
+    sprob.solver_trace = []
     uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+    trace = list(sprob.solver_trace)
     label = f'implicit fused: ShardedController({P_FI}) AllenCahnPeriodicND {N_FI_SMALL}^2 fp64, one block'
     lane = [v for k, v in stats.items() if k.type == 'lane']
     niter, niter_s = _niter(stats), _niter(stats_s)
     diff = (uend - uend_s).abs().max().item()
-    flags = [bool(blk.level.prob.newton_failed) for blk in ctrl.blocks]
-    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= FI_FUSED_BOUND or any(flags):
+    newton = [k for k, _ in trace]
+    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= FI_FUSED_BOUND \
+            or not newton or max(newton) >= NEWTON_MAXITER_FI:
         raise AssertionError(f'{label}: lane {lane}, niter {niter} against the stage lane\'s {niter_s}, |uend_fused - '
-                             f'uend_stage| {diff:.3e}, Newton flags {flags}')
+                             f'uend_stage| {diff:.3e}, Newton iterations of the stage lane\'s solves {sorted(set(newton))}')
     if launches < 1 or launches != sum(applies.values()) or by_path != {'bands': launches, 'general': 0}:
         raise AssertionError(f'{label}: K1 launches {launches} by path {by_path}, operator applies {applies}')
     _covered_by(covered, prob.A._cross_terms, shapes, label)
     if reads['fetch'] != 1 or reads['cont'] > max(niter):
         raise AssertionError(f'{label}: host reads {reads}')
-    # a replayed block (no profiler here: the graphs hold some 10^5 kernels, whose trace takes a minute)
+    # a replayed block, and the K1 kernels it runs (the stage lane's applies of the same block)
     cross_stencil_2d.launches = 0
+    k1_count.zero_()
     start = time.perf_counter()
     uend2, stats2 = ctrl.run_fused(u0, 0.0, Tend)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - start
+    replay_k1 = int(k1_count)
     if cross_stencil_2d.launches != 0 or _niter(stats2) != niter or not torch.equal(uend2, uend):
         raise AssertionError(f'{label}: a replayed block passed the wrapper {cross_stencil_2d.launches} times or '
                              f'differs from the first')
+    counted = _count_applies(stage, set())
+    k1_count.zero_()
+    stage.run(u0, 0.0, Tend, lane='stage')
+    stage_applies, stage_k1 = sum(counted.values()), int(k1_count)
+    if replay_k1 != stage_applies or stage_k1 != stage_applies:
+        raise AssertionError(f'{label}: K1 in a replayed block {replay_k1} (counted on the card at each launch) '
+                             f'against the stage lane\'s {stage_applies} applies, of which its count saw {stage_k1}')
     print(f'{label}: lane {lane[0]}, niter {niter} = the stage lane\'s, |uend_fused - uend_stage| {diff:.3e} <= '
-          f'{FI_FUSED_BOUND}, Newton flags clear (depth {ctrl.MS[0].levels[0].prob.newton_maxiter} eager, '
-          f'min(newton_maxiter, CAPTURE_DEPTH) x {LIN_MAXITER_FI} masked PCG iterations a solve in the graphs); K1 '
-          f'through the wrapper {launches} (warm-up and capture; = applies) at {sorted(shapes)}, all on bands; a replayed '
-          f'block passes the wrapper 0 times and equals the first bit for bit; host reads {reads}; wall {wall:.3f} s incl. '
-          f'capture, {replay_s:.3f} s a replayed block [{card}]')
+          f'{FI_FUSED_BOUND}; Newton and PCG run to tolerance inside the graphs (the stage lane\'s {len(trace)} solves '
+          f'took {min(newton)}-{max(newton)} Newton iterations of {min(k for _, p in trace for k in p)}-'
+          f'{max(k for _, p in trace for k in p)} PCG iterations); K1 through the wrapper {launches} (warm-up and '
+          f'capture; = applies) at {sorted(shapes)}, all on bands; a replayed block passes the wrapper 0 times, runs '
+          f'{replay_k1} K1 kernels (counted on the card at each launch: the profiler misses the PCG node inside the Newton '
+          f'node) = the stage lane\'s applies, and equals the first bit for bit; host '
+          f'reads {reads}; wall {wall:.3f} s incl. capture, {replay_s:.3f} s a replayed block (the capture this '
+          f'replaced unrolled 8 Newton x {LIN_MAXITER_FI} PCG iterations a solve: 0.920-1.012 s a block on an H100 '
+          f'80GB HBM3 at 700 W) [{card}]')
     return launches
 
 
@@ -2869,7 +2944,7 @@ def _multi_implicit_description(n, dtype, device):
 def _pointwise_solves_converged(prob, trace, niter):
     """Every pointwise Newton solve (one a node and sweep) reached newton_tol, and its PCG steps their lin_tol."""
     return (len(trace) == M_FI * sum(niter) and all(k < prob.newton_maxiter for k, _ in trace)
-            and all(k < LIN_MAXITER_FI for _, pcg in trace for k in pcg) and not bool(prob.newton_failed))
+            and all(k < LIN_MAXITER_FI for _, pcg in trace for k in pcg))
 
 
 def phase_multi_implicit(card, covered):
@@ -2893,7 +2968,7 @@ def phase_multi_implicit(card, covered):
         raise AssertionError(f'{label}: niter {niter}, final residuals {run.residuals} against restol {RESTOL_FI}')
     if not _pointwise_solves_converged(prob, trace, niter):
         raise AssertionError(f'{label}: {len(trace)} pointwise Newton solves for niter {niter}, or one that did not '
-                             f'reach newton_tol (flag {bool(prob.newton_failed)}): {trace}')
+                             f'reach newton_tol: {trace}')
     evals = sum(2 + M_FI * k for k in niter)  # per step f(u0) and one batched f over the spread nodes, then M a sweep
     if launches != evals or run.applies != launches or run.launches != launches:
         raise AssertionError(f'{label}: K1 launches {launches}, operator applies {run.applies}, expected {evals} eval_f')
@@ -2936,7 +3011,7 @@ def phase_multi_implicit_parity():
 
 def phase_multi_implicit_fused(card, covered):
     """The multi-implicit path at 128^2 through ``ShardedController(4).run``: ``'auto'`` takes the fused lane, the
-    lane the JAX package takes for it (the pointwise Newton and its PCG captured as fixed-depth masked loops),
+    lane the JAX package takes for it (the pointwise Newton and its PCG captured as device ``while`` loops),
     equal to the stage lane.  Returns the K1 launches of the wrapper in the first run (warm-up and capture)."""
     import torch
 
@@ -2962,10 +3037,9 @@ def phase_multi_implicit_fused(card, covered):
     lane = [v for k, v in stats.items() if k.type == 'lane']
     niter, niter_s = _niter(stats), _niter(stats_s)
     diff = (uend - uend_s).abs().max().item()
-    flags = [bool(blk.level.prob.newton_failed) for blk in ctrl.blocks]
-    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= MI_FUSED_BOUND or any(flags):
+    if lane != ['fused'] or niter != niter_s or len(niter) != STEPS_FI or not diff <= MI_FUSED_BOUND:
         raise AssertionError(f'{label}: lane {lane}, niter {niter} against the stage lane\'s {niter_s}, |uend_fused - '
-                             f'uend_stage| {diff:.3e}, Newton flags {flags}')
+                             f'uend_stage| {diff:.3e}')
     if launches < 1 or launches != sum(applies.values()) or by_path != {'bands': launches, 'general': 0}:
         raise AssertionError(f'{label}: K1 launches {launches} by path {by_path}, operator applies {applies}')
     _covered_by(covered, prob.A._cross_terms, shapes, label)
@@ -2978,7 +3052,7 @@ def phase_multi_implicit_fused(card, covered):
         raise AssertionError(f'{label}: a replayed block passed the wrapper {cross_stencil_2d.launches} times or '
                              f'differs from the first')
     print(f'{label}: lane {lane[0]} (the JAX package\'s lane for it), niter {niter} = the stage lane\'s, |uend_fused - '
-          f'uend_stage| {diff:.3e} <= {MI_FUSED_BOUND}, Newton flags clear; K1 through the wrapper {launches} (warm-up '
+          f'uend_stage| {diff:.3e} <= {MI_FUSED_BOUND}, Newton in device loops; K1 through the wrapper {launches} (warm-up '
           f'and capture; = applies) at {sorted(shapes)}, all on bands; a replayed block passes the wrapper 0 times and '
           f'equals the first bit for bit; host reads {reads}; wall {wall:.3f} s incl. capture, {replay_s:.3f} s a '
           f'replayed block [{card}]')
@@ -3749,8 +3823,7 @@ def phase_dae(card):
             card_run.uend = card_run.uend.cpu()
             diff = (card_run.uend - cpu_run.uend).abs().max().item()
             newton = [k for counts in card_run.prob.newton_trace for k in counts]
-            flags_clear = (not bool(card_run.prob.newton_failed.item()) and newton
-                           and max(newton) < card_run.prob.newton_maxiter)
+            converged = bool(newton) and max(newton) < card_run.prob.newton_maxiter
             if 'Pendulum' in label:
                 u = card_run.uend
                 parts = [(card_run.uend[s] - cpu_run.uend[s]).abs().max().item() for s in (slice(0, 2), slice(2, 4),
@@ -3763,12 +3836,12 @@ def phase_dae(card):
             else:
                 ok = diff <= PARITY_UEND_TOL * max(1.0, cpu_run.uend.abs().max().item())
                 detail = f'uend diff {diff:.3e} <= {PARITY_UEND_TOL}'
-            if card_run.niter != cpu_run.niter or not ok or not flags_clear:
+            if card_run.niter != cpu_run.niter or not ok or not converged:
                 raise AssertionError(f'dae {label}: niter card {card_run.niter} cpu {cpu_run.niter}, {detail}, '
-                                     f'Newton iterations max {max(newton) if newton else None}, flag '
-                                     f'{card_run.prob.newton_failed.item()}')
+                                     f'Newton iterations max {max(newton) if newton else None}')
             print(f'dae: {label} fp64: niter {card_run.niter} on card and CPU, {detail}; {len(newton)} Newton solves '
-                  f'of {min(newton)}-{max(newton)} iterations, flag clear; {wall:.1f} s for both runs [{card}]')
+                  f'of {min(newton)}-{max(newton)} iterations, each below newton_maxiter; {wall:.1f} s for both runs '
+                  f'[{card}]')
     finally:
         torch.set_num_threads(threads)
 
@@ -5697,6 +5770,389 @@ def phase_mesh_times(runs, card):
                      f'x{times["mesh"] / full:.3f} of that' if full else '') + f' [{card}]')
 
 
+# -- the device loop (conditional WHILE graph nodes) and the fused lanes' iterative solves -------------------------
+GL_N, GL_MAXITER = 4096, 200  # the graph-loop phase's carry (float64) and its trip cap
+GL_TRIPS = (0, 1, 37, GL_MAXITER + 50)  # asked trip counts: the last one stops at GL_MAXITER
+
+
+def _gl_loop(loop):
+    """A loop of ``min(t, GL_MAXITER)`` trips over ``(x, k, t)`` (float64 field, int32 counter, int32 target) and a
+    nested pair (an outer loop whose every trip runs an inner loop of a data-dependent trip count): the same
+    functions, run by ``loop`` (``device_while`` or ``plain_while``), build the captured graph and the plain loop."""
+    import torch
+
+    def flag(c):
+        return (c[1] < c[2]) & (c[1] < GL_MAXITER)
+
+    def body(c):
+        x, k, t = c
+        return 0.5 * x + torch.sin(x) + k.to(x.dtype) * 1e-3, k + 1, t
+
+    def single(x, t):
+        (x, k, _), trips = loop(flag, body, (x, torch.zeros_like(t), t))
+        return x, k, trips
+
+    def outer_body(c):
+        x, k, t = c
+        inner_t = (k % 5 + (x[0] > 0).to(k.dtype) * 3).to(t.dtype)  # 0-7 trips, decided on the device
+        (y, j, _), _ = loop(flag, body, (x, torch.zeros_like(t), inner_t))
+        return 0.25 * y + x / (1 + j.to(x.dtype)), k + 1, t
+
+    def nested(x, t):
+        (x, k, _), trips = loop(flag, outer_body, (x, torch.zeros_like(t), t))
+        return x, k, trips
+
+    return single, nested
+
+
+def phase_graph_loop(card):
+    """``device_while`` alone: one captured graph per loop (single, nested pair), replayed with inputs that ask
+    for 0, 1, 37 and more than ``GL_MAXITER`` trips; the carry and the counter equal the plain loop's (a Python loop
+    that reads the flag each trip) bit for bit.  Times a replay and the plain loop.  Returns the per-trip cost."""
+    import torch
+
+    from pysdc_tpu_torch.ops import graph_loop
+
+    runtime, driver = graph_loop.versions()
+    graph_loop.prepare('cuda')
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    x_in = torch.empty(GL_N, dtype=torch.float64, device='cuda')
+    t_in = torch.zeros((), dtype=torch.int32, device='cuda')
+    captured, plain = _gl_loop(graph_loop.device_while), _gl_loop(graph_loop.plain_while)
+    nodes0 = graph_loop.device_while.nodes
+    graphs, outs = {}, {}
+    for name, fn in zip(('single', 'nested'), captured):
+        x_in.normal_(generator=gen)
+        t_in.fill_(3)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dict(zip(('single', 'nested'), plain))[name](x_in.clone(), t_in.clone())  # warm-up, eager
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x, k, trips = fn(x_in, t_in)
+        if trips is not None:
+            raise AssertionError(f'graph loop: a captured loop reported {trips} trips on the host')
+        graphs[name], outs[name] = graph, (x, k)
+    nodes = graph_loop.device_while.nodes - nodes0
+    if nodes != 3:
+        raise AssertionError(f'graph loop: {nodes} conditional nodes built, expected 3 (single, nested outer, inner)')
+    checked = []
+    for name, fn in zip(('single', 'nested'), plain):
+        asks = GL_TRIPS if name == 'single' else (0, 1, 9)
+        for ask in asks:
+            x_in.normal_(generator=gen)
+            t_in.fill_(ask)
+            graphs[name].replay()
+            torch.cuda.synchronize()
+            x, k = (v.clone() for v in outs[name])
+            want_x, want_k, trips = fn(x_in.clone(), t_in.clone())
+            expected = min(ask, GL_MAXITER)
+            if trips != expected or int(k) != expected or int(want_k) != expected or not torch.equal(x, want_x):
+                raise AssertionError(f'graph loop: {name}, {ask} trips asked: replay counter {int(k)}, plain '
+                                     f'{int(want_k)} in {trips} trips (expected {expected}), carry equal '
+                                     f'{torch.equal(x, want_x)}, max diff {(x - want_x).abs().max().item():.3e}')
+            checked.append(f'{name} {ask}->{expected}')
+
+    def replay_ms(name, ask, reps=20):
+        t_in.fill_(ask)
+        return _event_ms(lambda i: graphs[name].replay(), reps)
+
+    ms = {ask: replay_ms('single', ask) for ask in (1, 37, GL_MAXITER)}
+    per_trip_us = 1e3 * (ms[GL_MAXITER] - ms[1]) / (GL_MAXITER - 1)
+    t_in.fill_(37)
+    plain_ms = _event_ms(lambda i: plain[0](x_in.clone(), t_in.clone()), 5)
+    print(f'graph loop: CUDA runtime {runtime}, driver {driver}; {nodes} conditional WHILE nodes (one nested); the '
+          f'replayed carry and counter equal the plain loop bit for bit in {len(checked)} cases ({", ".join(checked)}); '
+          f'host reads of a replay 0; a replay of 1 / 37 / {GL_MAXITER} trips {ms[1]:.4f} / {ms[37]:.4f} / '
+          f'{ms[GL_MAXITER]:.4f} ms ({per_trip_us:.2f} us a trip of 4 small kernels and the node), the plain loop of '
+          f'37 trips {plain_ms:.4f} ms (37 host reads) [{card}]')
+    return per_trip_us
+
+
+# the sparse lane of bench.py:343-377 through the block controller (the slice's main path): one block is P_SF steps
+P_SF, BLOCKS_SF, RESTOL_SF, MAXITER_SF = 4, 2, 1e-6, 8
+# |uend(fused) - uend(stage)|, float32: both lanes run K2 and the same PCG.  Phase 7 measured the K2-against-rolls
+# PCG gap on this path at 3.0e-6 (an H100 80GB HBM3 at 700 W); a different order of the same float32 sums can move
+# uend no further than another SpMV route does, so the bound keeps that gap's 10x room (SPARSE_PLAIN_BOUND's)
+SPARSE_FUSED_BOUND = 3e-5
+# HeatND CG / GMRES through ShardedController(4), float64, one block cut to KRYLOV_FUSED_MAXITER iterations a step:
+# a GMRES block of 8 iterations took 16.5 s replayed and 24 s on the stage lane (up to 47 restarts a solve) on an
+# H100 80GB HBM3 at 700 W, and the phase runs each lane twice
+KRYLOV_FUSED_N, KRYLOV_FUSED_BOUND, KRYLOV_FUSED_MAXITER = 2048, 1e-10, 2
+# the profiler's count of a kernel in a replay with one level of device loops may fall short of the launches counted
+# on the card, never exceed them: on an H100 80GB HBM3 at 700 W it saw 115 to 122 of the 122 K2 kernels of a sparse
+# fused block, and 930 or 931 of the 931 K1 kernels of a CG block but once 61 (none inside the loops).  So the sparse
+# block is profiled up to PROFILER_TRIES times, until a count lies within PROFILER_SHORTFALL; the CG block's count is
+# printed
+PROFILER_SHORTFALL, PROFILER_TRIES = 0.1, 3
+
+
+def _sin_field(prob):
+    import torch
+
+    X, Y = prob.grids
+    return torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+
+
+def _profiler_agrees(profiled, counted):
+    """True where the profiler's kernel count is at most ``counted`` and at most PROFILER_SHORTFALL below it."""
+    return (1 - PROFILER_SHORTFALL) * counted <= profiled <= counted
+
+
+def _profiled_within(fn, name, counted):
+    """The profiler's counts of the kernels named ``name`` over calls of ``fn()``: up to PROFILER_TRIES calls, until
+    one agrees with ``counted``."""
+    seen = []
+    while len(seen) < PROFILER_TRIES and not (seen and _profiler_agrees(seen[-1], counted)):
+        seen.append(_kernels_named(fn, name))
+    return seen
+
+
+def _kernels_named(fn, name):
+    """Kernels whose name holds ``name`` that the card ran over one call of ``fn()``, counted by the profiler."""
+    return sum(e.count for e in _profiled(fn) if name in e.key)
+
+
+@_counting_launches
+def phase_sparse_fused(card):
+    """The slice's main path: the sparse lane (VarCoeffDiffusion2D 1024^2 float32, M=4 LU, dt 1e-3) through
+    ``ShardedController(4).run``, 2 blocks: ``'auto'`` takes the fused lane, whose graphs hold every PCG solve as a
+    device ``while`` loop with K2 inside; against ``lane='stage'``: equal ``niter``, ``uend`` within
+    SPARSE_FUSED_BOUND.  K2 in one replayed block (counted on the card at each launch; the profiler's count, which
+    drops events now and then, within PROFILER_SHORTFALL of it in one of PROFILER_TRIES profiles) equals the stage
+    lane's SpMVs for the same block, which its PCG counts imply.
+    Times a block on both lanes.  Returns the K2 launches through the wrapper (warm-up and capture) and the K2
+    kernels of one replayed block."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+
+    desc = _sparse_description(N_SPARSE, torch.float32, 'cuda', restol=RESTOL_SF, maxiter=MAXITER_SF)
+    Tend, block = BLOCKS_SF * P_SF * DT_SPARSE, P_SF * DT_SPARSE
+    label = (f'sparse fused: ShardedController({P_SF}) VarCoeffDiffusion2D {N_SPARSE}^2 fp32 M={M_MAIN} LU dt '
+             f'{DT_SPARSE:g}, restol {RESTOL_SF:g}, maxiter {MAXITER_SF}, {BLOCKS_SF} blocks')
+    fused, stage = (ShardedController(P_SF, {'logger_level': 30}, desc) for _ in range(2))
+    k2_count = _LAUNCH_COUNTS['k2']
+    u0 = _sin_field(fused.MS[0].levels[0].prob)
+    dia_spmv.launches = 0
+    start = time.perf_counter()
+    uend, stats = fused.run(u0, 0.0, Tend)  # warm-up, capture, the replayed march
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, march_reads = dia_spmv.launches, dict(fused.host_reads)
+    start = time.perf_counter()
+    uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    lane, lane_s = ([v for k, v in st.items() if k.type == 'lane'] for st in (stats, stats_s))
+    niter, niter_s = _niter(stats), _niter(stats_s)
+    diff = (uend - uend_s).abs().max().item()
+    op = fused.MS[0].levels[0].prob.A
+    if lane != ['fused'] or lane_s != ['stage'] or niter != niter_s or len(niter) != BLOCKS_SF * P_SF \
+            or not diff <= SPARSE_FUSED_BOUND or op.solver_kind != 'pcg':
+        raise AssertionError(f'{label}: lanes {lane} / {lane_s}, niter {niter} against {niter_s}, |uend_fused - '
+                             f'uend_stage| {diff:.3e}, solver {op.solver_kind}')
+    if march_reads['fetch'] != 1 or march_reads['cont'] > BLOCKS_SF * MAXITER_SF:
+        raise AssertionError(f'{label}: host reads {march_reads}')
+
+    # one block on each lane from the same u0: K2 in the replay against the stage lane's SpMVs
+    rop = stage.MS[0].levels[0].prob.A
+    trace, spmvs, solves, steps = [], rop.spmv_count, rop.pcg_solves, rop.pcg_steps
+    rop.pcg_trace = trace
+    dia_spmv.launches = 0
+    k2_count.zero_()
+    stage.run(u0, 0.0, block, lane='stage')
+    torch.cuda.synchronize()
+    stage_k2, stage_counted, spmvs = dia_spmv.launches, int(k2_count), rop.spmv_count - spmvs
+    solves, steps = (rop.pcg_solves - solves) // P_SF, rop.pcg_steps - steps
+    dia_spmv.launches = 0
+    k2_count.zero_()
+    fused.run_fused(u0, 0.0, block)  # the one-block march replays the same program
+    torch.cuda.synchronize()
+    device_k2, through_wrapper = int(k2_count), dia_spmv.launches
+    profiled = _profiled_within(lambda: fused.run_fused(u0, 0.0, block), 'dia_spmv', device_k2)
+    profiled_k2 = profiled[-1]
+    implied = spmvs - solves - steps  # eval_f's and the residuals': the rest are one r0 a solve and one a PCG trip
+    unrolled = implied + solves * (1 + 1000)  # every solve as its maxiter masked iterations, the pre-loop capture
+    groups = [max(trace[i:i + P_SF]) for i in range(0, len(trace), P_SF)]
+    if stage_k2 != spmvs or stage_counted != stage_k2 or device_k2 != stage_k2 or through_wrapper != 0 \
+            or sum(groups) != steps or not _profiler_agrees(profiled_k2, device_k2):
+        raise AssertionError(f'{label}: K2 in one replayed block {device_k2} (counted on the card at each launch), '
+                             f'{profiled} (profiler), through the wrapper {through_wrapper}; the stage lane\'s block '
+                             f'{stage_k2} launches ({stage_counted} counted on the card), {spmvs} SpMVs = {implied} + '
+                             f'{solves} solves x (1 r0) + {steps} PCG trips (the trace\'s largest count a solve: '
+                             f'{sum(groups)})')
+    print(f'{label}: lane {lane[0]} (stage lane on request), niter {niter} on both, |uend_fused - uend_stage| '
+          f'{diff:.3e} <= {SPARSE_FUSED_BOUND}; host reads {march_reads} a march; K2 in one replayed block '
+          f'{device_k2} (counted on the card at each launch; the profiler saw {profiled_k2}, at most '
+          f'{PROFILER_SHORTFALL:.0%} fewer, in profile {len(profiled)} of {PROFILER_TRIES}; 0 through the wrapper) = the '
+          f'stage lane\'s '
+          f'{stage_k2} SpMVs = {implied} eval_f / residual + {solves} solves x 1 r0 + {steps} PCG trips (per solve the '
+          f'largest of the {P_SF} steps\' counts, {min(trace)}-{max(trace)}), against {unrolled} were each solve '
+          f'unrolled to its maxiter; wall of the march {wall:.3f} s (capture included) / {wall_s:.3f} s stage [{card}]')
+
+    reads = {}
+
+    def stage_block():
+        r0 = rop.host_reads
+        out = stage.run(u0, 0.0, block, lane='stage')
+        reads['stage'] = rop.host_reads - r0
+        return out
+
+    _, fused_ms = _timed_block(lambda: fused.run_fused(u0, 0.0, block), 'sparse fused block', card,
+                               reads=lambda: dict(fused.host_reads))
+    _, stage_ms = _timed_block(stage_block, 'sparse stage block', card, reads=lambda: f'{reads["stage"]} in the PCG loops')
+    print(f'times: sparse {N_SPARSE}^2 fp32 block of {P_SF} steps: fused {fused_ms:.3f} ms against stage {stage_ms:.3f} '
+          f'ms (x{stage_ms / fused_ms:.2f}) [{card}]')
+    return launches, device_k2
+
+
+def _krylov_fused_description(solver_type):
+    import torch
+
+    desc = _heat_description(KRYLOV_FUSED_N, torch.float64, 'cuda', restol=KRYLOV_RESTOL, maxiter=KRYLOV_FUSED_MAXITER)
+    desc['problem_params'] = dict(desc['problem_params'], solver_type=solver_type, lintol=KRYLOV_LINTOL)
+    desc['sweeper_params'] = dict(desc['sweeper_params'], num_nodes=M_FI)
+    return desc
+
+
+@_counting_launches
+def phase_krylov_fused(card, covered):
+    """HeatND 2048^2 float64 with ``solver_type`` CG, then GMRES (lintol and dt of phase 28) through
+    ``ShardedController(4).run``, one block of KRYLOV_FUSED_MAXITER iterations a step: ``'auto'`` takes the fused
+    lane (each solve a device ``while``, a GMRES restart's Arnoldi loop a node inside the restart loop's), against
+    ``lane='stage'``: equal ``niter``, ``uend`` within KRYLOV_FUSED_BOUND.  K1 in a replayed block (counted on the
+    card at each launch; for CG, whose loops do not nest, the profiler's count printed beside it) equals the stage
+    lane's applies, all on bands.  ms a block on both lanes (CUDA events; a block of
+    GMRES costs seconds, so each lane runs it as few times as the gates need).  Returns the K1 launches through
+    the wrapper (warm-up and capture) by kind, and the float64 yardstick of K1."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
+
+    launches = {}
+    Tend = P_FI * DT
+    for kind in ('CG', 'GMRES'):
+        desc = _krylov_fused_description(kind)
+        label = (f'krylov fused: ShardedController({P_FI}) HeatND {KRYLOV_FUSED_N}^2 periodic fp64 '
+                 f'solver_type={kind!r} lintol {KRYLOV_LINTOL:g}, M={M_FI} LU, dt {DT:g}, one block')
+        fused, stage = (ShardedController(P_FI, {'logger_level': 30}, desc) for _ in range(2))
+        k1_count = _LAUNCH_COUNTS['k1']
+        shapes = set()
+        applies = _count_applies(stage, shapes)
+        prob = stage.MS[0].levels[0].prob
+        prob.A.krylov_trace = []
+        u0 = prob.u_exact(0.0)
+        cross_stencil_2d.launches = 0
+        cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+        start = time.perf_counter()
+        uend, stats = fused.run(u0, 0.0, Tend)  # warm-up, capture, the first replayed march
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches[kind] = cross_stencil_2d.launches
+        reads = dict(fused.host_reads)
+        cross_stencil_2d.launches = 0
+        k1_count.zero_()
+        reads0 = prob.A.host_reads
+        stage_ms, (uend_s, stats_s) = _events_ms(lambda: stage.run(u0, 0.0, Tend, lane='stage'))
+        stage_k1, stage_counted, stage_reads = cross_stencil_2d.launches, int(k1_count), prob.A.host_reads - reads0
+        by_path = dict(cross_stencil_2d.paths)
+        lane = [v for k, v in stats.items() if k.type == 'lane']
+        niter, niter_s = _niter(stats), _niter(stats_s)
+        diff = (uend - uend_s).abs().max().item()
+        if lane != ['fused'] or niter != niter_s or len(niter) != P_FI or not diff <= KRYLOV_FUSED_BOUND \
+                or by_path != {'bands': launches[kind] + stage_k1, 'general': 0}:
+            raise AssertionError(f'{label}: lane {lane}, niter {niter} against {niter_s}, |uend_fused - uend_stage| '
+                                 f'{diff:.3e}, K1 by path {by_path}')
+        _covered_by(covered, prob.A._cross_terms, shapes, label)
+        # one replayed block, timed, its K1 counted on the device (and for CG by the profiler in one more)
+        k1_count.zero_()
+        cross_stencil_2d.launches = 0
+        fused_ms, (uend2, _) = _events_ms(lambda: fused.run_fused(u0, 0.0, Tend))
+        device_k1, through_wrapper = int(k1_count), cross_stencil_2d.launches
+        nested = kind == 'GMRES'  # a restart's Arnoldi loop is a node inside the restart loop's body
+        replay_k1 = None if nested else _k1_kernels(lambda: fused.run_fused(u0, 0.0, Tend))
+        if through_wrapper != 0 or device_k1 != stage_k1 or stage_counted != stage_k1 \
+                or stage_k1 != sum(applies.values()) or not torch.equal(uend2, uend):
+            raise AssertionError(f'{label}: K1 in a replayed block {device_k1} (counted on the card at each launch), '
+                                 f'{replay_k1} (profiler), through the wrapper {through_wrapper}; the stage lane\'s '
+                                 f'block {stage_k1} launches, {stage_counted} counted on the card, applies {applies}; '
+                                 f'the replay equals the first march {torch.equal(uend2, uend)}')
+        trace = list(prob.A.krylov_trace)
+        iters = [k for _, k, _ in trace]
+        profiled = 'not run over nested nodes' if replay_k1 is None else replay_k1
+        detail = (f'restarts a solve {min(iters)}-{max(iters)}, Arnoldi steps a restart '
+                  f'{sorted(set(a for _, _, ar in trace for a in ar))}' if kind == 'GMRES'
+                  else f'CG iterations a solve {min(iters)}-{max(iters)}')
+        print(f'{label}: lane {lane[0]}, niter {niter} = the stage lane\'s, |uend_fused - uend_stage| {diff:.3e} <= '
+              f'{KRYLOV_FUSED_BOUND}; {len(trace)} solves (one a step, node and iteration), {detail}; K1 in a replayed '
+              f'block {device_k1} (counted on the card at each launch; profiler {profiled}) = the stage lane\'s applies, all on bands at '
+              f'{sorted(shapes)}; host reads {reads} fused against {stage_reads} in the stage lane\'s {kind} loops; '
+              f'wall {wall:.3f} s for the first fused march (capture included) [{card}]')
+        print(f'times: krylov {kind} {KRYLOV_FUSED_N}^2 fp64 block of {P_FI} steps: fused {fused_ms:.3f} ms (a replay) '
+              f'against stage {stage_ms:.3f} ms (x{stage_ms / fused_ms:.2f}), CUDA events [{card}]')
+        del fused, stage
+        torch.cuda.empty_cache()
+    launches['float64 yardstick'] = _k1_float64_library(card)
+    return launches
+
+
+def _events_ms(fn):
+    """(ms on the card by CUDA events, result) of one call of ``fn()``."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _k1_float64_library(card):
+    """K1 in float64 at (2048, 2048) and (3, 2048, 2048) beside its library yardstick (``F.conv2d`` on a
+    circularly padded input) and its plain version, CUDA events, inputs rotated past the L2 cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from pysdc_tpu_torch.models.heat import HeatND
+    from pysdc_tpu_torch.ops.kernels.stencil import _roll_cross_2d, cross_stencil_2d
+
+    terms = HeatND(nvars=(64, 64), nu=0.1, bc='periodic', dtype=torch.float64, device='cuda').A._cross_terms
+    (cx, ox), (cy, oy) = terms
+    rx, ry = max(abs(o) for o in ox), max(abs(o) for o in oy)
+    w = torch.zeros((1, 1, 2 * rx + 1, 2 * ry + 1), dtype=torch.float64, device='cuda')
+    for c, o in zip(cx, ox):
+        w[0, 0, rx + o, ry] += c
+    for c, o in zip(cy, oy):
+        w[0, 0, rx, ry + o] += c
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    out = {}
+    for shape in ((2048, 2048), (3, 2048, 2048)):
+        nbytes = math.prod(shape) * 8
+        nbuf = max(2, math.ceil(3 * L2_BYTES / nbytes))
+        us = [torch.randn(shape, generator=gen, dtype=torch.float64, device='cuda') for _ in range(nbuf)]
+        padded = [F.pad(u.reshape((-1, 1) + shape[-2:]), (ry, ry, rx, rx), mode='circular') for u in us]
+        reps = 4 * nbuf
+        k1_ms = _event_ms(lambda i: cross_stencil_2d(us[i % nbuf], terms), reps)
+        lib_ms = _event_ms(lambda i: F.conv2d(padded[i % nbuf], w), reps)
+        plain_ms = _event_ms(lambda i: _roll_cross_2d(us[i % nbuf], terms), reps)
+        lib_err = (F.conv2d(padded[0], w).reshape(shape) - cross_stencil_2d(us[0], terms)).abs().max().item()
+        bound_ms = 1e3 * 2 * nbytes / HBM_BYTES_PER_S
+        out[str(shape)] = dict(ms=k1_ms, library_ms=lib_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f'times: K1 {shape} fp64: {k1_ms:.4f} ms eager ({100 * bound_ms / k1_ms:.0f}% of its bytes bound '
+              f'{bound_ms:.4f} ms), plain {plain_ms:.4f} ms, library yardstick F.conv2d (float64, circular pad) '
+              f'{lib_ms:.4f} ms (max abs diff to K1 {lib_err:.3e}) [{card}]')
+        del us, padded
+    return out
+
+
 def main():
     import torch
 
@@ -5783,6 +6239,9 @@ def main():
     mesh_pd_launches = phase(phase_mesh_paradiag, card)
     phase(phase_mesh_fieldsio, card)
     phase(phase_mesh_times, mesh_runs, card)
+    phase(phase_graph_loop, card)
+    sparse_fused_launches, sparse_fused_replay = phase(phase_sparse_fused, card)
+    krylov_fused = phase(phase_krylov_fused, card, covered_fi)
 
     by_path = {'heat': launches, 'pfasst': pfasst_launches, 'imex': imex_launches, 'fused': fused_launches,
                f'adaptive {N_AD}': adaptive_launches[N_AD], f'adaptive {N_AD_BIG}': adaptive_launches[N_AD_BIG],
@@ -5797,13 +6256,17 @@ def main():
                'embedding forward': emb_launches['forward'], 'embedding backward': emb_launches['backward'],
                'step 26 inversion 48^2': s26_launches['inversion'], 'step 26 march 128^2': s26_launches['march'],
                'matrix vmap': matrix_launches,
-               'linearized jacfwd': linearized_launches, **mesh_launches, 'mesh paradiag': mesh_pd_launches}
+               'linearized jacfwd': linearized_launches, **mesh_launches, 'mesh paradiag': mesh_pd_launches,
+               'krylov fused CG': krylov_fused['CG'], 'krylov fused GMRES': krylov_fused['GMRES']}
+    k2_by_path = {'sparse': k2_launches, 'sparse fused': sparse_fused_launches}
     kernels = [
         dict(name='cross_stencil_2d', route='cuda', source='pysdc_tpu_torch/csrc/cross_stencil.cu',
              replaces='pysdc_tpu/ops/pallas/stencil.py:169', launches=sum(by_path.values()),
-             launches_by_path=by_path, max_abs_err=main_err, max_abs_err_pfasst=pfasst_err, **k1),
+             launches_by_path=by_path, max_abs_err=main_err, max_abs_err_pfasst=pfasst_err,
+             float64_library=krylov_fused['float64 yardstick'], **k1),
         dict(name='dia_spmv', route='cuda', source='pysdc_tpu_torch/csrc/dia_spmv.cu',
-             replaces='pysdc_tpu/ops/pallas/dia.py:144', launches=k2_launches,
+             replaces='pysdc_tpu/ops/pallas/dia.py:144', launches=sum(k2_by_path.values()),
+             launches_by_path=k2_by_path, replayed_in_one_sparse_fused_block=sparse_fused_replay,
              max_abs_err=sparse_errs['dia_spmv'], **k2),
         dict(name='bsr_spmm', route='cuda', source='pysdc_tpu_torch/csrc/bsr_spmm.cu',
              replaces='pysdc_tpu/ops/pallas/spmv.py:29', launches=k3_launches,

@@ -122,8 +122,8 @@ class Problem:
     @property
     def graph_capture_blocker(self):
         """Why the fused lanes' CUDA graphs cannot hold this problem's solves, or None where they can: the
-        operator ``A``'s own reason (an iterative solve to a tolerance would be captured as ``maxiter`` masked
-        iterations)."""
+        operator ``A``'s own reason, where it gives one (the iterative solves to a tolerance are device ``while``
+        loops there and need none)."""
         return getattr(getattr(self, 'A', None), 'graph_capture_blocker', None)
 
     # -- protocol ------------------------------------------------------
@@ -182,9 +182,14 @@ class Problem:
         return map_components(lambda *xs: torch.stack(xs), *parts)
 
     def solve_system_batched(self, rhs, factor, u0, t):
-        """rhs/u0: (M, *shape), factor/t: (M,) -> (M, *shape)."""
+        """rhs/u0: (M, *shape), factor/t: (M,) -> (M, *shape).  Entries of a device tensor stay on the device
+        (0-d views): the fused lanes' graphs read them, they do not hold them."""
+
+        def entry(a, m):
+            return a[m] if isinstance(a, torch.Tensor) else float(a[m])
+
         return torch.stack(
-            [self.solve_system(rhs[m], float(factor[m]), u0[m], float(t[m])) for m in range(rhs.shape[0])]
+            [self.solve_system(rhs[m], entry(factor, m), u0[m], entry(t, m)) for m in range(rhs.shape[0])]
         )
 
     def __repr__(self):

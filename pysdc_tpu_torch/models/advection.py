@@ -66,13 +66,6 @@ class AdvectionND(Problem):
             return None
         return self.A if self.solver_type == 'direct' else None
 
-    @property
-    def graph_capture_blocker(self):
-        if self.solver_type != 'direct':
-            return (f'AdvectionND(solver_type={self.solver_type!r}) iterates to lintol; inside a CUDA graph it '
-                    f'would run liniter masked iterations: this configuration runs on the stage-machine path')
-        return super().graph_capture_blocker
-
     def eval_f(self, u, t):
         return self.A.apply(u)
 

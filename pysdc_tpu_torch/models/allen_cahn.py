@@ -11,12 +11,11 @@ On the card the 2D periodic Laplacian applies through kernel K1: in every
 ``eval_f``, every Newton residual and every PCG matvec; each preconditioner
 solve is one cuFFT ``rfftn`` / ``irfftn`` pair.
 
-The problems with a Newton solve keep three observers: ``newton_failed`` (the
-device flag a capture's fixed Newton depth sets, read by the fused lanes),
-``solver_trace`` (when set to a list, each solve appends one ``(Newton
-iterations, [PCG iterations of each])`` per system, and ``solver_applies``
-counts the operator applies the solves made) and ``host_reads`` (the reads of
-their loops).
+The problems with a Newton solve keep two observers: ``solver_trace`` (when
+set to a list, each solve appends one ``(Newton iterations, [PCG iterations
+of each])`` per system, and ``solver_applies`` counts the operator applies the
+solves made; inside a captured graph the device decides both, and nothing is
+added) and ``host_reads`` (the reads of their loops).
 """
 
 from __future__ import annotations
@@ -35,14 +34,9 @@ from pysdc_tpu_torch.ops.solvers import newton_pde
 
 
 class _NewtonPDE(Problem):
-    """The observers of a problem whose solves run :func:`newton_pde` (a split variant whose solves are all linear
-    sets ``newton_solves = False`` and has no ``newton_failed`` flag for the fused lanes to fetch)."""
-
-    newton_solves = True
+    """The observers of a problem whose solves run :func:`newton_pde`."""
 
     def _init_newton(self):
-        if self.newton_solves:
-            self.newton_failed = torch.zeros((), dtype=torch.bool, device=self.device)
         self.solver_trace = None
         self.solver_applies = 0
         self.host_reads = 0
@@ -52,10 +46,10 @@ class _NewtonPDE(Problem):
     def _newton(self, apply_A, solve_shifted, g, gprime, rhs, factor, u0):
         """``newton_pde`` on the systems of ``rhs`` (its leading axes in front of the problem's space axes)."""
         u, info = newton_pde(apply_A, solve_shifted, g, gprime, rhs, factor, u0, newton_tol=self.newton_tol,
-                             newton_maxiter=self.newton_maxiter, batch_ndim=rhs.dim() - len(self.shape),
-                             failed=self.newton_failed)
+                             newton_maxiter=self.newton_maxiter, batch_ndim=rhs.dim() - len(self.shape))
         self.host_reads += info.reads
-        self.solver_applies += info.applies
+        if info.applies is not None:
+            self.solver_applies += info.applies
         if self.solver_trace is not None:
             self.solver_trace.extend(info.per_system())
         return u
@@ -146,7 +140,6 @@ class AllenCahnFront1DSemiImplicit(AllenCahnFront1D):
     (reference allencahn_front_semiimplicit, AllenCahn_1D_FD.py:253)."""
 
     f_kind = 'imex'
-    newton_solves = False
 
     def eval_f(self, u, t):
         return IMEX(impl=self.A.apply(u) + self._bc_term(t), expl=self._reaction(u))
@@ -237,8 +230,15 @@ class AllenCahnPeriodicND(_NewtonPDE):
         leading node axis (and the time axis of a block behind it)."""
         return self.eval_f(u, t)
 
+    def _solve_shifted(self, rhs, factor):
+        """The exact shifted solve of the Laplacian; on the sparse backend (CG on a 2D periodic grid) each system
+        of the leading axes is solved on its own, as ``jax.vmap`` gives the JAX package's block."""
+        if self.backend == 'sparse':
+            return self.A.solve_shifted(rhs, factor, batch_ndim=rhs.dim() - len(self.shape))
+        return self.A.solve_shifted(rhs, factor)
+
     def solve_system(self, rhs, factor, u0, t):
-        return self._newton(self.A.apply, self.A.solve_shifted, self._reaction, self._reaction_prime,
+        return self._newton(self.A.apply, self._solve_shifted, self._reaction, self._reaction_prime,
                             rhs, factor, u0)
 
     def solve_system_batched(self, rhs, factor, u0, t):
@@ -264,13 +264,12 @@ class AllenCahnPeriodicSemiImplicitND(AllenCahnPeriodicND):
     (reference allencahn_periodic_semiimplicit / allencahn_imex)."""
 
     f_kind = 'imex'
-    newton_solves = False
 
     def eval_f(self, u, t):
         return IMEX(impl=self.A.apply(u), expl=self._reaction(u))
 
     def solve_system(self, rhs, factor, u0, t, node=None):
-        return self.A.solve_shifted(rhs, factor)
+        return self._solve_shifted(rhs, factor)
 
     def solve_system_batched(self, rhs, factor, u0, t):
         """One transform pair for all nodes, one shift per node; the sparse
@@ -293,7 +292,7 @@ class AllenCahnPeriodicMultiImplicitND(AllenCahnPeriodicND):
 
     def solve_system(self, rhs, factor, u0, t):
         """Solve (I - factor*A) u = rhs (first component)."""
-        return self.A.solve_shifted(rhs, factor)
+        return self._solve_shifted(rhs, factor)
 
     solve_system_batched = AllenCahnPeriodicSemiImplicitND.solve_system_batched
 

@@ -56,7 +56,6 @@ class DAEProblem(Problem):
         self._register(nvars=nvars, newton_tol=newton_tol, newton_maxiter=newton_maxiter)
         self.work_counters['rhs'] = WorkCounter()
         self.work_counters['newton'] = WorkCounter()
-        self.newton_failed = torch.zeros((), dtype=torch.bool, device=self.device)
         self.newton_trace = None
 
     def eval_f(self, u, du, t):
@@ -73,7 +72,7 @@ class DAEProblem(Problem):
             return w - G(w)
 
         return newton_solve(f, torch.func.jacfwd(f), torch.zeros_like(w0), 1.0, w0, self.newton_tol,
-                            self.newton_maxiter, failed=self.newton_failed, trace=self.newton_trace)
+                            self.newton_maxiter, trace=self.newton_trace)
 
     def solve_system_dae(self, u_approx, factor, du0, t):
         """Solve 0 = F(u_approx + factor*du, du, t) for du (fully implicit;

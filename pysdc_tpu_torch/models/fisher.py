@@ -6,7 +6,7 @@ The counterpart of ``pysdc_tpu/models/fisher.py`` (reference
 wave.  Fully implicit through the shared Newton-Krylov solver
 (:mod:`pysdc_tpu_torch.ops.solvers`) with the exact diffusion solve as the
 preconditioner; the observers of the Allen-Cahn problems
-(``newton_failed``, ``solver_trace``, ``solver_applies``, ``host_reads``).
+(``solver_trace``, ``solver_applies``, ``host_reads``).
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ import torch
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX, Comp2
 from pysdc_tpu_torch.ops.linop import SpectralOperator
-from pysdc_tpu_torch.ops.loops import CAPTURE_DEPTH, masked_loop
+from pysdc_tpu_torch.ops.loops import masked_loop
 
 
 class GrayScott(Problem):
@@ -114,7 +114,7 @@ class GrayScottLinearIMEX(GrayScott):
                             self.lap.solve_shifted(r1 / av, factor * self.Dv / av)], dim=ax)
 
 
-def _newton_2x2_pointwise(rhs, factor, u0, residual_fn, jacobian_fn, tol, maxiter, failed=None):
+def _newton_2x2_pointwise(rhs, factor, u0, residual_fn, jacobian_fn, tol, maxiter):
     """Newton for a pointwise-coupled 2-component system, the Jacobian a field
     of 2x2 blocks inverted in closed form (the reference assembles a sparse
     block-diagonal matrix, GrayScott_MPIFFT.py:574-674).  One system: it stops
@@ -135,8 +135,7 @@ def _newton_2x2_pointwise(rhs, factor, u0, residual_fn, jacobian_fn, tol, maxite
         u = torch.stack([u[0] - du, u[1] - dv])
         return u, res_of(*residual_fn(u))
 
-    out = masked_loop(body, lambda c: c[1] > tol, (u0, res_of(*residual_fn(u0))), int(maxiter),
-                      depth=CAPTURE_DEPTH, failed=failed)
+    out = masked_loop(body, lambda c: c[1] > tol, (u0, res_of(*residual_fn(u0))), int(maxiter))
     return out.carry[0], (None if out.host_counts is None else out.host_counts[0])
 
 
@@ -144,8 +143,7 @@ class GrayScottMultiImplicit(GrayScott):
     """Multi-implicit splitting: diffusion (comp1, exact spectral solves)
     and reaction (comp2, pointwise 2x2 Newton) both implicit but solved
     separately (reference ``grayscott_mi_diffusion``,
-    GrayScott_MPIFFT.py:429-672).  ``newton_failed`` is the device flag of a
-    capture's fixed Newton depth; ``newton_trace``, when set to a list,
+    GrayScott_MPIFFT.py:429-672).  ``newton_trace``, when set to a list,
     receives each solve's Newton iterations."""
 
     f_kind = 'comp2'
@@ -155,15 +153,13 @@ class GrayScottMultiImplicit(GrayScott):
         super().__init__(nvars=nvars, Du=Du, Dv=Dv, A=A, B=B, L=L, num_blobs=num_blobs, dtype=dtype, device=device)
         self._register(newton_maxiter=newton_maxiter, newton_tol=newton_tol)
         self.work_counters['newton'] = WorkCounter()
-        self.newton_failed = torch.zeros((), dtype=torch.bool, device=self.device)
         self.newton_trace = None
 
     def eval_f(self, u, t):
         return Comp2(comp1=self._diffusion(u), comp2=self._reaction(u))
 
     def _newton(self, rhs, factor, u0, residual, jacobian):
-        u, k = _newton_2x2_pointwise(rhs, factor, u0, residual, jacobian, self.newton_tol, self.newton_maxiter,
-                                     failed=self.newton_failed)
+        u, k = _newton_2x2_pointwise(rhs, factor, u0, residual, jacobian, self.newton_tol, self.newton_maxiter)
         if self.newton_trace is not None and k is not None:
             self.newton_trace.append(k)
         return u

@@ -114,14 +114,6 @@ class HeatND(Problem):
         return len(self.nvars)
 
     @property
-    def graph_capture_blocker(self):
-        """Why the fused lanes' CUDA graphs cannot hold this problem's solves (None where they can)."""
-        if self.solver_type != 'direct':
-            return (f'HeatND(solver_type={self.solver_type!r}) iterates to lintol; inside a CUDA graph it would run '
-                    f'liniter masked iterations: this configuration runs on the stage-machine path')
-        return super().graph_capture_blocker
-
-    @property
     def diagonalizable_operator(self):
         """eval_f is exactly A@u and the solves are exact diagonal-basis
         solves, so multi-sweep SDC may run fused in that basis
@@ -147,8 +139,8 @@ class HeatND(Problem):
 
     def solve_system(self, rhs, factor, u0, t, node=None):
         if self.solver_type == 'direct':
-            if node is not None and self.backend == 'sparse':
-                return self.A.solve_shifted(rhs, factor, node=node)
+            if self.backend == 'sparse':  # a block's leading time axis holds independent systems, as under jax.vmap
+                return self.A.solve_shifted(rhs, factor, node=node, batch_ndim=rhs.dim() - len(self.shape))
             return self.A.solve_shifted(rhs, factor)
         if self.solver_type == 'CG':
             solve = self.A.solve_shifted_cg

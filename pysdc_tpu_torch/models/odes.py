@@ -23,7 +23,7 @@ import torch
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX
 from pysdc_tpu_torch.ops import loops
-from pysdc_tpu_torch.ops.loops import CAPTURE_DEPTH, masked_loop
+from pysdc_tpu_torch.ops.loops import masked_loop
 
 
 def _behind(x, like: torch.Tensor, trailing: int):
@@ -88,7 +88,7 @@ def eliminate(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None, trace=None):
+def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, trace=None):
     """Solve ``u - factor * f(u) = rhs`` with Newton for a batch of systems.
 
     ``u0`` and ``rhs`` are ``(..., n)``: the last axis is one system, the axes
@@ -104,13 +104,10 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None, trace=None)
     :func:`~pysdc_tpu_torch.ops.loops.masked_loop`, which reads the flags on
     the host every ``READ_EVERY`` iterations and stops with the last system.
 
-    While a CUDA graph is being captured the host cannot read: the loop then
-    runs ``min(maxiter, CAPTURE_DEPTH)`` masked iterations and solves its
-    linear systems with :func:`eliminate` (``torch.linalg.solve`` reads its
-    error flag on the host).  A system that is still above ``tol`` when the
-    fixed depth ends, and that the eager loop would have gone on iterating,
-    sets the device flag ``failed`` (a 0-d bool tensor made before the
-    capture); the block's one host read fetches it and raises.  ``trace``,
+    While a CUDA graph is being captured the host cannot read: the loop is
+    then a device ``while`` that runs to ``tol`` or ``maxiter`` as eager does,
+    and it solves its linear systems with :func:`eliminate`
+    (``torch.linalg.solve`` reads its error flag on the host).  ``trace``,
     when a list, receives the iterations each system ran (host integers; None
     under a capture).
     """
@@ -134,8 +131,7 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, failed=None, trace=None)
         u = u - du
         return u, g(u)
 
-    out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1], dim=-1) > tol, (u0, g(u0)), int(maxiter),
-                      depth=CAPTURE_DEPTH, failed=failed)
+    out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1], dim=-1) > tol, (u0, g(u0)), int(maxiter))
     if trace is not None:
         trace.append(out.host_counts)
     return out.carry[0]
@@ -145,15 +141,13 @@ class NewtonODE(Problem):
     """Base for small ODE systems solved implicitly via Newton.
 
     ``newton_tol`` is a per-step problem scalar: the block controller sets it
-    to a ``(P,)`` tensor for a sweep over a block (one tolerance per step).
-    ``newton_failed`` is the device flag of :func:`newton_solve`."""
+    to a ``(P,)`` tensor for a sweep over a block (one tolerance per step)."""
 
     def __init__(self, shape, newton_tol=1e-9, newton_maxiter=99, dtype=None, device='cuda'):
         super().__init__(shape=shape, dtype=dtype, device=device)
         self._register(newton_tol=newton_tol, newton_maxiter=newton_maxiter)
         self.work_counters['newton'] = WorkCounter()
         self.work_counters['rhs'] = WorkCounter()
-        self.newton_failed = torch.zeros((), dtype=torch.bool, device=self.device)
 
     def eval_jacobian(self, u, t):
         """Jacobians ``(..., n, n)`` of ``eval_f`` at ``u (..., n)`` by forward-mode
@@ -177,7 +171,7 @@ class NewtonODE(Problem):
     def solve_system(self, rhs, factor, u0, t):
         return newton_solve(
             lambda u: self.eval_f(u, t), lambda u: self.eval_jacobian(u, t), rhs, factor, u0,
-            self.newton_tol, self.newton_maxiter, failed=self.newton_failed,
+            self.newton_tol, self.newton_maxiter,
         )
 
     def _initial(self, u_init=None):
@@ -232,7 +226,7 @@ class NewtonODE(Problem):
             tol = tol.unsqueeze(0)  # (P,) per step -> behind the node axis
         return newton_solve(
             lambda u: self.eval_f(u, t), lambda u: self.eval_jacobian(u, t), rhs, factor.to(rhs.dtype), u0,
-            tol, self.newton_maxiter, failed=self.newton_failed,
+            tol, self.newton_maxiter,
         )
 
 

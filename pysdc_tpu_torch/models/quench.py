@@ -31,9 +31,8 @@ from pysdc_tpu_torch.ops.solvers import newton_pde
 
 
 class Quench(Problem):
-    """``newton_failed`` (a device flag the fused lanes fetch), ``solver_trace`` (when set to a list, each solve
-    appends one ``(Newton iterations, [PCG iterations of each])`` per system) and ``host_reads`` observe the
-    Newton solves."""
+    """``solver_trace`` (when set to a list, each solve appends one ``(Newton iterations, [PCG iterations of
+    each])`` per system) and ``host_reads`` observe the Newton solves."""
 
     def __init__(self, Cv=1000.0, K=1000.0, u_thresh=3e-2, u_max=6e-2, Q_max=1.0,
                  leak_range=(0.45, 0.55), leak_type='linear', leak_transition='step',
@@ -52,7 +51,6 @@ class Quench(Problem):
         self.A = SeparableFDOperator([dict(size=nvars, dx=dx, derivative=2, order=order, bc=bc)], scale=K / Cv)
         self.leak = np.logical_and(xv > leak_range[0], xv < leak_range[1])
         self._consts: dict = {}
-        self.newton_failed = torch.zeros((), dtype=torch.bool, device=self.device)
         self.solver_trace = None
         self.host_reads = 0
         self.work_counters['newton'] = WorkCounter()
@@ -116,7 +114,7 @@ class Quench(Problem):
         u, info = newton_pde(
             self.A.apply, self.A.solve_shifted, lambda u: self.eval_f_non_linear(u, 0.0), self._non_linear_prime,
             rhs, factor, u0, newton_tol=self.newton_tol, newton_maxiter=self.newton_maxiter,
-            lin_maxiter=self.lin_maxiter, batch_ndim=rhs.dim() - len(self.shape), failed=self.newton_failed,
+            lin_maxiter=self.lin_maxiter, batch_ndim=rhs.dim() - len(self.shape),
         )
         self.host_reads += info.reads
         if self.solver_trace is not None:

@@ -63,7 +63,8 @@ class VarCoeffDiffusion1D(Problem):
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
-        return self.A.solve_shifted(rhs, factor, x0=u0, node=node)
+        # a block's leading time axis holds independent systems, as jax.vmap gives the JAX package's block
+        return self.A.solve_shifted(rhs, factor, x0=u0, node=node, batch_ndim=rhs.dim() - len(self.shape))
 
 
 class VarCoeffDiffusion2D(Problem):
@@ -139,8 +140,9 @@ class VarCoeffDiffusion2D(Problem):
         return self.eval_f(u, t)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
-        # warm start: the previous sweep's node value cuts the Krylov depth
-        return self.A.solve_shifted(rhs, factor, x0=u0, node=node)
+        # warm start: the previous sweep's node value cuts the Krylov depth; a block's leading time axis holds
+        # independent systems, as jax.vmap gives the JAX package's block
+        return self.A.solve_shifted(rhs, factor, x0=u0, node=node, batch_ndim=rhs.dim() - len(self.shape))
 
 
 class VarCoeffDiffusionForced1D(VarCoeffDiffusion1D):
@@ -171,7 +173,7 @@ class VarCoeffDiffusionForced1D(VarCoeffDiffusion1D):
         return IMEX(impl=self.A.apply(u), expl=-sin_t * self._mode - cos_t * self._Amode)
 
     def solve_system(self, rhs, factor, u0, t, node=None):
-        return self.A.solve_shifted(rhs, factor, node=node)
+        return self.A.solve_shifted(rhs, factor, node=node, batch_ndim=rhs.dim() - len(self.shape))
 
     def u_exact(self, t, u_init=None, t_init=None):
         return self._mode * math.cos(t)

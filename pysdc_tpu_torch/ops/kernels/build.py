@@ -26,7 +26,8 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 
 #: every kernel library of the port: name -> source file under csrc/
-SOURCES = {'cross_stencil': 'cross_stencil.cu', 'dia_spmv': 'dia_spmv.cu', 'bsr_spmm': 'bsr_spmm.cu'}
+SOURCES = {'cross_stencil': 'cross_stencil.cu', 'dia_spmv': 'dia_spmv.cu', 'bsr_spmm': 'bsr_spmm.cu',
+           'graph_loop': 'graph_loop.cu'}
 
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

@@ -7,7 +7,11 @@ padding of the vector.  Its plain version is
 :meth:`pysdc_tpu_torch.ops.sparse.DIA.spmv` (flat or 2D-grid rolls).
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.  ``dia_spmv.launches`` counts the launches.
+kernel or raises.  ``dia_spmv.launches`` counts the launches on the host.
+``dia_spmv.device_count``, where a caller sets it to a 0-d int64 tensor on the
+card, gets one added at each launch, on the launch's stream: a CUDA graph that
+captured the launch then counts it again at every replay (the host count
+sees only the capture).
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ def _launch(dia, u: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f'dia_spmv kernel launch failed with CUDA error {err}')
     dia_spmv.launches += 1
+    if dia_spmv.device_count is not None:
+        dia_spmv.device_count.add_(1)
     return out
 
 
@@ -109,3 +115,4 @@ def dia_spmv(dia, u: torch.Tensor) -> torch.Tensor:
 
 
 dia_spmv.launches = 0
+dia_spmv.device_count = None

@@ -28,7 +28,10 @@ float32 kernel, complex128 the float64 one.  A complex tensor that has no such
 view (not contiguous) raises.
 
 ``cross_stencil_2d.launches`` counts the launches, ``cross_stencil_2d.paths``
-counts them by path.  ``path='general'`` (or ``'bands'``) forces a path, for
+counts them by path, on the host.  ``cross_stencil_2d.device_count``, where a
+caller sets it to a 0-d int64 tensor on the card, gets one added at each
+launch, on the launch's stream: a CUDA graph that captured the launch counts
+it again at every replay.  ``path='general'`` (or ``'bands'``) forces a path, for
 checks and timings; forcing ``'bands'`` where it does not apply raises.
 
 Gradients (the counterpart of the JAX kernel's ``custom_vmap`` rule and of
@@ -281,6 +284,8 @@ def _launch(u: torch.Tensor, terms, path=None, rows=None) -> torch.Tensor:
         raise RuntimeError(f'cross_stencil_2d kernel ({chosen} path) launch failed with CUDA error {err}')
     cross_stencil_2d.launches += 1
     cross_stencil_2d.paths[chosen] += 1
+    if cross_stencil_2d.device_count is not None:
+        cross_stencil_2d.device_count.add_(1)
     return out
 
 
@@ -337,6 +342,7 @@ def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
 
 cross_stencil_2d.launches = 0
 cross_stencil_2d.paths = {'bands': 0, 'general': 0}
+cross_stencil_2d.device_count = None
 
 
 def stencil2d_periodic(u: torch.Tensor, c0: float, cx: float, cy: float) -> torch.Tensor:

@@ -17,15 +17,23 @@ loop's stopping test on the device instead:
 - eager, the loop reads the flags and the counters on the host once every
   :data:`READ_EVERY` iterations, stacked into one tensor, one read: a loop of
   ``k`` iterations reads ``ceil(k / READ_EVERY) + 1`` times;
-- while a CUDA graph is being captured the loop never reads: it runs a fixed
-  number of iterations (``maxiter``, or a smaller ``depth``) and, where the
-  depth cut a system that would have gone on, sets a device flag ``failed``
-  (made before the capture) that the fused lane's one fetch reads;
+- while a CUDA graph is being captured the loop never reads: it becomes a
+  device ``while`` (:func:`pysdc_tpu_torch.ops.graph_loop.device_while`, a
+  conditional WHILE node) whose condition is ``flags.any()``.  Each replay
+  runs exactly the iterations the eager loop would compute with a read every
+  iteration, stops at ``maxiter`` as eager and ``lax.while_loop`` do, and
+  leaves the same carry and counts; a loop inside the body (Newton's PCG, a
+  GMRES restart's Arnoldi steps) becomes a node of the body's graph;
 - on a carry that ``torch.func.vmap`` maps (a value of a mapped tensor
   cannot be read) the loop reads nothing either and runs all ``maxiter``
   iterations, masked per lane: each lane ends with the count and the carry
   it would have had alone, as under ``jax.vmap`` of ``lax.while_loop``.
   Under ``grad`` or ``jvp`` alone it reads as it does eager.
+
+A body is called once under a capture and its launches replayed: it may not
+branch on a host counter of its own.  State that changes from one iteration to
+the next (PCG's first-iteration test, GMRES's Arnoldi index) is carried on the
+device, as in the JAX package's loops.
 
 ``READ_EVERY`` is 1, by measurement (``chip_smoke.py``, phase "implicit
 times", on an NVIDIA H100 80GB HBM3 at 700 W): eager, a sweep of the fully
@@ -48,27 +56,27 @@ from typing import NamedTuple
 
 import torch
 
+from pysdc_tpu_torch.ops.graph_loop import device_while
 from pysdc_tpu_torch.ops.kernels.build import mapped
 
 #: iterations between two host reads of an eager loop (the module docstring says why 1)
 READ_EVERY = 1
-
-#: Newton iterations a solve runs while a CUDA graph is being captured: Newton from the previous sweep's node
-#: value converges quadratically (2-4 iterations to 1e-10 on the ODE and Allen-Cahn runs of this package), and
-#: twice that leaves room without making the graph long
-CAPTURE_DEPTH = 8
 
 
 class LoopResult(NamedTuple):
     carry: tuple  #: the final carry
     counts: torch.Tensor  #: int32, one per system: the iterations each ran (on the device)
     host_counts: list | None  #: the same as host integers (None under a capture, which reads nothing)
-    reads: int  #: host reads this loop made
-    steps: int  #: iterations computed, masked ones included: min(maxiter, READ_EVERY * ceil(max count / READ_EVERY)) eager
+    reads: int  #: host reads this loop made (0 under a capture)
+    #: iterations computed, masked ones included: min(maxiter, READ_EVERY * ceil(max count / READ_EVERY)) eager,
+    #: the largest count under a capture (None on the card, where each replay's device decides it), maxiter under
+    #: a vmap
+    steps: int | None
 
 
 def capturing(x: torch.Tensor) -> bool:
-    """True while a CUDA graph is being captured on ``x``'s card."""
+    """True while a CUDA graph is being captured on ``x``'s card: the masked loop then becomes a device
+    ``while``.  The CPU tests patch this function to run that path's plain version."""
     return x.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
@@ -83,7 +91,7 @@ def _select(active, new, old):
     return torch.where(behind(active, new), new, old)
 
 
-def masked_loop(body, cond, carry: tuple, maxiter: int, *, active=None, depth=None, failed=None) -> LoopResult:
+def masked_loop(body, cond, carry: tuple, maxiter: int, *, active=None) -> LoopResult:
     """``while cond(carry) and count < maxiter: carry = body(carry)``, one system per flag.
 
     ``body(carry, active)`` gives the next carry for every system (``active``
@@ -91,9 +99,7 @@ def masked_loop(body, cond, carry: tuple, maxiter: int, *, active=None, depth=No
     gives a bool tensor, one flag per system (the batch shape); every leaf of
     ``carry`` has that shape in front.  ``active`` (optional, the
     same shape) masks systems out from the start, as an enclosing loop's flags
-    do.  ``depth`` bounds the iterations under a capture (default ``maxiter``);
-    when it is below ``maxiter`` a system still active at the end sets
-    ``failed`` (a 0-d bool tensor, required then).
+    do.
     """
     carry = tuple(carry)
     flags = cond(carry)
@@ -102,31 +108,34 @@ def masked_loop(body, cond, carry: tuple, maxiter: int, *, active=None, depth=No
     if maxiter <= 0:
         flags = torch.zeros_like(flags)
     counts = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
-    capture = capturing(flags)
-    n = int(maxiter) if (depth is None or not capture) else min(int(maxiter), int(depth))
-    capture = capture or any(mapped(x) for x in (flags,) + carry if isinstance(x, torch.Tensor))
+
+    def step(carry, flags, counts):
+        new = body(carry, flags)
+        carry = tuple(_select(flags, nw, old) for nw, old in zip(new, carry))
+        counts = counts + flags.to(torch.int32)
+        return carry, flags & cond(carry) & (counts < maxiter), counts
+
+    if capturing(flags):
+        def trip(state):
+            carry, flags, counts = step(state[:-2], state[-2], state[-1])
+            return carry + (flags, counts)
+
+        state, trips = device_while(lambda state: state[-2].any(), trip, carry + (flags, counts))
+        return LoopResult(state[:-2], state[-1], None, 0, trips)
+    if any(mapped(x) for x in (flags,) + carry if isinstance(x, torch.Tensor)):
+        for _ in range(int(maxiter)):  # the values cannot be read: every iteration, masked per lane
+            carry, flags, counts = step(carry, flags, counts)
+        return LoopResult(carry, counts, None, 0, int(maxiter))
     reads = 0
-    host_counts = None
     i = 0
     while True:
-        if not capture and (i % READ_EVERY == 0 or i == n):
+        if i % READ_EVERY == 0 or i == maxiter:
             # one read: "is any system still active" and every counter
             got = torch.cat([flags.any().reshape(1).to(torch.int32), counts.reshape(-1)]).tolist()
             reads += 1
             host_counts = got[1:]
-            if not got[0] or i == n:
+            if not got[0] or i == maxiter:
                 break
-        elif i == n:
-            break
-        new = body(carry, flags)
-        carry = tuple(_select(flags, nw, old) for nw, old in zip(new, carry))
-        counts = counts + flags.to(torch.int32)
-        flags = flags & cond(carry) & (counts < maxiter)
+        carry, flags, counts = step(carry, flags, counts)
         i += 1
-    if capture:
-        host_counts = None
-        if n < maxiter:
-            if failed is None:
-                raise RuntimeError('a loop cut to a fixed depth inside a CUDA graph capture needs the device flag `failed`')
-            failed.logical_or_(flags.any())
     return LoopResult(carry, counts, host_counts, reads, i)

@@ -6,10 +6,9 @@ steps are preconditioned CG with the operator's exact shifted solve
 ``(I - factor*A)^{-1}`` as the preconditioner.  Both loops are
 :func:`~pysdc_tpu_torch.ops.loops.masked_loop`\\ s: the stopping tests stay on
 the device, the host reads the flags every ``READ_EVERY`` iterations, and
-under a CUDA graph capture nothing is read (PCG runs ``maxiter`` masked
-iterations, which is exact: the JAX loop stops there too; Newton runs
-``min(newton_maxiter, CAPTURE_DEPTH)`` and sets the device flag ``failed``
-where that cut a system short).
+under a CUDA graph capture nothing is read: both loops become device
+``while`` loops (PCG's a node inside Newton's body) that run to tolerance or
+to their ``maxiter``, as the JAX loops do.
 
 The semantics are the JAX package's, to the iteration: PCG stops on the
 absolute 2-norm of the residual over the whole system, ``z0 = M_inv(r0)`` is
@@ -28,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from pysdc_tpu_torch.ops.loops import CAPTURE_DEPTH, behind, masked_loop
+from pysdc_tpu_torch.ops.loops import behind, masked_loop
 
 
 def _space_dims(x: torch.Tensor, batch_ndim: int) -> tuple:
@@ -53,7 +52,7 @@ def _norm_max(x: torch.Tensor, batch_ndim: int = 0) -> torch.Tensor:
 
 class PCGInfo(NamedTuple):
     iterations: list | None  #: per system, host integers (None under a capture)
-    steps: int  #: iterations computed, masked ones included
+    steps: int | None  #: iterations computed, masked ones included (None inside a captured graph)
     reads: int  #: host reads
 
 
@@ -87,8 +86,8 @@ def pcg(matvec, b, x0, M_inv=None, tol=1e-12, maxiter=100, *, batch_ndim=0, acti
 
 class NewtonInfo(NamedTuple):
     iterations: list | None  #: Newton iterations per system (None under a capture)
-    pcg: list  #: per Newton step computed (masked ones included), its PCGInfo
-    steps: int  #: Newton steps computed, masked ones included
+    pcg: list  #: per Newton step computed (masked ones included), its PCGInfo (one, captured once, on the card)
+    steps: int | None  #: Newton steps computed, masked ones included (None inside a captured graph)
     reads: int  #: host reads, Newton's and every PCG's
 
     def per_system(self) -> list:
@@ -100,20 +99,21 @@ class NewtonInfo(NamedTuple):
     @property
     def applies(self) -> int:
         """Operator applies made: ``G(u0)``, then per Newton step ``G(u)``, ``J(x0)``, one a PCG step and ``G``
-        of the update."""
+        of the update (None inside a captured graph, where the device decides the steps)."""
+        if self.steps is None or any(info.steps is None for info in self.pcg):
+            return None
         return 1 + sum(3 + info.steps for info in self.pcg)
 
 
 def newton_pde(apply_A, solve_shifted, g, gprime, rhs, factor, u0, *, newton_tol=1e-11, newton_maxiter=50,
-               lin_tol=1e-13, lin_maxiter=50, batch_ndim=0, failed=None):
+               lin_tol=1e-13, lin_maxiter=50, batch_ndim=0):
     """Solve ``u - factor*(A u + g(u)) = rhs``: ``(u, NewtonInfo)``.
 
     ``apply_A`` / ``solve_shifted`` are the linear operator and its exact
     shifted inverse (the preconditioner), ``g`` / ``gprime`` the pointwise
     nonlinearity and its derivative.  ``factor`` is a number or a tensor that
     broadcasts against ``rhs``; ``newton_tol`` a number or a tensor of the
-    batch shape.  ``failed`` (a 0-d bool tensor) is required inside a CUDA
-    graph capture when ``newton_maxiter`` exceeds ``CAPTURE_DEPTH``."""
+    batch shape."""
 
     def G(u):
         return u - factor * (apply_A(u) + g(u)) - rhs
@@ -139,7 +139,6 @@ def newton_pde(apply_A, solve_shifted, g, gprime, rhs, factor, u0, *, newton_tol
     def cond(carry):
         return carry[1] > newton_tol
 
-    out = masked_loop(body, cond, (u0, _norm_max(G(u0), batch_ndim)), newton_maxiter, depth=CAPTURE_DEPTH,
-                      failed=failed)
+    out = masked_loop(body, cond, (u0, _norm_max(G(u0), batch_ndim)), newton_maxiter)
     reads = out.reads + sum(info.reads for info in pcg_infos)
     return out.carry[0], NewtonInfo(out.host_counts, pcg_infos, out.steps, reads)

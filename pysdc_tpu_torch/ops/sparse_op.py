@@ -28,9 +28,14 @@ Where the JAX package runs a ``lax.while_loop`` (CG, PCG, refinement), the
 port runs a :func:`~pysdc_tpu_torch.ops.loops.masked_loop`: the stopping test
 stays on the device and the host reads it once every ``READ_EVERY``
 iterations (a PCG solve of k iterations reads ``ceil(k / READ_EVERY) + 1``
-times; ``host_reads`` counts them).  Inside a CUDA graph capture the loops
-would unroll to their ``maxiter``, so the fused lanes refuse an operator whose
-solve iterates (:attr:`SparseOperator.graph_capture_blocker`).
+times; ``host_reads`` counts them).  Inside a CUDA graph capture the loops are
+device ``while`` loops that run to tolerance, so the fused lanes capture these
+solves as the JAX package's fused lane traces them.
+
+``batch_ndim`` of the solves counts the leading axes that are independent
+systems (a block's time steps: what ``jax.vmap`` of the JAX package's solve
+gives, each system with its own inner products and stopping test); the
+default 0 solves the whole batch as one system, as the JAX operator does.
 
 The DIA SpMV default differs from the JAX package on purpose: the JAX
 package keeps XLA's fused rolls as the default and the Pallas kernel as an
@@ -52,7 +57,7 @@ from pysdc_tpu_torch.ops.fd import fd_matrix_1d
 from pysdc_tpu_torch.ops.kernels.bsr import bsr_spmm
 from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
 from pysdc_tpu_torch.ops.krylov import cg, gmres
-from pysdc_tpu_torch.ops.loops import masked_loop
+from pysdc_tpu_torch.ops.loops import behind, masked_loop
 from pysdc_tpu_torch.ops.sparse import BSR, CSR, DIA, ELL
 
 
@@ -213,7 +218,7 @@ class SparseOperator:
             )
         return fac
 
-    def _prepared_solve(self, flat, factor, node):
+    def _prepared_solve(self, flat, factor, node, batch_ndim=0):
         """Solve with the node's prepared factors + residual refinement.
 
         When ``factor`` equals the prepared shift (fixed dt) the refinement
@@ -236,8 +241,8 @@ class SparseOperator:
             return x, residual(x)
 
         x = direct(shaped)
-        bound = 50 * torch.finfo(flat.dtype).eps * (torch.linalg.vector_norm(flat) + 1e-30)
-        out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1]) > bound, (x, residual(x)), 50)
+        bound = 50 * torch.finfo(flat.dtype).eps * (_system_norm(flat, batch_ndim) + 1e-30)
+        out = masked_loop(body, lambda c: _system_norm(c[1], batch_ndim) > bound, (x, residual(x)), 50)
         self.host_reads += out.reads
         return out.carry[0].reshape(flat.shape)
 
@@ -285,11 +290,13 @@ class SparseOperator:
         return y[:, 0] if u.dim() == 1 else y
 
     # -- shifted solve -----------------------------------------------------
-    def solve_shifted(self, rhs, factor, x0=None, tol=1e-12, maxiter=1000, node=None):
-        """Solve ``(I - factor*A) x = rhs`` for a scalar ``factor``.
+    def solve_shifted(self, rhs, factor, x0=None, tol=1e-12, maxiter=1000, node=None, batch_ndim=0):
+        """Solve ``(I - factor*A) x = rhs`` for a scalar ``factor`` (a number or a 0-d tensor).
 
         ``node`` selects a prepared per-node factorization when
-        :meth:`prepare_node_shifts` ran — substitution only."""
+        :meth:`prepare_node_shifts` ran — substitution only.  ``batch_ndim``
+        leading axes of ``rhs`` are independent systems for the iterative
+        solves (module docstring)."""
         batch_shape = rhs.shape[: rhs.dim() - len(self.grid_shape)]
         flat = rhs.reshape(batch_shape + (self.n,))
 
@@ -306,43 +313,49 @@ class SparseOperator:
             x = banded.banded_shifted_solve(self._bands, *self._bw, flat, factor)
         elif self._solver == 'block_tridiag':
             if node is not None and self._prep is not None:
-                x = self._prepared_solve(flat, factor, node)
+                x = self._prepared_solve(flat, factor, node, batch_ndim)
             else:
                 fac = banded.block_cr_shifted_factor(*self._blocks, factor, dtype=flat.dtype, device=flat.device)
                 nb = self.n // self._block
                 shaped = flat.reshape(flat.shape[:-1] + (nb, self._block))
                 x = banded.block_cr_solve(fac, shaped).reshape(flat.shape)
         elif self._solver == 'pcg':
-            x, _ = self._pcg(flat, factor, tol, maxiter, x0)
+            x, _ = self._pcg(flat, factor, tol, maxiter, x0, batch_ndim)
         else:
             x0f = None if x0 is None else x0.reshape(batch_shape + (self.n,))
             # floor the tolerance at the dtype's reachable residual level:
             # the 1e-12 default would spin f32 solves to maxiter
-            x = self._cg(flat, factor, max(tol, 50 * torch.finfo(rhs.dtype).eps), maxiter, x0f)
+            tol = max(tol, 50 * torch.finfo(rhs.dtype).eps)
+            x = self._cg(flat, factor, tol, maxiter, x0f, batch_ndim)
         return x.reshape(rhs.shape)
 
     def _shifted_mv(self, factor):
         return lambda v: v - factor * self._mv(v)
 
-    def _cg(self, b, factor, tol, maxiter, x0=None):
+    def _cg(self, b, factor, tol, maxiter, x0=None, batch_ndim=0):
         """Unpreconditioned CG on ``(I - factor*A) x = b``: ``jax.scipy``'s CG
-        (:func:`pysdc_tpu_torch.ops.krylov.cg`) over the whole flattened batch."""
-        x, info = cg(self._shifted_mv(factor), b, x0, tol=tol, maxiter=maxiter)
+        (:func:`pysdc_tpu_torch.ops.krylov.cg`), one system for each entry of the ``batch_ndim`` leading axes."""
+        x, info = cg(self._shifted_mv(factor), b, x0, tol=tol, maxiter=maxiter, batch_ndim=batch_ndim)
         self.host_reads += info.reads
         return x
 
-    def _pcg(self, flat, factor, tol, maxiter, x0=None):
+    def _pcg(self, flat, factor, tol, maxiter, x0=None, batch_ndim=0):
         """Preconditioned CG on ``(I - factor*A) x = flat``.
 
         The preconditioner is one exact spectral solve of the separable
         surrogate; the depth is set by the coefficient variation, not the
         grid.  Deferred-z order as in the JAX package: the preconditioner
         solve runs at the top of each iteration, so k iterations cost k
-        solves; the inner products and the stopping norm run over the whole
-        flattened batch.  Returns ``(x, iterations)`` (``None`` inside a CUDA
-        graph capture, which reads nothing)."""
+        solves, and the first iteration's ``beta = 0`` comes from the
+        iteration counter carried on the device.  The inner products and the
+        stopping norm run over each system (``batch_ndim`` leading axes; 0: the
+        whole flattened batch is one).  Returns ``(x, iterations)``: an int for
+        one system, a list for several, ``None`` inside a CUDA graph capture
+        (which reads nothing)."""
         tol = max(tol, 50 * torch.finfo(flat.dtype).eps)
         mv = self._shifted_mv(factor)
+        dims = tuple(range(batch_ndim, flat.dim()))
+        lead = tuple(flat.shape[:batch_ndim])
 
         def M(r):
             grid = r.reshape(r.shape[:-1] + self.grid_shape)
@@ -354,31 +367,32 @@ class SparseOperator:
         else:
             x = x0.reshape(flat.shape)
             r = flat - mv(x)
-        bound = tol * torch.linalg.vector_norm(flat)
-        step = [0]
+        bound = tol * _system_norm(flat, batch_ndim)
 
         def body(carry, flags):
-            x, r, p, rz_prev = carry
+            x, r, p, rz_prev, k = carry
             z = M(r)
-            rz = torch.sum(r * z)
-            p = z if step[0] == 0 else z + (rz / rz_prev) * p
-            step[0] += 1
+            rz = (r * z).sum(dim=dims)
+            beta = torch.where(k == 0, torch.zeros_like(rz), rz / rz_prev)
+            p = z + behind(beta, z) * p
             Ap = mv(p)
-            alpha = rz / torch.sum(p * Ap)
-            return x + alpha * p, r - alpha * Ap, p, rz
+            alpha = behind(rz / (p * Ap).sum(dim=dims), p)
+            return x + alpha * p, r - alpha * Ap, p, rz, k + 1
 
-        out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1]) > bound,
-                          (x, r, torch.zeros_like(flat), torch.ones((), dtype=flat.dtype, device=flat.device)),
-                          maxiter)
+        counter = torch.zeros(lead, dtype=torch.int32, device=flat.device)
+        out = masked_loop(body, lambda c: _system_norm(c[1], batch_ndim) > bound,
+                          (x, r, torch.zeros_like(flat), torch.ones(lead, dtype=flat.dtype, device=flat.device),
+                           counter), maxiter)
         self.host_reads += out.reads
-        k = None if out.host_counts is None else out.host_counts[0]
-        self.pcg_solves += 1
-        self.pcg_steps += out.steps
-        if k is not None:
-            self.pcg_iterations += k
-            if self.pcg_trace is not None:
-                self.pcg_trace.append(k)
-        return out.carry[0], k
+        self.pcg_solves += counter.numel()
+        if out.steps is not None:
+            self.pcg_steps += out.steps
+        if out.host_counts is None:
+            return out.carry[0], None
+        self.pcg_iterations += sum(out.host_counts)
+        if self.pcg_trace is not None:
+            self.pcg_trace.extend(out.host_counts)
+        return out.carry[0], (out.host_counts[0] if batch_ndim == 0 else list(out.host_counts))
 
     def solve_shifted_info(self, rhs, factor, tol=1e-12, maxiter=1000):
         """Like :meth:`solve_shifted` but also returns the Krylov iteration
@@ -394,17 +408,11 @@ class SparseOperator:
     def solver_kind(self):
         return self._solver
 
-    @property
-    def graph_capture_blocker(self):
-        """Why a CUDA graph cannot hold this operator's solves (None where it can): an iterative solve to a
-        tolerance would be captured as ``maxiter`` masked iterations."""
-        if self._solver in ('pcg', 'cg'):
-            return (f"SparseOperator(solver={self._solver!r}) iterates to a tolerance; inside a CUDA graph it would "
-                    f"run its maxiter masked iterations: this configuration runs on the stage-machine path")
-        if self._prep is not None:
-            return ('the prepared block-tridiagonal solve refines to a tolerance (up to 50 masked iterations inside '
-                    'a CUDA graph): this configuration runs on the stage-machine path')
-        return None
+
+
+def _system_norm(x, batch_ndim):
+    """2-norm of each system: over the axes behind the ``batch_ndim`` leading ones."""
+    return torch.linalg.vector_norm(x, dim=tuple(range(batch_ndim, x.dim())))
 
 
 def assemble_ndim_fd(per_dim: list[dict], scale: float = 1.0):

@@ -25,6 +25,13 @@ buffers:
   to eager on the card;
 - on a CPU tensor the same pieces run eagerly (that is what the tests drive).
 
+The iterative solves inside the pieces (PCG, CG, GMRES, the Newton loops, the
+refinement of a prepared factorization) are captured as device ``while``
+loops (:mod:`pysdc_tpu_torch.ops.graph_loop`, conditional WHILE nodes, nested
+where the loops nest): each replay runs them to tolerance, or to their
+``maxiter``, exactly as the stage lane and the JAX package's
+``lax.while_loop`` do, and reads nothing on the host.
+
 The host reads one device value while a block runs: ``cont``, after every
 check but the first (``max(1, max niter)`` reads a block).  The work after the
 first check is enqueued unread: every piece of the work is masked by the
@@ -58,8 +65,7 @@ The adaptive lane (``run_fused_adaptive``) runs the embedded-error adaptivity
 stack.  ``Adaptivity`` needs ``restol < 0``, so every step runs exactly
 ``maxiter`` iterations and a block is ``start``, ``maxiter`` x (``check``,
 ``work``) and a final ``check`` with no ``cont`` read at all, then ONE fetch
-of the residual history, the error-estimate history and the problems' Newton
-flags.  The hook points and the genuine IT_CHECK policy sequence (dt
+of the residual history and the error-estimate history.  The hook points and the genuine IT_CHECK policy sequence (dt
 proposal, limiters, restart cascade) are then replayed on the host from the
 fetched histories through the same policy objects as the stage machine.  The
 final check's estimator reads its own norm (one small read per step of the
@@ -79,6 +85,7 @@ from pysdc_tpu_torch.convergence.basic_restarting import BasicRestarting
 from pysdc_tpu_torch.convergence.check_convergence import CheckConvergence
 from pysdc_tpu_torch.convergence.spread_step_sizes import SpreadStepSizesBlockwise
 from pysdc_tpu_torch.core.errors import ControllerError
+from pysdc_tpu_torch.ops import graph_loop
 from pysdc_tpu_torch.parallel.mesh import TimeShards
 
 
@@ -461,6 +468,8 @@ class _BlockProgram:
         torch.cuda.current_stream(self.u0.device).wait_stream(side)
         torch.cuda.synchronize(self.u0.device)
 
+        # the device loops' library, body streams and pools: a capture may not make them
+        graph_loop.prepare(self.u0.device)
         # a CUDA graph that is garbage (an earlier controller's program) must go now: the collector could
         # otherwise destroy it in the middle of a capture, which CUDA does not permit and which ends the capture
         gc.collect()
@@ -627,10 +636,6 @@ class _FusedAdaptiveBlock(_Programs):
         for C in ctrl.convergence_controllers:
             if isinstance(C, EstimateEmbeddedError):
                 self.rel_error = bool(C.params.rel_error)
-        #: the device flags "a Newton solve was cut by the capture's fixed depth", one per problem that has one
-        self.newton_flags = [
-            blk.level.prob.newton_failed for blk in ctrl.blocks if hasattr(blk.level.prob, 'newton_failed')
-        ]
 
     def _pieces(self):
         ctrl, parts = self.ctrl, self.parts
@@ -638,7 +643,6 @@ class _FusedAdaptiveBlock(_Programs):
         P = ctrl.num_procs
         maxiter = self.maxiter
         rel_error = self.rel_error
-        flags = self.newton_flags
         rows = torch.arange(maxiter + 1, device=ctrl.device).unsqueeze(1)
         no_prev = torch.zeros((P,), dtype=torch.bool, device=ctrl.device)
 
@@ -647,8 +651,6 @@ class _FusedAdaptiveBlock(_Programs):
             return x.abs().flatten(1).amax(dim=1) if x.dim() > 1 else x.abs()
 
         def start(u0, t_arr, window, dts):
-            for flag in flags:
-                flag.zero_()
             dts = dts.unbind(0)
             states, uends = parts.spread(u0, t_arr, dts)
             states, uends = parts.predict(states, uends, t_arr, dts, window)
@@ -689,7 +691,7 @@ class _FusedAdaptiveBlock(_Programs):
 
     def __call__(self, u0, t_arr, dts, window):
         """One block of exactly ``maxiter`` iterations from ``u0``:
-        ``(fine_state, uend_block, res_hist, e_hist, prev_last, newton_flags)``.
+        ``(fine_state, uend_block, res_hist, e_hist, prev_last)``.
         No host read; the tensors are the program's own buffers, valid until
         the next call."""
         inputs = self._inputs(u0, t_arr, window, dts)
@@ -701,7 +703,7 @@ class _FusedAdaptiveBlock(_Programs):
             prog.run('work')
         prog.run('check')
         c = prog.carry
-        return c.states[0], c.uends[0], c.res_hist, c.e_hist, c.prev_last, self.newton_flags
+        return c.states[0], c.uends[0], c.res_hist, c.e_hist, c.prev_last
 
 
 def build_fused_adaptive_block(ctrl):
@@ -716,7 +718,7 @@ def build_fused_adaptive_block(ctrl):
     from ``StoreUOld`` snapshots, estimate_embedded_error.py:9-150).
 
     Returns ``fused_adaptive(u0, t_arr, dts, window) -> (fine_state,
-    uend_block, res_hist, e_hist, prev_last, newton_flags)`` with histories
+    uend_block, res_hist, e_hist, prev_last)`` with histories
     shaped (maxiter+1, P) and ``dts`` the per-level step sizes.
     """
     return _FusedAdaptiveBlock(ctrl)
@@ -765,11 +767,6 @@ def run_fused(ctrl, u0, t0, Tend):
         hook.reset_stats()
     hooks0 = ctrl.hooks[0]
     ctrl.host_reads = {'cont': 0, 'fetch': 0}
-    # the device flags "a Newton solve was cut by the capture's fixed depth", cleared for the march and read
-    # with its one fetch
-    flags = [blk.level.prob.newton_failed for blk in ctrl.blocks if hasattr(blk.level.prob, 'newton_failed')]
-    for flag in flags:
-        flag.zero_()
 
     P = ctrl.num_procs
     dt = float(ctrl.MS[0].levels[0].params.dt)
@@ -820,19 +817,13 @@ def run_fused(ctrl, u0, t0, Tend):
         uend = uend_block[n_active - 1]
         t += n_active * dt
 
-    if marched:  # the one fetch of the march: counts, histories and the Newton flags in one transfer
+    if marched:  # the one fetch of the march: counts and histories in one transfer
         ctrl.host_reads['fetch'] += 1
         iters = torch.stack([b[1] for b in marched])
         res = torch.stack([b[2] for b in marched])
-        parts = [iters.flatten().to(res.dtype), res.flatten()] + [f.to(res.dtype).reshape(1) for f in flags]
-        fetched = torch.cat(parts).cpu().numpy()
+        fetched = torch.cat([iters.flatten().to(res.dtype), res.flatten()]).cpu().numpy()
         iters_h = fetched[:iters.numel()].reshape(tuple(iters.shape)).astype(np.int64)
-        res_h = fetched[iters.numel():iters.numel() + res.numel()].reshape(tuple(res.shape))
-        if fetched[iters.numel() + res.numel():].any():
-            raise ControllerError(
-                'a Newton solve of the fused march did not reach newton_tol within the fixed depth that a CUDA '
-                'graph capture allows (CAPTURE_DEPTH); run this configuration on the stage lane'
-            )
+        res_h = fetched[iters.numel():].reshape(tuple(res.shape))
         for (t_block, _, _, n_active), it_b, res_b in zip(marched, iters_h, res_h):
             emit_stats(t_block, it_b, res_b, n_active)
 
@@ -865,23 +856,17 @@ def advance_fused_adaptive(ctrl, block):
     # the new dt; coarser levels keep theirs (reference per-level spreading,
     # spread_step_sizes.py:133-154)
     dts = [ctrl._block_dt(block, l) for l in range(ctrl.nlevels)]
-    fine_state, uend_block, res_hist, e_hist, prev_last, flags = ctrl._fused_adaptive_fn(
+    fine_state, uend_block, res_hist, e_hist, prev_last = ctrl._fused_adaptive_fn(
         block[0].u0, ctrl._block_times(), dts, ctrl._mask_of(block)
     )
     ctrl.blocks[0].state = fine_state
     ctrl.blocks[0].uend = uend_block
-    # the ONE fetch of the block: both histories and the Newton flags in one transfer
+    # the ONE fetch of the block: both histories in one transfer
     ctrl.host_reads['fetch'] += 1
-    parts = [res_hist.flatten(), e_hist.flatten()] + [f.to(res_hist.dtype).reshape(1) for f in flags]
-    fetched = torch.cat(parts).cpu().numpy().astype(np.float64)
+    fetched = torch.cat([res_hist.flatten(), e_hist.flatten()]).cpu().numpy().astype(np.float64)
     n = res_hist.numel()
     res_h = fetched[:n].reshape(tuple(res_hist.shape))
-    e_h = fetched[n:2 * n].reshape(tuple(e_hist.shape))
-    if fetched[2 * n:].any():
-        raise ControllerError(
-            'a Newton solve of the adaptive fused block did not reach newton_tol within the fixed depth that a '
-            'CUDA graph runs (ops/loops.py: CAPTURE_DEPTH); run this configuration with lane=\'stage\''
-        )
+    e_h = fetched[n:].reshape(tuple(e_hist.shape))
 
     maxiter = int(ctrl.MS[0].params.maxiter)
     nsw = ctrl.nsweeps[0]

@@ -30,7 +30,6 @@ from pysdc_tpu.models.odes import newton_solve as jax_newton_solve
 from pysdc_tpu.sweepers.imex import IMEXSweeper as JaxIMEX
 from pysdc_tpu_torch.core.errors import ControllerError, ParameterError
 from pysdc_tpu_torch.hooks import logging_hooks as thooks
-from pysdc_tpu_torch.models import odes
 from pysdc_tpu_torch.ops import loops
 from pysdc_tpu_torch.models.allen_cahn import AllenCahnPeriodicND, AllenCahnPeriodicSemiImplicitND
 from pysdc_tpu_torch.models.odes import NewtonODE, VanDerPol, newton_solve
@@ -392,21 +391,26 @@ def test_jacobian_by_hand_equals_forward_mode():
 
 
 def test_newton_under_capture_runs_a_fixed_depth_and_flags(monkeypatch):
-    """While a graph is captured the loop cannot read: fixed depth, and a system it cuts short sets the flag."""
+    """While a graph is captured the loop cannot read: it is a device ``while`` loop (the name is kept from the
+    fixed depth and the flag this replaced) that runs to ``newton_tol`` as eager does; a solve that reaches
+    ``newton_maxiter`` ends there, as eager does, and raises nothing."""
     rng = np.random.RandomState(3)
-    prob = VanDerPol(device='cpu', newton_tol=1e-12)
     rhs = torch.as_tensor(rng.uniform(-2, 2, (4, 2)))
-    eager = prob.solve_system(rhs, 0.05, rhs, 0.0)
-    monkeypatch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
-    fixed = prob.solve_system(rhs, 0.05, rhs, 0.0)
-    np.testing.assert_allclose(fixed.numpy(), eager.numpy(), rtol=0, atol=1e-14)
-    assert not bool(prob.newton_failed)
-    monkeypatch.setattr(odes, 'CAPTURE_DEPTH', 1)
-    prob.solve_system(rhs, 0.05, rhs, 0.0)
-    assert bool(prob.newton_failed)
+    prob = VanDerPol(device='cpu', newton_tol=1e-12)
     f = lambda u: prob.eval_f(u, 0.0)  # noqa: E731
-    with pytest.raises(RuntimeError, match='failed'):
-        newton_solve(f, lambda u: prob.eval_jacobian(u, 0.0), rhs, 0.05, rhs, 1e-12, 50)
+    jac = lambda u: prob.eval_jacobian(u, 0.0)  # noqa: E731
+    eager = prob.solve_system(rhs, 0.05, rhs, 0.0)
+    trace = []
+    one_step = newton_solve(f, jac, rhs, 0.05, rhs, 1e-12, 1, trace=trace)
+    assert trace == [[1, 1, 1, 1]]
+    monkeypatch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
+    captured = prob.solve_system(rhs, 0.05, rhs, 0.0)
+    np.testing.assert_allclose(captured.numpy(), eager.numpy(), rtol=0, atol=1e-14)
+    trace = []
+    cut = newton_solve(f, jac, rhs, 0.05, rhs, 1e-12, 1, trace=trace)
+    assert trace == [None]  # a capture reads no count
+    np.testing.assert_allclose(cut.numpy(), one_step.numpy(), rtol=0, atol=1e-14)
+    assert not np.allclose(cut.numpy(), eager.numpy(), rtol=0, atol=1e-8)
 
 
 def test_van_der_pol_matches():

@@ -24,7 +24,6 @@ import pysdc_tpu.models.allen_cahn as jac
 import pysdc_tpu.models.fisher as jfisher
 import pysdc_tpu_torch
 from pysdc_tpu.sweepers.imex import IMEXSweeper as JaxIMEX
-from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.models import allen_cahn as tac
 from pysdc_tpu_torch.models.fisher import GeneralizedFisher1D
 from pysdc_tpu_torch.core.state import Comp2
@@ -150,21 +149,23 @@ def test_slice_main_path_on_both_lanes_of_the_block_controller():
             assert set(ours) == set(theirs)
             for k, v in theirs.items():
                 assert np.isclose(ours[k], v, rtol=1e-6, atol=1e-13), k
-    assert not bool(got['ctrl'].MS[0].levels[0].prob.newton_failed)
+    prob = got['ctrl'].MS[0].levels[0].prob
+    assert got['trace'] and all(0 < k < prob.newton_maxiter for k, _ in got['trace'])  # every Newton to newton_tol
 
 
 def test_sparse_backend_runs_on_the_stage_lane_and_names_why():
-    """The sparse backend's preconditioner is an iterative CG: a CUDA graph would hold its maxiter masked
-    iterations, so the fused lane refuses it by name before any capture and ``'auto'`` takes the stage lane."""
+    """The sparse backend's preconditioner is an iterative CG, a device ``while`` loop inside Newton's PCG inside
+    the fused lanes' graphs: ``'auto'`` takes the fused lane, as in the JAX package (the name is kept from the
+    refusal this replaced), and the run equals the JAX block's and the port's own serial run."""
+    want = _jax_run('periodic-sparse', 'sharded', 2)
     own, got = _torch_run('periodic-sparse', 'nonmpi', 2), _torch_run('periodic-sparse', 'sharded', 2, 'auto')
-    assert [v for k, v in got['stats'].items() if k.type == 'lane'] == ['stage']
-    assert got['niter'] == own['niter'] and len(got['niter']) == 2
+    assert [v for k, v in want['stats'].items() if k.type == 'lane'] == ['fused']
+    assert [v for k, v in got['stats'].items() if k.type == 'lane'] == ['fused']
+    assert got['niter'] == own['niter'] == want['niter'] and len(got['niter']) == 2
     close(got['uend'], own['uend'])
-    pkg, desc = _description('torch', 'periodic-sparse')
-    ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
-    assert ctrl.MS[0].levels[0].prob.A.solver_kind == 'cg'
-    with pytest.raises(ControllerError, match='stage-machine path'):
-        ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 2e-3, lane='fused')
+    close(got['uend'], want['uend'])
+    assert got['ctrl'].MS[0].levels[0].prob.A.solver_kind == 'cg'
+    assert got['ctrl'].MS[0].levels[0].prob.graph_capture_blocker is None
 
 
 @pytest.mark.parametrize('linear', [False, True])

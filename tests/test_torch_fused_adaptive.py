@@ -18,7 +18,6 @@ import pysdc_tpu
 import pysdc_tpu_torch
 from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.core.hooks import Hooks
-from pysdc_tpu_torch.models import odes
 from pysdc_tpu_torch.ops import loops
 from pysdc_tpu_torch.parallel import fused
 from pysdc_tpu_torch.utils.convert import dts_to_torch, to_numpy, to_torch
@@ -271,9 +270,9 @@ def test_one_program_two_step_sizes_equal_two_fresh_controllers():
     calls = [([1e-3, 1e-3], 0.0), ([2.5e-4, 1e-3], 0.0), (dts_to_torch([4e-4, 5e-4], 'cpu'), 1e-3)]
     for dts, t0 in calls:
         t_arr = t0 + float(dts[0]) * np.arange(4)
-        state, uend, res, est, prev, _ = fn(u0, t_arr, dts, window)
+        state, uend, res, est, prev = fn(u0, t_arr, dts, window)
         _, other = fresh()
-        s2, u2, r2, e2, p2, _ = other(u0, t_arr, dts, window)
+        s2, u2, r2, e2, p2 = other(u0, t_arr, dts, window)
         assert torch.equal(uend, u2) and torch.equal(res, r2) and torch.equal(est, e2) and torch.equal(prev, p2)
         assert torch.equal(state.u, s2.u) and torch.equal(state.f.expl, s2.f.expl)
         assert float(res[1:, :3].min()) > 0 and float(res[:, 3].abs().max()) == 0  # the inactive step records nothing
@@ -302,9 +301,8 @@ def test_adaptive_block_program_matches_live_jax_program():
 
     pkg, desc = description('torch', parts)
     ctrl = pkg.ShardedController(4, cp, desc)
-    state, uend, res, est, prev, flags = fused.build_fused_adaptive_block(ctrl)(
+    state, uend, res, est, prev = fused.build_fused_adaptive_block(ctrl)(
         to_torch(u0, 'cpu'), t_arr, dts_to_torch(dts, 'cpu'), window)
-    assert flags == []  # the Allen-Cahn solve is linear: no Newton flag
     np.testing.assert_allclose(to_numpy(res), np.asarray(jres), rtol=1e-7, atol=1e-13)
     np.testing.assert_allclose(to_numpy(est), np.asarray(jest), rtol=1e-7, atol=1e-13)
     np.testing.assert_allclose(to_numpy(uend)[:3], np.asarray(juend)[:3], rtol=0, atol=1e-11)
@@ -389,15 +387,24 @@ def test_returned_uend_is_not_a_view_of_the_program_buffers():
 
 
 def test_newton_flag_of_a_captured_block_raises(monkeypatch):
-    """A Newton solve that the fixed depth of a capture cuts short sets the device flag; the block's one fetch
-    brings it to the host, which raises."""
+    """Inside a captured block the Newton solves are device ``while`` loops (the name is kept from the fixed
+    depth and the flag this replaced): a solve runs to ``newton_tol`` as the stage lane's does, and one that
+    reaches ``newton_maxiter`` ends there, as eager does, and raises nothing.  The capture is simulated on the
+    CPU through ``loops.capturing``."""
     parts, num_procs, cp, _ = RUNS['vdp-block']
-    pkg, desc = description('torch', parts)
-    ctrl = pkg.ShardedController(num_procs, {'logger_level': 40, **cp}, desc)
-    u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
-    monkeypatch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
-    uend, _ = ctrl.run(u0, 0.0, 0.04)  # depth 8 is enough: the flag stays clear
-    assert torch.isfinite(uend).all() and not bool(ctrl.blocks[0].level.prob.newton_failed)
-    monkeypatch.setattr(odes, 'CAPTURE_DEPTH', 1)
-    with pytest.raises(ControllerError, match='did not reach newton_tol'):
-        ctrl.run(u0, 0.0, 0.04)
+    for newton_maxiter in (99, 1):
+        part = dict(parts, problem_params=dict(parts['problem_params'], newton_maxiter=newton_maxiter))
+        runs = {}
+        for lane in ('stage', 'fused_adaptive'):
+            pkg, desc = description('torch', part)
+            ctrl = pkg.ShardedController(num_procs, {'logger_level': 40, **cp}, desc)
+            u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+            with monkeypatch.context() as patch:
+                if lane != 'stage':
+                    patch.setattr(loops, 'capturing', lambda u: True)  # the masked loop's and the solve's test
+                runs[lane], _ = ctrl.run(u0, 0.0, 0.04, lane=lane)
+        assert torch.isfinite(runs['stage']).all()
+        np.testing.assert_allclose(to_numpy(runs['fused_adaptive']), to_numpy(runs['stage']), rtol=0, atol=1e-12)
+        if newton_maxiter == 99:
+            converged = runs['stage']
+    assert not torch.equal(runs['stage'], converged)  # one Newton step a solve: another run

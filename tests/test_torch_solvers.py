@@ -199,28 +199,29 @@ def test_masked_loop_counts_and_host_counts():
 
 
 def test_capture_runs_a_fixed_depth_and_sets_the_flag(monkeypatch):
-    """Inside a CUDA graph capture nothing is read: PCG runs lin_maxiter masked iterations (exact), Newton
-    min(newton_maxiter, CAPTURE_DEPTH) and sets ``failed`` only where that depth cut a solve short.  The capture
-    is simulated on the CPU through ``loops.capturing``."""
+    """Inside a CUDA graph capture nothing is read, and Newton and each PCG run as device ``while`` loops to
+    their tolerance (the name is kept from the fixed depth and the ``failed`` flag this replaced): the steps
+    computed equal the eager counts and the result equals the eager one bit for bit.  A solve cut by
+    ``newton_maxiter`` ends there, as eager does, and raises nothing.  The capture is simulated on the CPU
+    through ``loops.capturing`` (the device loop's plain version)."""
     _, tprob = _problems()
     u, rhs = (torch.as_tensor(x) for x in _fields())
-    eager, info = solvers.newton_pde(tprob.A.apply, tprob.A.solve_shifted, tprob._reaction, tprob._reaction_prime,
-                                     rhs, FACTOR, u, newton_tol=1e-10, newton_maxiter=100)
+
+    def solve(maxiter):
+        return solvers.newton_pde(tprob.A.apply, tprob.A.solve_shifted, tprob._reaction, tprob._reaction_prime,
+                                  rhs, FACTOR, u, newton_tol=1e-10, newton_maxiter=maxiter)
+
+    eager, info = solve(100)
+    short, short_info = solve(info.iterations[0] - 1)
     monkeypatch.setattr(loops, 'capturing', lambda x: True)
-    failed = torch.zeros((), dtype=torch.bool)
-    captured, cinfo = solvers.newton_pde(tprob.A.apply, tprob.A.solve_shifted, tprob._reaction,
-                                         tprob._reaction_prime, rhs, FACTOR, u, newton_tol=1e-10, newton_maxiter=100,
-                                         failed=failed)
+    captured, cinfo = solve(100)
     assert cinfo.reads == 0 and cinfo.iterations is None
-    assert cinfo.steps == loops.CAPTURE_DEPTH and all(p.steps == 50 for p in cinfo.pcg)
-    assert not bool(failed) and torch.equal(captured, eager)
-    monkeypatch.setattr(solvers, 'CAPTURE_DEPTH', info.iterations[0] - 1)
-    solvers.newton_pde(tprob.A.apply, tprob.A.solve_shifted, tprob._reaction, tprob._reaction_prime, rhs, FACTOR, u,
-                       newton_tol=1e-10, newton_maxiter=100, failed=failed)
-    assert bool(failed)
-    with pytest.raises(RuntimeError, match='failed'):
-        solvers.newton_pde(tprob.A.apply, tprob.A.solve_shifted, tprob._reaction, tprob._reaction_prime, rhs,
-                           FACTOR, u, newton_tol=1e-10, newton_maxiter=100)
+    assert cinfo.steps == info.steps == info.iterations[0] > 1
+    assert [p.steps for p in cinfo.pcg] == [p.steps for p in info.pcg] == [p.iterations[0] for p in info.pcg]
+    assert all(0 < p.steps < 50 for p in cinfo.pcg)
+    assert torch.equal(captured, eager)
+    cut, cut_info = solve(info.iterations[0] - 1)
+    assert cut_info.steps == short_info.steps == info.iterations[0] - 1 and torch.equal(cut, short)
 
 
 # -- the sparse lane's loops, repaired ---------------------------------------------------------------------------------

@@ -175,5 +175,4 @@ def test_gray_scott_multi_implicit_solves(cls):
         jgs._newton_2x2_pointwise = orig
     tprob.newton_trace = []
     close(tprob.solve_system_2(trhs, factor, tu, 0.0), want)
-    assert tprob.newton_trace == [len(calls)] and len(calls) >= 2
-    assert not bool(tprob.newton_failed)
+    assert tprob.newton_trace == [len(calls)] and 2 <= len(calls) < tprob.newton_maxiter
