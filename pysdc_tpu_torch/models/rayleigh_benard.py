@@ -15,7 +15,8 @@ pressure, buoyancy, incompressibility) is implicit; convection is explicit
 with 3/2 dealiasing.  The whole linear system is a declaration on the generic
 tensor-product layer (:mod:`pysdc_tpu_torch.ops.spectral`): basis conversion,
 tau lines and the batched per-Fourier-mode dense solves live there.  The fused
-lanes refuse these problems (:attr:`graph_capture_blocker`).
+lanes capture these problems; ``CFLLimit`` runs on the stage machine, as in
+the JAX package.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ The counterparts of ``pysdc_tpu/models/spectral_problems.py`` (reference
 ``HeatEquation_Chebychev.py`` and ``Burgers.py``) on the generic
 tensor-product spectral layer (:mod:`pysdc_tpu_torch.ops.spectral`).  Every
 problem here is a pure declaration: the engine handles basis conversion, tau
-lines and the batched solves (one ``torch.linalg.solve_ex`` over the modes).
-The fused lanes refuse them (:attr:`graph_capture_blocker`).
+lines and the batched solves (one ``torch.linalg.solve_ex`` over the modes,
+:mod:`pysdc_tpu_torch.ops.linalg`).  The fused lanes capture them.
 """
 
 from __future__ import annotations
@@ -20,15 +20,8 @@ from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX
 from pysdc_tpu_torch.ops.spectral import TensorProductSpectral, UltrasphericalBase1D
 
-#: why the fused lanes' CUDA graphs do not hold the spectral problems' solves
-SPECTRAL_BLOCKER = ('the tensor-product spectral solve (ops/spectral.py: a batched LU solve over the modes, '
-                    'torch.linalg.solve_ex) is not held against the fused lanes; run the stage lane')
-
-
 class _SpectralProblem(Problem):
     """What the problems on :class:`TensorProductSpectral` share."""
-
-    graph_capture_blocker = SPECTRAL_BLOCKER
 
     def solve_system(self, rhs, factor, u0, t):
         return self.spec.solve_shifted(rhs, factor)

@@ -3,7 +3,8 @@ block cyclic reduction.
 
 The counterpart of ``pysdc_tpu/ops/banded.py``: the answer to the reference's
 cached ``splu`` of ``(I - dt*q*A)`` (``generic_ND_FD.py:208-240``).  The
-shift is a plain number; every solver batches over leading axes of the RHS.
+shift is a number or a 0-d tensor; every solver batches over leading axes of
+the RHS.
 
   - :func:`tridiag_pcr_solve` — parallel cyclic reduction (PCR): O(log n)
     full-width elementwise steps.
@@ -11,9 +12,12 @@ shift is a plain number; every solver batches over leading axes of the RHS.
     the reference path PCR is held against.
   - :func:`banded_factor` / :func:`banded_solve` — LU without pivoting in
     band storage for small bandwidths (diagonally dominant shifted FD
-    operators need no pivoting).  The elimination is sequential by nature
-    and runs on the host in float64; the substitution runs on the RHS's
-    device.
+    operators need no pivoting): the JAX package's row scan, a row at a time
+    on the device.
+  - :func:`banded_shifted_solve` — ``(I - factor*A) x = b`` for a banded A:
+    the banded matrix as a block-tridiagonal one (:func:`band_blocks`, blocks
+    of the bandwidth's size) and block cyclic reduction, O(log n) batched
+    steps that a CUDA graph holds (the row scan would be ``n`` steps).
   - :func:`block_cr_factor` / :func:`block_cr_solve` — block cyclic
     reduction with dense ``(b, b)`` blocks: O(log nb) levels, each a batched
     inverse and batched products.  The factor/solve split lets a level
@@ -22,9 +26,12 @@ shift is a plain number; every solver batches over leading axes of the RHS.
     path block CR is held against.
 
 Where the JAX package runs ``lax.scan`` the port runs a Python loop.  Dense
-block inverses and products go to ``torch.linalg.inv`` and ``torch.matmul``
-in full precision (TF32 is off, :mod:`pysdc_tpu_torch.core.precision`), as
-the JAX package leaves them to XLA at ``Precision.HIGHEST``.
+block inverses and solves go to :mod:`pysdc_tpu_torch.ops.linalg` (no check
+read on the host, a library that a CUDA graph capture takes) and products to
+``torch.matmul``, in full precision (TF32 is off,
+:mod:`pysdc_tpu_torch.core.precision`), as the JAX package leaves them to XLA
+at ``Precision.HIGHEST``.  Nothing here reads a value on the host: a shift
+may be a 0-d tensor on the device.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from pysdc_tpu_torch.core.device import resolve_device
 from pysdc_tpu_torch.core.errors import ProblemError
+from pysdc_tpu_torch.ops import linalg
 
 
 # ----------------------------------------------------------------------
@@ -131,22 +139,20 @@ def banded_factor(bands, lower_bw, upper_bw):
     ``bands[j, i] = A[i, i + j - lower_bw]`` for j in 0..lower_bw+upper_bw.
     Returns the factored rows ``(n, lower_bw + upper_bw + 1)`` on ``bands``'
     device and in its dtype: multipliers stored below column ``lower_bw``,
-    U at and above it.  The elimination runs on the host in float64.
+    U at and above it.  The JAX package's row scan, one row at a time on the
+    device (nothing is read on the host).
     """
     lb, ub = lower_bw, upper_bw
-    work = bands.detach().cpu().double().numpy().T.copy()  # (n, width) row-major
+    work = bands.T.clone()  # (n, width) row-major
     n = work.shape[0]
     for i in range(n):
         pivot = work[i, lb]
-        for r in range(1, lb + 1):
+        for r in range(1, min(lb, n - 1 - i) + 1):
             row = i + r
-            if row >= n:
-                break
             mult = work[row, lb - r] / pivot
-            for c in range(1, ub + 1):
-                work[row, lb - r + c] = work[row, lb - r + c] - mult * work[i, lb + c]
+            work[row, lb - r + 1:lb - r + ub + 1] -= mult * work[i, lb + 1:lb + ub + 1]
             work[row, lb - r] = mult
-    return torch.as_tensor(work, dtype=bands.dtype, device=bands.device)
+    return work
 
 
 def banded_solve(factored, lower_bw, upper_bw, rhs):
@@ -156,31 +162,59 @@ def banded_solve(factored, lower_bw, upper_bw, rhs):
     """
     n = factored.shape[0]
     lb, ub = lower_bw, upper_bw
-    fac = factored.detach().cpu().double().tolist()
     ys = []
     # forward substitution: y[i] = b[i] - sum_r mult[i, r] * y[i - r]
     for i in range(n):
         acc = rhs[..., i]
         for r in range(1, min(lb, i) + 1):
-            acc = acc - fac[i][lb - r] * ys[i - r]
+            acc = acc - factored[i, lb - r] * ys[i - r]
         ys.append(acc)
     # back substitution: x[i] = (y[i] - sum_c U[i, c] * x[i + c]) / U[i, 0]
     xs = [None] * n
     for i in range(n - 1, -1, -1):
         acc = ys[i]
         for c in range(1, min(ub, n - 1 - i) + 1):
-            acc = acc - fac[i][lb + c] * xs[i + c]
-        xs[i] = acc / fac[i][lb]
+            acc = acc - factored[i, lb + c] * xs[i + c]
+        xs[i] = acc / factored[i, lb]
     return torch.stack(xs, dim=-1)
 
 
-def banded_shifted_solve(bands_np, lower_bw, upper_bw, rhs, factor):
+def band_blocks(bands, lower_bw, upper_bw):
+    """A banded matrix (band storage, numpy) as a block-tridiagonal one: numpy ``(sub, diag, sup)`` block bands of
+    ``b = max(lower_bw, upper_bw, 1)`` rows, ``(nb, b, b)`` each with ``nb = ceil(n / b)``; the rows past ``n``
+    that fill the last block are zero."""
+    bands = np.asarray(bands, dtype=float)
+    n = bands.shape[1]
+    b = max(lower_bw, upper_bw, 1)
+    nb = -(-n // b)
+    blocks = np.zeros((3, nb, b, b))  # sub, diag, sup
+    for j in range(bands.shape[0]):
+        off = j - lower_bw
+        rows = np.arange(max(0, -off), min(n, n - off))
+        cols = rows + off
+        blocks[cols // b - rows // b + 1, rows // b, rows % b, cols % b] = bands[j, rows]
+    return blocks[0], blocks[1], blocks[2]
+
+
+def banded_shifted_solve(bands_np, lower_bw, upper_bw, rhs, factor, blocks=None):
     """Solve ``(I - factor * A) x = rhs`` where A is given in band storage
-    (numpy constants); the factorization of the shift runs per call."""
-    shifted = -float(factor) * np.asarray(bands_np, dtype=float)
-    shifted[lower_bw] = shifted[lower_bw] + 1.0
-    fac = banded_factor(torch.as_tensor(shifted), lower_bw, upper_bw)
-    return banded_solve(fac, lower_bw, upper_bw, rhs)
+    (numpy constants) and ``factor`` is a number or a 0-d tensor.
+
+    The shifted matrix is factored per call by block cyclic reduction over
+    the blocks of :func:`band_blocks` (the JAX package factors by its row scan;
+    the two agree to rounding): O(log n) batched steps on ``rhs``' device and
+    nothing read on the host, so a CUDA graph holds it.  ``blocks`` are the
+    three block bands as tensors on ``rhs``' device in its dtype (an operator's
+    kept constants); made from ``bands_np`` when not given."""
+    n = rhs.shape[-1]
+    if blocks is None:
+        blocks = tuple(torch.as_tensor(x, dtype=rhs.dtype, device=rhs.device)
+                       for x in band_blocks(bands_np, lower_bw, upper_bw))
+    nb, b = blocks[1].shape[0], blocks[1].shape[-1]
+    fac = block_cr_shifted_factor(*blocks, factor, dtype=rhs.dtype, device=rhs.device)
+    padded = torch.nn.functional.pad(rhs, (0, nb * b - n))
+    x = block_cr_solve(fac, padded.reshape(padded.shape[:-1] + (nb, b)))
+    return x.reshape(padded.shape)[..., :n]
 
 
 # ----------------------------------------------------------------------
@@ -213,7 +247,7 @@ def block_cr_factor(sub, diag, sup):
         s_e, s_o = sub[0::2], sub[1::2]
         c_e, c_o = sup[0::2], sup[1::2]
         n_e, n_o = d_e.shape[0], d_o.shape[0]
-        Ainv_o = torch.linalg.inv(d_o)
+        Ainv_o = linalg.inv(d_o)
         # E[r] = sub[2r] @ Ainv(odd 2r-1); E[0] = 0 (row 0 has no left)
         E = torch.zeros_like(d_e)
         E[1:] = _bmm(s_e[1:], Ainv_o[: n_e - 1])
@@ -229,7 +263,7 @@ def block_cr_factor(sub, diag, sup):
         sup_n[:n_o] = -_bmm(F[:n_o], c_o)
         levels.append(dict(Ainv=Ainv_o, E=E, F=F, sub_o=s_o, sup_o=c_o))
         sub, diag, sup, nb = sub_n, diag_n, sup_n, n_e
-    top_inv = torch.linalg.inv(diag[0])
+    top_inv = linalg.inv(diag[0])
     return dict(levels=levels, top_inv=top_inv)
 
 
@@ -269,7 +303,9 @@ def block_cr_solve(factors, rhs):
 
 def block_cr_shifted_factor(sub_np, diag_np, sup_np, factor, dtype=torch.float64, device='cuda'):
     """Factor ``I - factor*A`` for a block-tridiagonal A (numpy band
-    constants), in ``dtype`` on ``device`` (the card unless ``'cpu'`` is asked for)."""
+    constants, or tensors already in ``dtype`` on ``device``, which are not
+    copied), in ``dtype`` on ``device`` (the card unless ``'cpu'`` is asked
+    for); ``factor`` a number or a 0-d tensor."""
     device = resolve_device(device)
     sub = -factor * torch.as_tensor(sub_np, dtype=dtype, device=device)
     sup = -factor * torch.as_tensor(sup_np, dtype=dtype, device=device)
@@ -295,9 +331,9 @@ def block_tridiag_solve(sub, diag, sup, rhs):
     Cs, ds = [], []
     for i in range(nb):
         denom = diag[i] - sub0[i] @ C_prev
-        C_prev = torch.linalg.solve(denom, sup[i])
+        C_prev = linalg.solve(denom, sup[i])
         rhs_row = rhs_moved[i] - torch.einsum('ij,...j->...i', sub0[i], d_prev)
-        d_prev = torch.linalg.solve(denom, rhs_row[..., None])[..., 0]
+        d_prev = linalg.solve(denom, rhs_row[..., None])[..., 0]
         Cs.append(C_prev)
         ds.append(d_prev)
     x_next = torch.zeros_like(rhs_moved[0])

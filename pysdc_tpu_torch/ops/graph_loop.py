@@ -18,9 +18,11 @@ node (CUDA 12.3+, ``pysdc_tpu_torch/csrc/graph_loop.cu``).
   new carry into the very buffers it read (a result that is a view of a
   buffer is cloned first, so no buffer is overwritten before it is read),
   computing the next flag and handing it to the handle;
-- a loop inside the body (Newton's PCG, a GMRES restart's Arnoldi steps)
-  becomes a conditional node of the body graph: its handle is created on the
-  graph its enclosing stream captures into.
+- a loop inside the body (a fused block's Newton solve, Newton's PCG, a
+  GMRES restart's Arnoldi steps) becomes a conditional node of the body graph:
+  its handle is created on the graph its enclosing stream captures into.  The
+  body streams and pools of :data:`PREPARED_DEPTHS` nesting depths are made by
+  :func:`prepare` before a capture; a loop nested deeper raises.
 
 A body holds kernels and copies only: no event, no host read (``.item()``,
 ``bool`` of a tensor), no profiler range, no plan creation (cuFFT and cuBLAS
@@ -55,9 +57,10 @@ from pysdc_tpu_torch.ops.kernels.build import current_stream, load
 #: the oldest runtime and driver with conditional WHILE graph nodes (1000 * major + 10 * minor)
 MIN_CUDA_VERSION = 12030
 
-#: nesting depths whose body streams and pools :func:`prepare` makes: the port's loops nest up to three deep (a
-#: sparse Allen-Cahn Newton step's PCG and its preconditioner's CG); a deeper loop makes its own at capture time
-PREPARED_DEPTHS = 3
+#: nesting depths whose body streams and pools :func:`prepare` makes: the port's loops nest up to four deep (a fused
+#: block's PFASST loop, a sparse Allen-Cahn Newton step in it, the Newton step's PCG and its preconditioner's CG).  A
+#: capture may not make a stream, so a deeper loop raises by name
+PREPARED_DEPTHS = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,7 +109,8 @@ _depth = [0]  # loops being captured, nested
 
 def prepare(device) -> None:
     """Build and load the library and make the body streams and pools of :data:`PREPARED_DEPTHS` nesting depths
-    on ``device``'s card: call before a capture (a capture may not create them)."""
+    on ``device``'s card: call before a capture (a capture may not create them, and :func:`device_while` raises for
+    a loop nested deeper)."""
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
     _library()
@@ -148,6 +152,9 @@ def device_while(flag_fn, body, carry: tuple):
         return plain_while(flag_fn, body, carry)
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError('device_while builds a conditional graph node: call it inside a CUDA graph capture')
+    if _depth[0] >= PREPARED_DEPTHS:
+        raise RuntimeError(f'device_while: a loop nested {_depth[0] + 1} deep; prepare() makes the body streams of '
+                           f'{PREPARED_DEPTHS} depths (PREPARED_DEPTHS), and a capture may not make one')
     lib = _library().lib
     index = device.index if device.index is not None else torch.cuda.current_device()
     res = _depth_resources(index, _depth[0])

@@ -15,8 +15,9 @@ does with scipy CSR + cached ``splu`` (``generic_ND_FD.py:17-240``):
     ``apply_bsr`` applies the block-sparse form through kernel K3
     (:mod:`pysdc_tpu_torch.ops.kernels.bsr`);
   - ``solve_shifted`` picks a structured factorization by bandwidth:
-    parallel cyclic reduction for tridiagonal (plain or periodic), banded LU
-    for small bands, block cyclic reduction for block-tridiagonal, and
+    parallel cyclic reduction for tridiagonal (plain or periodic), small
+    bands as block-tridiagonal matrices of the bandwidth's blocks (the JAX
+    package's banded LU), block cyclic reduction for block-tridiagonal, and
     spectrally preconditioned CG (PCG) when a separable surrogate is given;
     plain CG is the unstructured fallback;
   - ``prepare_node_shifts`` factors the M per-node shifts once at level
@@ -30,7 +31,9 @@ stays on the device and the host reads it once every ``READ_EVERY``
 iterations (a PCG solve of k iterations reads ``ceil(k / READ_EVERY) + 1``
 times; ``host_reads`` counts them).  Inside a CUDA graph capture the loops are
 device ``while`` loops that run to tolerance, so the fused lanes capture these
-solves as the JAX package's fused lane traces them.
+solves as the JAX package's fused lane traces them.  The direct solves read
+nothing on the host: a device shift (a fused lane's ``dt``) is factored on the
+device, and their constants are kept on the device (``_const``).
 
 ``batch_ndim`` of the solves counts the leading axes that are independent
 systems (a block's time steps: what ``jax.vmap`` of the JAX package's solve
@@ -169,6 +172,7 @@ class SparseOperator:
         elif self._solver == 'banded':
             self._bands, _ = A.to_banded()
             self._bw = A.bandwidths()
+            self._band_blocks = banded.band_blocks(self._bands, *self._bw)
         elif self._solver == 'block_tridiag':
             block = block or self.grid_shape[-1]
             self._blocks = banded.block_tridiag_from_csr(A, block)
@@ -310,12 +314,14 @@ class SparseOperator:
                 -factor * lo, 1.0 - factor * dg, -factor * up, -factor * c_lo, -factor * c_up, flat,
             )
         elif self._solver == 'banded':
-            x = banded.banded_shifted_solve(self._bands, *self._bw, flat, factor)
+            blocks = tuple(self._const(f'band block {i}', v, flat) for i, v in enumerate(self._band_blocks))
+            x = banded.banded_shifted_solve(self._bands, *self._bw, flat, factor, blocks=blocks)
         elif self._solver == 'block_tridiag':
             if node is not None and self._prep is not None:
                 x = self._prepared_solve(flat, factor, node, batch_ndim)
             else:
-                fac = banded.block_cr_shifted_factor(*self._blocks, factor, dtype=flat.dtype, device=flat.device)
+                blocks = (self._const(f'block {i}', v, flat) for i, v in enumerate(self._blocks))
+                fac = banded.block_cr_shifted_factor(*blocks, factor, dtype=flat.dtype, device=flat.device)
                 nb = self.n // self._block
                 shaped = flat.reshape(flat.shape[:-1] + (nb, self._block))
                 x = banded.block_cr_solve(fac, shaped).reshape(flat.shape)

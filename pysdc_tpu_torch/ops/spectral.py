@@ -10,8 +10,9 @@ FFTHelper, SpectralHelper with ``add_axis``/``add_component``/``add_BC``/
     diagonal and become one flattened, batched *mode* axis; all
     ultraspherical axes are Kronecker-coupled into dense per-mode blocks.
     The implicit solve is one batched ``torch.linalg.solve_ex`` over the
-    modes (it reads no error flag on the host); ``dt`` may be a float or a
-    device tensor, and no factorization is kept between solves.
+    modes through :mod:`pysdc_tpu_torch.ops.linalg` (no error flag read on
+    the host, a library that a CUDA graph capture takes); ``dt`` may be a
+    float or a device tensor, and no factorization is kept between solves.
   - **Automatic ultraspherical basis conversion.**  Operator terms are
     declared as derivative orders per axis; the engine computes the row
     basis C^(lambda) per (equation, axis) as the highest derivative order
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import cached_tensor
+from pysdc_tpu_torch.ops import linalg
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
             torch.complex64: torch.complex64, torch.complex128: torch.complex128}
@@ -575,7 +577,7 @@ class TensorProductSpectral:
         b = torch.where(keep, b, self._dev('bc_rhs_vec', rhs_hat))
         A = (self._dev('M_all', rhs_hat) + factor * self._dev('L_all', rhs_hat)) * keep[:, :, None] \
             + self._dev('bc_rows', rhs_hat)
-        x = torch.linalg.solve_ex(A, b.unsqueeze(-1))[0].squeeze(-1)
+        x = linalg.solve(A, b.unsqueeze(-1)).squeeze(-1)
         return self.itransform(self._unflatten_modes(x))
 
     def apply_L(self, u):

@@ -10,36 +10,40 @@ forwarding — from the block controller's batched functions
 and the residual history kept on the device.
 
 In the JAX package a block is one ``lax.while_loop`` program and a march one
-``lax.scan``.  PyTorch has neither, so the loop is cut into three pieces —
-``start`` (spread and predictor), ``check`` (one IT_CHECK) and ``work`` (one
-iteration's sweeps and transfers) — that read and write one carry of static
-buffers:
+``lax.scan``.  Here a block is one program too, over one carry of static
+buffers: ``start`` (spread and predictor), one ``check`` (IT_CHECK), then
+``while cont: work, check`` (``work`` is one iteration's sweeps and
+transfers) as a device ``while`` (:func:`pysdc_tpu_torch.ops.graph_loop.device_while`,
+a CUDA conditional WHILE node).  As under the JAX ``lax.cond(cont, work)``, the
+work after a check that ends the loop is not run.  The loop stops at
+``maxiter + 2`` checks at the latest; a block that ends there with a step not
+done raises ``ControllerError`` after the march's fetch.
 
-- on a CUDA tensor each piece is a captured CUDA graph
-  (``torch.cuda.CUDAGraph``) and a short host loop replays them.  The step
-  times, the window of active slots, ``u0`` and the per-level step sizes
-  ``dts`` (one float64 tensor of ``nlevels`` entries) are input buffers
-  written before a replay: the pieces read ``dt`` from the device, so ONE
-  program (three graphs) serves every step size, as the JAX program takes
-  ``dts`` as a traced array.  A capture that fails raises: there is no return
-  to eager on the card;
-- on a CPU tensor the same pieces run eagerly (that is what the tests drive).
+- on a CUDA tensor the block is ONE captured CUDA graph
+  (``torch.cuda.CUDAGraph``), replayed once a block.  The step times, the
+  window of active slots, ``u0`` and the per-level step sizes ``dts`` (one
+  float64 tensor of ``nlevels`` entries) are input buffers written before a
+  replay: the pieces read ``dt`` from the device, so ONE program serves every
+  step size, as the JAX program takes ``dts`` as a traced array.  A capture
+  that fails raises: there is no return to eager on the card;
+- on a CPU tensor the same function runs eagerly, the device ``while`` as its
+  plain version (that is what the tests drive).
 
-The iterative solves inside the pieces (PCG, CG, GMRES, the Newton loops, the
-refinement of a prepared factorization) are captured as device ``while``
-loops (:mod:`pysdc_tpu_torch.ops.graph_loop`, conditional WHILE nodes, nested
-where the loops nest): each replay runs them to tolerance, or to their
-``maxiter``, exactly as the stage lane and the JAX package's
-``lax.while_loop`` do, and reads nothing on the host.
+The iterative solves inside the block (PCG, CG, GMRES, the Newton loops, the
+refinement of a prepared factorization) are device ``while`` loops nested in
+the block's: each replay runs them to tolerance, or to their ``maxiter``,
+exactly as the stage lane and the JAX package's ``lax.while_loop`` do.
 
-The host reads one device value while a block runs: ``cont``, after every
-check but the first (``max(1, max niter)`` reads a block).  The work after the
-first check is enqueued unread: every piece of the work is masked by the
-active steps, a step that is done is frozen exactly (a prolongation of an
-unchanged coarse state adds exact zeros), so an iteration's work after the
-last check changes no result.  ``uend`` stays on the device from block to
-block and the iteration counts and residual histories are fetched once per
-march.  ``ctrl.host_reads`` counts both kinds.
+A march reads nothing on the host until its end and never waits on the card:
+every input is made on the device (the block starts once a march, ``dts`` once
+a run, the tail's window as ``arange < n``), ``uend`` stays on the device from
+block to block, and each block's iteration counts, residual history and cap
+flag are copied into buffers made once a march and fetched in one transfer at
+its end.  On the card the march runs under ``set_sync_debug_mode('error')``
+from its first replay to the fetch.  ``ctrl.host_reads`` counts ``cont`` (0:
+nothing reads it) and ``fetch`` (1 a march).  The march is a host loop of one
+replay a block, not one graph as the JAX ``lax.scan`` is: the host needs
+microseconds to enqueue a block, the card milliseconds to run it.
 
 Semantics are pinned to the stage machine (``parallel/nonmpi.py``): the
 per-iteration order is IT_CHECK (boundary exchange, residual, convergence
@@ -49,9 +53,9 @@ intermediate sweeps) -> IT_COARSE (serialized Gauss-Seidel chain) -> IT_UP
 ``tests/test_torch_fused.py`` gates uend and per-step iteration counts against
 the virtual controllers of both packages.
 
-On a mesh the pieces run the block's functions on its time shards (the
-carry's buffers are the shards' tensors, the copies between shards are
-captured with the rest).  A capture is one device's: a mesh whose positions
+On a mesh the block runs its functions on its time shards (the carry's
+buffers are the shards' tensors, the copies between shards are captured with
+the rest).  A capture is one device's: a mesh whose positions
 span more than one device is refused by name, and ``lane='auto'`` takes the
 stage machine for it.
 
@@ -63,8 +67,8 @@ them.
 
 The adaptive lane (``run_fused_adaptive``) runs the embedded-error adaptivity
 stack.  ``Adaptivity`` needs ``restol < 0``, so every step runs exactly
-``maxiter`` iterations and a block is ``start``, ``maxiter`` x (``check``,
-``work``) and a final ``check`` with no ``cont`` read at all, then ONE fetch
+``maxiter`` iterations and a block is three graphs, ``start``, ``maxiter`` x
+(``check``, ``work``) and a final ``check``, with no ``cont`` read at all, then ONE fetch
 of the residual history and the error-estimate history.  The hook points and the genuine IT_CHECK policy sequence (dt
 proposal, limiters, restart cascade) are then replayed on the host from the
 fetched histories through the same policy objects as the stage machine.  The
@@ -74,6 +78,7 @@ block, counted under ``ctrl.host_reads['estimate']``).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -433,11 +438,12 @@ def _rebuild(template, leaves):
 
 
 class _BlockProgram:
-    """The three pieces of one block for one state dtype, shape and device,
-    over static buffers: captured CUDA graphs on the card, the plain
-    functions on the CPU.  ``inputs`` are ``(u0, t_arr, window, dts)``:
-    ``start`` takes them all, ``check`` and ``work`` the carry and all but
-    ``u0``.  The caller writes the input buffers before it runs a piece."""
+    """One block program for one state dtype, shape and device, over static
+    buffers: the graphs named by ``pieces.graphs``, captured once on the card;
+    the plain functions on the CPU.  ``inputs`` are ``(u0, t_arr, window,
+    dts)``: a piece named in ``pieces.from_inputs`` takes them all, the others
+    the carry and all but ``u0``.  The caller writes the input buffers before
+    it runs a piece; a piece leaves its result in :attr:`carry`."""
 
     def __init__(self, pieces, *inputs):
         self.pieces = pieces
@@ -452,19 +458,22 @@ class _BlockProgram:
         for buf, value in zip(self.inputs, inputs):
             buf.copy_(value)
 
+    def _call(self, name, carry):
+        fn = getattr(self.pieces, name)
+        return fn(*self.inputs) if name in self.pieces.from_inputs else fn(carry, *self.inputs[1:])
+
     def _capture(self):
         """Warm up on a side stream (FFT plans, launch plans and the constant
         tables are made at first use, which a capture does not allow), give
-        the carry its buffers, then capture each piece into a graph that
-        computes from the buffers and copies its results back into them."""
+        the carry its buffers, then capture each graph: it computes from the
+        buffers and copies its results back into them."""
         inputs = self.inputs
         side = torch.cuda.Stream(device=self.u0.device)
         side.wait_stream(torch.cuda.current_stream(self.u0.device))
         with torch.cuda.stream(side):
-            carry = self.pieces.start(*inputs)
-            warm = self.pieces.work(self.pieces.check(carry, *inputs[1:]), *inputs[1:])
+            carry = self.pieces.warm(*inputs)
             self.carry = _rebuild(carry, iter([leaf.clone() for leaf in _leaves(carry)]))
-            del warm
+            del carry
         torch.cuda.current_stream(self.u0.device).wait_stream(side)
         torch.cuda.synchronize(self.u0.device)
 
@@ -477,11 +486,10 @@ class _BlockProgram:
         owned = {b.untyped_storage().data_ptr() for b in buffers}
         pool = torch.cuda.graph_pool_handle()
         self.graphs = {}
-        for name in ('start', 'check', 'work'):
-            fn = getattr(self.pieces, name)
+        for name in self.pieces.graphs:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool):
-                new = fn(*inputs) if name == 'start' else fn(self.carry, *inputs[1:])
+                new = self._call(name, self.carry)
                 # results that are views of a buffer are read before any buffer is written
                 pairs = [
                     (old, leaf.clone() if leaf.untyped_storage().data_ptr() in owned else leaf)
@@ -495,10 +503,8 @@ class _BlockProgram:
     def run(self, piece):
         if self.on_card:
             self.graphs[piece].replay()
-        elif piece == 'start':
-            self.carry = self.pieces.start(*self.inputs)
         else:
-            self.carry = getattr(self.pieces, piece)(self.carry, *self.inputs[1:])
+            self.carry = self._call(piece, self.carry)
 
 
 class _Programs:
@@ -520,12 +526,16 @@ class _Programs:
 
     def _inputs(self, u0, t_arr, window, dts):
         """The inputs as tensors on ``u0``'s device; ``dts`` a host number (one
-        ``dt`` on every level), a sequence of per-level numbers or a tensor."""
+        ``dt`` on every level, filled on the device), a sequence of per-level
+        numbers or a tensor.  Tensors on the device pass through untouched: a
+        march that gives them makes no copy from the host."""
         device = u0.device
         nlevels = self.ctrl.nlevels
         t_arr = torch.as_tensor(t_arr, dtype=torch.float64, device=device)
         window = torch.as_tensor(window, dtype=torch.bool, device=device)
-        if not isinstance(dts, torch.Tensor):
+        if isinstance(dts, (int, float)):
+            dts = torch.full((nlevels,), float(dts), dtype=torch.float64, device=device)
+        elif not isinstance(dts, torch.Tensor):
             dts = np.broadcast_to(np.asarray(dts, dtype=np.float64), (nlevels,)).copy()
         dts = torch.as_tensor(dts, dtype=torch.float64, device=device).expand(nlevels)
         return u0, t_arr, window, dts
@@ -535,8 +545,8 @@ class _FusedBlock(_Programs):
     """``fused(u0, t_arr, dt, window)`` of :func:`build_fused_block`."""
 
     def _pieces(self):
-        """start / check / work: the body of the JAX package's
-        ``lax.while_loop`` cut at the point where the host may look."""
+        """The JAX package's block: ``start``, one ``check``, then ``while cont:
+        work, check`` as a device ``while`` (``block``, one graph)."""
         ctrl, parts = self.ctrl, self.parts
         blocks = ctrl.blocks
         P = ctrl.num_procs
@@ -579,48 +589,62 @@ class _FusedBlock(_Programs):
                 done = done.all() | ~window
             iters = torch.where(window & ~done, c.iters + 1, c.iters)
             cont = ~done.all()
-            # a check replayed after the loop has ended counts nothing
             return _Carry(tuple(states), tuple(uends), done, iters, res_hist, c.k + c.cont.to(torch.int32), cont)
 
         def work(c, t_arr, window, dts):
-            # the JAX package runs this under lax.cond(cont, ...); here it is
-            # always enqueued and masked: with every step done it changes nothing
             active = window & ~c.done
             states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts.unbind(0), active,
                                                  parts.shifted(c.done))
             return c._replace(states=states, uends=uends)
 
-        return SimpleNamespace(start=start, check=check, work=work)
+        def block(u0, t_arr, window, dts):
+            # the JAX package's lax.while_loop with its lax.cond(cont, work): the work after a check that ends
+            # the loop is not run.  At most maxiter + 2 checks: the last trip starts at k = maxiter + 1
+            first = check(start(u0, t_arr, window, dts), t_arr, window, dts)
 
-    def __call__(self, u0, t_arr, dt, window):
-        """One block from ``u0``: ``(uend_block, iters, res_hist, n_checks)``,
-        tensors on ``u0``'s device (copies: the next call reuses the buffers)."""
+            def again(leaves):  # k and cont are the carry's last two fields
+                return leaves[-1] & (leaves[-2] <= maxiter + 1)
+
+            def trip(leaves):
+                c = _rebuild(first, iter(leaves))
+                return _leaves(check(work(c, t_arr, window, dts), t_arr, window, dts))
+
+            leaves, _ = graph_loop.device_while(again, trip, tuple(_leaves(first)))
+            return _rebuild(first, iter(leaves))
+
+        def warm(u0, t_arr, window, dts):
+            """The block's pieces one after another, eager: what the capture finds made."""
+            c = check(start(u0, t_arr, window, dts), t_arr, window, dts)
+            return check(work(c, t_arr, window, dts), t_arr, window, dts)
+
+        return SimpleNamespace(start=start, check=check, work=work, block=block, warm=warm, graphs=('block',),
+                               from_inputs=('block',))
+
+    def replay(self, u0, t_arr, dt, window):
+        """One block from ``u0``: the program's carry, valid until the next call (no copy, no host read)."""
         inputs = self._inputs(u0, t_arr, window, dt)
         prog = self._program(*inputs)
         prog.write(*inputs)
+        prog.run('block')
+        return prog.carry
 
-        prog.run('start')
-        reads = self.ctrl.host_reads
-        for n in range(self.maxiter + 2):
-            prog.run('check')
-            if n > 0:  # the first check's work is enqueued unread (masked where nothing is left to do)
-                reads['cont'] += 1
-                if not bool(prog.carry.cont):
-                    break
-            prog.run('work')
-        else:
-            raise ControllerError('fused block did not terminate within maxiter + 1 checks')
-        c = prog.carry
-        return self.ctrl.blocks[0].whole(c.uends[0]).clone(), c.iters.clone(), c.res_hist.clone(), c.k.clone()
+    def __call__(self, u0, t_arr, dt, window):
+        """One block from ``u0``: ``(uend_block, iters, res_hist, n_checks,
+        cont)``, tensors on ``u0``'s device (copies: the next call reuses the
+        buffers).  ``cont`` is set where the block ended on its trip cap, a step
+        not done."""
+        c = self.replay(u0, t_arr, dt, window)
+        return (self.ctrl.blocks[0].whole(c.uends[0]).clone(), c.iters.clone(), c.res_hist.clone(), c.k.clone(),
+                c.cont.clone())
 
 
 def build_fused_block(ctrl):
     """The whole-block PFASST solve for a ShardedController.
 
     Returns ``fused(u0, t_arr, dt, window) -> (uend_block, iters, res_hist,
-    n_checks)`` where ``window`` is the (P,) prefix mask of active slots.  On
-    the card the first call captures the block's graphs; they serve every
-    ``dt`` (a host number or a 0-d tensor).
+    n_checks, cont)`` where ``window`` is the (P,) prefix mask of active
+    slots.  On the card the first call captures the block's graph; it serves
+    every ``dt`` (a host number or a 0-d tensor).
     """
     return _FusedBlock(ctrl)
 
@@ -687,7 +711,11 @@ class _FusedAdaptiveBlock(_Programs):
             states, uends = parts.iteration_work(c.states, c.uends, t_arr, dts.unbind(0), window, no_prev)
             return c._replace(states=states, uends=uends, prev_last=prev_last)
 
-        return SimpleNamespace(start=start, check=check, work=work)
+        def warm(u0, t_arr, window, dts):
+            return work(check(start(u0, t_arr, window, dts), t_arr, window, dts), t_arr, window, dts)
+
+        return SimpleNamespace(start=start, check=check, work=work, warm=warm, graphs=('start', 'check', 'work'),
+                               from_inputs=('start',))
 
     def __call__(self, u0, t_arr, dts, window):
         """One block of exactly ``maxiter`` iterations from ``u0``:
@@ -727,25 +755,52 @@ def build_fused_adaptive_block(ctrl):
 def build_fused_many(ctrl, fused):
     """March the single-block program over consecutive FULL blocks.
 
-    The uend -> next-u0 chain and the block times stay on the device;
-    iteration counts and residual histories come back stacked per block, on
-    the device."""
+    ``fused_many(u0, dt, starts, dts=None)``: ``starts`` the block start
+    times (a float64 tensor on ``u0``'s device, or numbers), ``dts`` the
+    per-level step sizes on the device (filled from ``dt`` when not given).
+    Every input is made on the device, the uend -> next-u0 chain stays there
+    and each block's iteration counts, residual history and cap flag are
+    copied into buffers made once a march: the march reads nothing on the host
+    and never waits on the card.  Returns ``(uend, iters (n, P), res_hist (n,
+    maxiter + 2, P), cont (n,))`` on the device."""
     P = ctrl.num_procs
 
-    def fused_many(u0, dt, starts):
+    def fused_many(u0, dt, starts, dts=None):
         device = u0.device
         starts = torch.as_tensor(starts, dtype=torch.float64, device=device)
+        if dts is None:
+            dts = torch.full((ctrl.nlevels,), float(dt), dtype=torch.float64, device=device)
         t_all = starts.unsqueeze(1) + dt * torch.arange(P, dtype=torch.float64, device=device)
         window = torch.ones((P,), dtype=torch.bool, device=device)
-        uend, iters_all, res_all = u0, [], []
-        for b in range(starts.shape[0]):
-            uend_block, iters, res_hist, _ = fused(uend, t_all[b], dt, window)
-            uend = uend_block[P - 1]
-            iters_all.append(iters)
-            res_all.append(res_hist)
-        return uend, torch.stack(iters_all), torch.stack(res_all)
+        n = starts.shape[0]
+        iters_all = torch.empty((n, P), dtype=torch.int32, device=device)
+        res_all = torch.empty((n, fused.maxiter + 2, P), dtype=u0.dtype, device=device)
+        cont_all = torch.empty((n,), dtype=torch.bool, device=device)
+        uend = u0
+        for b in range(n):
+            c = fused.replay(uend, t_all[b], dts, window)
+            iters_all[b].copy_(c.iters)
+            res_all[b].copy_(c.res_hist)
+            cont_all[b].copy_(c.cont)
+            uend = ctrl.blocks[0].whole(c.uends[0])[P - 1]  # the next block's write copies it into u0's buffer
+        return uend.clone(), iters_all, res_all, cont_all
 
     return fused_many
+
+
+@contextlib.contextmanager
+def _no_sync(device):
+    """On the card, a synchronizing call (a read on the host, a copy from pageable memory) raises inside: the
+    march never waits on the card."""
+    if device.type != 'cuda':
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
 
 
 def run_fused(ctrl, u0, t0, Tend):
@@ -754,7 +809,9 @@ def run_fused(ctrl, u0, t0, Tend):
     Mirrors ControllerNonMPI.run's block marching (without restarts, which
     eligibility excludes) and returns ``(uend, stats)`` with the default
     stats entries synthesized, as host floats, from the iteration counts and
-    residual histories fetched once at the end of the march.
+    residual histories fetched once at the end of the march.  On the card the
+    block's graph is captured before the march, and from the first replay to
+    the fetch the march runs under ``torch.cuda.set_sync_debug_mode('error')``.
     """
     from pysdc_tpu_torch.parallel.nonmpi import _horizon_slack
 
@@ -799,32 +856,45 @@ def run_fused(ctrl, u0, t0, Tend):
                     type=typ, value=val,
                 )
 
-    uend = u0
-    t = t0
+    device = u0.device
     n_steps = int(np.ceil((Tend - t0 - slack) / dt))
     n_full = n_steps // P
-    marched = []  # (block start, iters, res_hist, active steps), the middle two still on the device
-    if n_full > 0:
-        starts = t0 + dt * P * np.arange(n_full)
-        uend, iters_all, res_all = ctrl._fused_many_fn(uend, dt, starts)
-        marched += [(t0 + b * P * dt, iters_all[b], res_all[b], P) for b in range(n_full)]
-        t = t0 + n_full * P * dt
+    # the inputs on the device, made once a run: no copy from the host inside the march
+    dts = torch.full((ctrl.nlevels,), dt, dtype=torch.float64, device=device)
+    slots = torch.arange(P, device=device)
+    if n_steps > 0:  # capture (on the card) before the march, which may not synchronize
+        ctrl._fused_fn._program(*ctrl._fused_fn._inputs(u0, t0 + dt * slots.to(torch.float64), slots < P, dts))
 
-    while t < Tend - slack:  # partial tail block (prefix window)
-        n_active = min(P, int(np.ceil((Tend - t - slack) / dt)))
-        uend_block, iters, res_hist, _ = ctrl._fused_fn(uend, t + dt * np.arange(P), dt, np.arange(P) < n_active)
-        marched.append((t, iters, res_hist, n_active))
-        uend = uend_block[n_active - 1]
-        t += n_active * dt
+    uend = u0
+    t = t0
+    marched = []  # (block start, iters, res_hist, cont, active steps), the middle three on the device
+    with _no_sync(device):
+        if n_full > 0:
+            starts = t0 + dt * P * torch.arange(n_full, dtype=torch.float64, device=device)
+            uend, iters_all, res_all, cont_all = ctrl._fused_many_fn(uend, dt, starts, dts)
+            marched += [(t0 + b * P * dt, iters_all[b], res_all[b], cont_all[b], P) for b in range(n_full)]
+            t = t0 + n_full * P * dt
 
-    if marched:  # the one fetch of the march: counts and histories in one transfer
+        while t < Tend - slack:  # partial tail block (prefix window)
+            n_active = min(P, int(np.ceil((Tend - t - slack) / dt)))
+            uend_block, iters, res_hist, _, cont = ctrl._fused_fn(uend, t + dt * slots.to(torch.float64), dts,
+                                                                  slots < n_active)
+            marched.append((t, iters, res_hist, cont, n_active))
+            uend = uend_block[n_active - 1]
+            t += n_active * dt
+
+    if marched:  # the one fetch of the march: counts, histories and cap flags in one transfer
         ctrl.host_reads['fetch'] += 1
         iters = torch.stack([b[1] for b in marched])
         res = torch.stack([b[2] for b in marched])
-        fetched = torch.cat([iters.flatten().to(res.dtype), res.flatten()]).cpu().numpy()
-        iters_h = fetched[:iters.numel()].reshape(tuple(iters.shape)).astype(np.int64)
-        res_h = fetched[iters.numel():].reshape(tuple(res.shape))
-        for (t_block, _, _, n_active), it_b, res_b in zip(marched, iters_h, res_h):
+        cont = torch.stack([b[3] for b in marched])
+        fetched = torch.cat([iters.flatten().to(res.dtype), res.flatten(), cont.to(res.dtype)]).cpu().numpy()
+        n_it, n_res = iters.numel(), res.numel()
+        iters_h = fetched[:n_it].reshape(tuple(iters.shape)).astype(np.int64)
+        res_h = fetched[n_it:n_it + n_res].reshape(tuple(res.shape))
+        if fetched[n_it + n_res:].any():
+            raise ControllerError('fused block did not terminate within maxiter + 1 checks')
+        for (t_block, _, _, _, n_active), it_b, res_b in zip(marched, iters_h, res_h):
             emit_stats(t_block, it_b, res_b, n_active)
 
     ctrl._fused_converged = converged

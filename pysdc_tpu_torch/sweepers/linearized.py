@@ -18,15 +18,16 @@ Newton-SDC of the "fixed" variant) or ``eig(QDelta)`` (the preconditioned
 flavors), and J is the RHS Jacobian — frozen at one node, or evaluated
 per node for the non-fixed variant.
 
-The M complex dense solves are one batched ``torch.linalg.solve`` (complex128
-for float64 fields, complex64 for float32).  Jacobians come from the problem's
+The M complex dense solves are one batched ``torch.linalg.solve_ex``
+(:mod:`pysdc_tpu_torch.ops.linalg`: no error flag read on the host, a library
+that a CUDA graph capture takes; complex128 for float64 fields, complex64 for
+float32).  Jacobians come from the problem's
 ``eval_jacobian`` where it has one, else from ``torch.func.jacfwd`` of the
 flattened RHS, one system at a time.  A dense Jacobian is for small systems;
 where ``eval_f`` applies kernel K1 on the card, ``jacfwd`` reaches it through
 K1's jvp and vmap rules: one batched launch a Jacobian.  Leading
 axes in front of the problem's shape (a block's time axis) are independent
-systems.  ``torch.linalg.solve`` reads its error flag on the host, so the
-fused lanes refuse this sweeper (``graph_capture_blocker``).
+systems.  The fused lanes capture this sweeper.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from pysdc_tpu_torch.core.device import complex_dtype
 from pysdc_tpu_torch.core.errors import ParameterError
 from pysdc_tpu_torch.core.state import LevelState
+from pysdc_tpu_torch.ops import linalg
 from pysdc_tpu_torch.sweepers.generic_implicit import GenericImplicit
 
 
@@ -53,10 +55,6 @@ class LinearizedImplicitParallel(GenericImplicit):
       the QDelta preconditioner (reference ``linearized_implicit_parallel``
       / ``..._fixed_parallel_prec``).
     """
-
-    graph_capture_blocker = ('LinearizedImplicitParallel solves its node systems with torch.linalg.solve, which '
-                             'reads its error flag on the host (not permitted in a CUDA graph capture): this '
-                             'configuration runs on the stage-machine path')
 
     def __init__(self, params: dict):
         params = dict(params)
@@ -132,7 +130,7 @@ class LinearizedImplicitParallel(GenericImplicit):
 
         # M x B decoupled dense solves, one batched call
         lhs = eye - dt * D * J
-        x = torch.linalg.solve(lhs, Gv.unsqueeze(-1)).squeeze(-1)
+        x = linalg.solve(lhs, Gv.unsqueeze(-1)).squeeze(-1)
 
         # backward transform + Newton update; re-evaluate the RHS
         V = self._coeff('V', lambda: self.V, u0, dtype=cdtype)

@@ -221,13 +221,18 @@ def test_auto_coarse_mode_is_serial_where_diag_is_not_eligible():
 
 
 def test_host_reads_of_the_fused_lane():
-    """One ``cont`` read a check but the first, one fetch a march."""
+    """No ``cont`` read (the block's loop is a device ``while``), one fetch a march; a block runs max(niter) + 1
+    checks, and its cap flag stays clear."""
     for name in ('pfasst-P4', 'partial-final-block', 'maxiter-termination'):
         got = _block(name, 'fused')
-        P = RUNS[name][1]
-        blocks = [got['niter'][i:i + P] for i in range(0, len(got['niter']), P)]
-        assert got['ctrl'].host_reads == {'cont': sum(max(1, max(b)) for b in blocks), 'fetch': 1}
+        assert got['ctrl'].host_reads == {'cont': 0, 'fetch': 1}
         assert got['ctrl']._fused_converged == (name != 'maxiter-termination')
+        ctrl, P = got['ctrl'], RUNS[name][1]
+        dt = ctrl.MS[0].levels[0].params.dt
+        _, iters, _, n_checks, cont = ctrl._fused_fn(ctrl.MS[0].levels[0].prob.u_exact(0.0), dt * np.arange(P), dt,
+                                                     np.ones(P, dtype=bool))
+        assert iters.tolist() == got['niter'][:P]
+        assert int(n_checks) == max(got['niter'][:P]) + 1 and not bool(cont)
     assert _block('pfasst-P4', 'stage')['ctrl'].host_reads == {'cont': 0, 'fetch': 0}
 
 

@@ -14,7 +14,11 @@ loops then take the device loop's plain version, which calls the body while the 
   compute exactly as many iterations as eager (the operator's applies are counted);
 - the PCG, CG and Arnoldi bodies traced once (``make_fx``, the CPU's counterpart of a graph capture) and
   replayed until their flag clears give the carry of the eager loop bit for bit: no body branches on a host
-  counter.
+  counter;
+- the fused block's loop body (``work`` then ``check``: PFASST heat, Rayleigh-Benard, the linearized sweeper) and
+  the direct sparse solves (``'banded'``, ``'block_tridiag'``), with ``dt`` a 0-d tensor, traced once by
+  ``make_fx``: no operation reads a value on the host (no ``aten._local_scalar_dense``, no
+  ``aten._linalg_check_errors``).
 
 One JAX run is shared per case through ``functools.lru_cache``; the port's CPU runs use one thread.
 """
@@ -220,3 +224,95 @@ def test_batched_cg_is_one_cg_per_system():
         assert info.iterations[s] == inf.iterations
         torch.testing.assert_close(x[s], xs, rtol=1e-12, atol=0)
     assert len(set(info.iterations)) > 1
+
+
+# -- what a capture holds reads nothing on the host --------------------------------------------------------------------
+HOST_READS = ('aten._local_scalar_dense', 'aten._linalg_check_errors')
+
+
+def _host_reads_in(fn, *args):
+    """The operations of ``fn(*args)`` traced once by ``make_fx`` (the CPU's counterpart of a graph capture) that
+    read a value on the host: ``.item()`` / ``float()`` of a tensor, or a linalg error check."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    try:
+        graph = make_fx(fn)(*args)
+    except RuntimeError as err:  # make_fx refuses to read a traced tensor's value
+        return [read for read in HOST_READS if read in str(err)] or [str(err)]
+    return [str(node.target) for node in graph.graph.nodes if str(node.target).startswith(HOST_READS)]
+
+
+def _block_body(desc, P):
+    """The fused block's ``work -> check`` body (one trip of its device ``while``) of ``ShardedController(P)`` on
+    ``desc``, and its flattened carry after ``start`` and the first check, ``dt`` a 0-d tensor in a float64 buffer."""
+    from pysdc_tpu_torch.parallel import fused
+
+    ctrl = pysdc_tpu_torch.ShardedController(P, {'logger_level': 40}, desc)
+    prob = ctrl.MS[0].levels[0].prob
+    block = fused.build_fused_block(ctrl)
+    dt = float(ctrl.MS[0].levels[0].params.dt)
+    u0, t_arr, window, dts = block._inputs(prob.u_exact(0.0), dt * np.arange(P), np.ones(P, dtype=bool),
+                                           torch.tensor(dt, dtype=torch.float64))
+    pieces = block._pieces()
+    first = pieces.check(pieces.start(u0, t_arr, window, dts), t_arr, window, dts)
+
+    def trip(t_arr, window, dts, *leaves):
+        c = fused._rebuild(first, iter(leaves))
+        return tuple(fused._leaves(pieces.check(pieces.work(c, t_arr, window, dts), t_arr, window, dts)))
+
+    return trip, (t_arr, window, dts, *fused._leaves(first))
+
+
+def _pfasst_heat():
+    desc = dict(problem_class=HeatND,
+                problem_params=dict(nvars=[(16, 16), (8, 8)], nu=0.1, freq=2, bc='periodic', device='cpu'),
+                sweeper_class=pysdc_tpu_torch.GenericImplicit,
+                sweeper_params=dict(num_nodes=[3, 2], quad_type='RADAU-RIGHT', QI='LU'),
+                level_params=dict(dt=0.01, restol=1e-10), step_params=dict(maxiter=6))
+    return _block_body(desc, 4)
+
+
+def _spectral():
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+
+    desc = dict(problem_class=RayleighBenard, problem_params=dict(nx=16, nz=8, Rayleigh=2e6, device='cpu'),
+                sweeper_class=pysdc_tpu_torch.IMEXSweeper, sweeper_params=dict(num_nodes=3, QI='LU', QE='PIC'),
+                level_params=dict(dt=0.01, restol=-1.0), step_params=dict(maxiter=2))
+    return _block_body(desc, 2)
+
+
+def _linearized():
+    from pysdc_tpu_torch.models.odes import VanDerPol
+
+    desc = dict(problem_class=VanDerPol, problem_params=dict(mu=2.0, device='cpu'),
+                sweeper_class=pysdc_tpu_torch.LinearizedImplicitParallel,
+                sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT'),
+                level_params=dict(dt=0.05, restol=1e-10), step_params=dict(maxiter=10))
+    return _block_body(desc, 2)
+
+
+def _direct(solver):
+    """One shifted solve of the sparse operator's direct ``solver`` with a 0-d tensor shift."""
+    if solver == 'banded':
+        op = HeatND(nvars=63, nu=0.1, freq=2, bc='dirichlet-zero', backend='sparse', device='cpu').A
+    else:
+        op = VarCoeffDiffusion2D(nvars=(24, 24), coeff_fn=_coeff, solver='block_tridiag', device='cpu').A
+    assert op.solver_kind == solver
+    rhs = torch.as_tensor(np.random.default_rng(4).standard_normal((3,) + tuple(op.grid_shape)))
+    factor = torch.tensor(0.02, dtype=torch.float64)
+    x = op.solve_shifted(rhs, factor)
+    residual = rhs - (x - 0.02 * op.apply(x))
+    assert float(residual.abs().max()) < 1e-12 * float(rhs.abs().max())  # the solve is right, by its residual
+    return lambda rhs, factor: op.solve_shifted(rhs, factor), (rhs, factor)
+
+
+@pytest.mark.parametrize('make', [_pfasst_heat, _spectral, _linearized, lambda: _direct('banded'),
+                                  lambda: _direct('block_tridiag')],
+                         ids=['pfasst-heat-block', 'spectral-block', 'linearized-block', 'banded-solve',
+                              'block-tridiag-solve'])
+def test_captured_code_reads_nothing_on_the_host(make):
+    """The fused block's loop body (PFASST heat, Rayleigh-Benard, the linearized sweeper) and the direct sparse
+    solves, with ``dt`` a 0-d tensor as the fused lanes give it, traced once: no operation reads a value on the
+    host, so a CUDA graph holds them."""
+    fn, args = make()
+    assert _host_reads_in(fn, *args) == []

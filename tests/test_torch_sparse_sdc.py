@@ -4,6 +4,9 @@ packages (float64, CPU), on each solver lane of the sparse stack.
 For each case the per-step ``niter`` lists are equal and ``uend`` agrees to
 1e-10.  Both packages start from the same numpy ``u0``.  The port's work
 counters show that ``eval_f`` over the M spread nodes is one batched apply.
+The direct solvers (``'banded'``, ``'block_tridiag'``) also run through
+``ShardedController(4)``'s fused lane, with its device ``dt``, against the JAX
+package's fused lane.
 """
 
 import functools
@@ -104,3 +107,33 @@ def test_spmv_count_covers_eval_f_and_pcg():
     assert A.pcg_solves == n_solves
     assert A.pcg_iterations <= A.pcg_steps <= A.pcg_iterations + n_solves * (READ_EVERY - 1)
     assert A.spmv_count == sum(2 + M * k for k in niter) + n_solves + A.pcg_steps
+
+
+@functools.lru_cache(maxsize=None)
+def _block_run(package, case):
+    """``ShardedController(4).run`` over the case's horizon, ``'auto'`` lane: ``(uend, niter, lanes, ctrl)``."""
+    jcls, tcls, params, u0, dt, Tend, _ = CASES[case]
+    if u0 is None:
+        u0 = np.asarray(jcls(**params).u_exact(0.0))
+    if package == 'jax':
+        pkg, desc, u0 = pysdc_tpu, _description(pysdc_tpu, jcls, dict(params), dt), jnp.asarray(u0)
+    else:
+        pkg, desc = pysdc_tpu_torch, _description(pysdc_tpu_torch, tcls, dict(params, device='cpu'), dt)
+        u0 = torch.tensor(u0)
+    ctrl = pkg.ShardedController(4, {'logger_level': 40}, desc)
+    uend, stats = ctrl.run(u0, 0.0, Tend)
+    uend = uend.numpy() if isinstance(uend, torch.Tensor) else np.asarray(uend)
+    return (uend, [v for _, v in pkg.get_sorted(stats, type='niter', sortby='time')],
+            [v for k, v in stats.items() if k.type == 'lane'], ctrl)
+
+
+@pytest.mark.parametrize('case', ['heat-63-dirichlet-banded', 'vc2d-24-block-tridiag'])
+def test_direct_solves_on_the_fused_lane_match_jax(case):
+    """The direct sparse solves with the fused lane's device ``dt``: ``'auto'`` takes the fused lane in both
+    packages, equal ``niter``, ``uend`` to 1e-12, and the port's march reads nothing on the host but its fetch."""
+    want_u, want_niter, want_lanes, _ = _block_run('jax', case)
+    got_u, got_niter, lanes, ctrl = _block_run('torch', case)
+    assert lanes == want_lanes == ['fused'] and ctrl.MS[0].levels[0].prob.A.solver_kind == CASES[case][-1]
+    assert got_niter == want_niter and len(got_niter) == 4 and max(got_niter) < 30
+    np.testing.assert_allclose(got_u, want_u, rtol=0, atol=1e-12)
+    assert ctrl.host_reads == {'cont': 0, 'fetch': 1}

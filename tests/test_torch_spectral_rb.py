@@ -6,8 +6,8 @@ modes, a float and a device-tensor factor), ``apply_L``, the dealiased products 
 fields, all with leading batch axes riding along; ``HeatChebyshev1D``, ``Burgers1D``, ``Heat2DChebyshev``,
 ``RayleighBenard`` (with ``CFLLimit``) and ``RayleighBenard3D`` through ``ControllerNonMPI`` against live JAX runs
 (equal ``niter``, ``uend`` to 1e-11 relative; Burgers and the 2D heat problem run a fixed number of sweeps, as their
-collocation residual stalls on the tau rows in both packages), their diagnostics; and the fused lanes' refusal of
-these problems by name.
+collocation residual stalls on the tau rows in both packages), their diagnostics; and the four 2D-or-lower problems
+through ``ShardedController(2)``'s fused lane against the JAX package's fused lane and the port's stage lane.
 """
 
 import functools
@@ -22,7 +22,6 @@ import pysdc_tpu.models.rayleigh_benard as jrb
 import pysdc_tpu.models.spectral_problems as jsp
 import pysdc_tpu.ops.spectral as jspec
 import pysdc_tpu_torch
-from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.models import rayleigh_benard as trb
 from pysdc_tpu_torch.models import spectral_problems as tsp
 from pysdc_tpu_torch.ops import spectral as tspec
@@ -154,20 +153,30 @@ def test_rayleigh_benard_diagnostics_match_jax(dim):
         close(got, want)
 
 
-@pytest.mark.parametrize('name', ['heat-chebyshev', 'rayleigh-benard'])
-def test_fused_lanes_refuse_the_spectral_problems_by_name(name):
-    """The fused lanes do not take the tensor-product spectral solve; ``'auto'`` runs the stage lane, which equals
-    the port's step-by-step run."""
-    _, desc = _description('torch', name)
+@functools.lru_cache(maxsize=None)
+def _block_run(package, name, lane='auto'):
+    """``ShardedController(2).run`` at restol -1 and maxiter 2 over two blocks: ``(uend, niter, lanes, ctrl)``."""
+    pkg, desc = _description(package, name)
     desc['level_params'] = dict(desc['level_params'], restol=-1.0)
     desc['step_params'] = dict(maxiter=2)
-    prob_u0 = pysdc_tpu_torch.ControllerNonMPI(2, {'logger_level': 40}, desc)
-    u0 = prob_u0.MS[0].levels[0].prob.u_exact(0.0)
-    want, _ = prob_u0.run(u0, 0.0, 2 * CASES[name][4])
-    ctrl = pysdc_tpu_torch.ShardedController(2, {'logger_level': 40}, desc)
-    with pytest.raises(ControllerError, match='tensor-product spectral solve'):
-        ctrl.run(u0, 0.0, 2 * CASES[name][4], lane='fused')
-    ctrl = pysdc_tpu_torch.ShardedController(2, {'logger_level': 40}, desc)
-    got, stats = ctrl.run(u0, 0.0, 2 * CASES[name][4])
-    assert [v for k, v in stats.items() if k.type == 'lane'] == ['stage']
-    close(got, to_numpy(want), rtol=1e-12)
+    ctrl = pkg.ShardedController(2, {'logger_level': 40}, desc)
+    u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+    uend, stats = ctrl.run(u0, 0.0, 4 * CASES[name][4], lane=lane)
+    return (np.asarray(to_numpy(uend)), [v for _, v in pkg.get_sorted(stats, type='niter', sortby='time')],
+            [v for k, v in stats.items() if k.type == 'lane'], ctrl)
+
+
+@pytest.mark.parametrize('name', ['heat-chebyshev', 'burgers', 'heat-2d-chebyshev', 'rayleigh-benard'])
+def test_fused_lanes_refuse_the_spectral_problems_by_name(name):
+    """The fused lanes take the spectral problems (the name is older than that): ``'auto'`` takes the fused lane in
+    both packages, and the port's fused run equals the JAX package's fused run and the port's stage lane (equal
+    ``niter``, ``uend`` to 1e-12 relative), reading nothing on the host but the one fetch."""
+    want, want_niter, want_lanes, _ = _block_run('jax', name, 'fused')
+    got, niter, lanes, ctrl = _block_run('torch', name)
+    stage, stage_niter, stage_lanes, _ = _block_run('torch', name, 'stage')
+    assert lanes == ['fused'] and want_lanes == ['fused'] and stage_lanes == ['stage']
+    assert ctrl.MS[0].levels[0].prob.graph_capture_blocker is None
+    assert niter == want_niter == stage_niter and len(niter) == 4
+    close(got, want, rtol=1e-12)
+    close(got, stage, rtol=1e-12)
+    assert ctrl.host_reads == {'cont': 0, 'fetch': 1}

@@ -7,8 +7,9 @@ configurations of tests/test_linearized_sweeper.py:42-46 and its fixed-point
 case (:32); each multistep class on ``Logistic``; ``ExplicitSweeper`` on
 ``Dahlquist`` and ``HeatND`` 32^2; each ODE of ``models/odes.py`` that came
 with this slice (and ``Dahlquist``): ``eval_f`` and ``solve_system`` at a
-seeded state.  The fused lanes refuse the sweepers whose sweeps a CUDA graph
-cannot hold, by name.
+seeded state.  The block controller's fused lane takes
+``LinearizedImplicitParallel`` as the JAX package's does and refuses the
+multistep sweepers by name (the JAX block controller cannot run them).
 """
 
 import numpy as np
@@ -191,25 +192,43 @@ def test_multistep_history_and_level_flags():
     assert lvl.sweep.history.empty
 
 
+def _vdp_linearized(pkg):
+    classes = (jodes.VanDerPol, todes.VanDerPol)[pkg is pysdc_tpu_torch]
+    sweeper = (JaxLinearized, LinearizedImplicitParallel)[pkg is pysdc_tpu_torch]
+    return _desc(pkg, classes, dict(mu=2.0), sweeper, dict(num_nodes=3, quad_type='RADAU-RIGHT'),
+                 dict(dt=0.05, restol=1e-10), 10)
+
+
 @pytest.mark.parametrize('kind', ['multistep', 'linearized'])
 def test_fused_lanes_refuse_what_a_graph_cannot_hold(kind):
-    """The JAX package's fused lanes take these sweepers; the port's refuse them by name before any capture and
-    ``run()`` takes the stage lane (ROADMAP queue 3)."""
+    """``MultiStep`` is refused by name before any capture and ``run()`` takes the stage lane: the JAX block
+    controller cannot run it on either lane (its history is host state; ``ConcretizationTypeError``), so this is a
+    settled difference.  ``LinearizedImplicitParallel`` (the name is older than this) is taken: ``'auto'`` runs the
+    fused lane in both packages, equal ``niter`` and ``uend`` to 1e-12 against the JAX package's fused run and the
+    port's stage lane, one fetch and no other host read."""
     if kind == 'multistep':
         desc = _desc(pysdc_tpu_torch, todes.Logistic, dict(u0=0.5, lam=2.0), tms.BackwardEulerMultiStep, {},
                      dict(dt=0.1), 1)
-        match = 'multistep'
-    else:
-        desc = _desc(pysdc_tpu_torch, todes.VanDerPol, dict(mu=2.0), LinearizedImplicitParallel,
-                     dict(num_nodes=3, quad_type='RADAU-RIGHT'), dict(dt=0.05, restol=1e-10), 10)
-        match = 'torch.linalg.solve'
-    ctrl = pysdc_tpu_torch.ShardedController(1, {'logger_level': 40}, desc)
-    with pytest.raises(ControllerError, match=match):
-        fused.check_fused_eligibility(ctrl)
-    with pytest.raises(ControllerError, match=match):
-        ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.2, lane='fused')
-    _, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.2)
-    assert [v for k, v in stats.items() if k.type == 'lane'] == ['stage']
+        ctrl = pysdc_tpu_torch.ShardedController(1, {'logger_level': 40}, desc)
+        with pytest.raises(ControllerError, match='multistep'):
+            fused.check_fused_eligibility(ctrl)
+        with pytest.raises(ControllerError, match='multistep'):
+            ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.2, lane='fused')
+        _, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.2)
+        assert [v for k, v in stats.items() if k.type == 'lane'] == ['stage']
+        return
+    runs = {}
+    for pkg, lane in ((pysdc_tpu, 'fused'), (pysdc_tpu_torch, 'auto'), (pysdc_tpu_torch, 'stage')):
+        ctrl = pkg.ShardedController(1, {'logger_level': 40}, _vdp_linearized(pkg))
+        uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.2, lane=lane)
+        runs[pkg.__name__, lane] = (to_numpy(uend), [v for _, v in pkg.get_sorted(stats, type='niter')],
+                                    [v for k, v in stats.items() if k.type == 'lane'], ctrl)
+    want, got, stage = runs['pysdc_tpu', 'fused'], runs['pysdc_tpu_torch', 'auto'], runs['pysdc_tpu_torch', 'stage']
+    assert want[2] == got[2] == ['fused'] and stage[2] == ['stage']
+    assert got[1] == want[1] == stage[1] and len(got[1]) == 4 and max(got[1]) < 10
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got[0], stage[0], rtol=0, atol=1e-12)
+    assert got[3].host_reads == {'cont': 0, 'fetch': 1}
 
 
 # -- explicit --------------------------------------------------------------------------
