@@ -11,7 +11,12 @@ come from this checkout's ``chip_smoke.py``.  After a first run (the capture), C
 - sparse: phase 67's block (VarCoeffDiffusion2D 1024^2 float32, M=4 LU, ShardedController(4), restol 1e-6,
   maxiter 8), 3 runs;
 - rbc: phase 69's block (RayleighBenard 256 x 64 float64, IMEX M=3, ShardedController(4), maxiter 4) on the stage
-  lane and, where the package takes it, on the fused lane, 3 runs each in turns, and the busy time of each.
+  lane and, where the package takes it, on the fused lane, 3 runs each in turns, and the busy time of each;
+- linearized: phase 70's block (``LinearizedImplicitParallel`` on HeatND 32^2 float64, ShardedController(4), its
+  1024-row complex solves), both lanes in turns, 3 runs each;
+- rbc128: phase 72's block (RayleighBenard 256 x 128 float64, 512 rows a mode), both lanes in turns, 3 runs each.
+
+``--configs`` names the configurations to run (default: all).
 
 The profiler does not see the kernels of a device loop inside a device loop, so a busy time (and the idle share from
 it) is printed only where the block's loops nest at most one deep.  Every line of results starts with ``TIME`` and
@@ -54,6 +59,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument('--root', default=None, help='import pysdc_tpu_torch from this directory')
     parser.add_argument('--tag', default='this')
+    parser.add_argument('--configs', default='pfasst,march,sparse,rbc,linearized,rbc128')
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, str(Path(args.root).resolve()))
@@ -79,41 +85,67 @@ def main():
         print(f'TIME {tag} {name}: ms on the card {[round(x, 3) for x in ms]}, host clock '
               f'{[round(x, 3) for x in host]}{extra} [{card}]', flush=True)
 
-    # pfasst: one block
-    desc = c._pfasst_description(c.N_PFASST, c.NC_PFASST, torch.float32, 'cuda', c.RESTOL_PFASST)
-    ctrl = c._block_controller(desc, c.P_PFASST, coarse_mode='diag')
-    u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
-    report(f'pfasst fused block {c.N_PFASST}^2/{c.NC_PFASST}^2 fp32', lambda: ctrl.run_fused(u0, 0.0, c.P_PFASST * c.DT), 5)
-    del ctrl
+    configs = args.configs.split(',')
 
-    # march: phase 16's PFASST march of 4 blocks
-    desc['level_params'] = dict(desc['level_params'], residual_type='full_rel')
-    ctrl = c._block_controller(desc, c.P_PFASST)
-    n_steps = c.MARCH_BLOCKS * c.P_PFASST
-    report(f'fused march {c.MARCH_BLOCKS} blocks', lambda: ctrl.run_fused(u0, 0.0, n_steps * c.DT), 3)
-    del ctrl
+    if 'pfasst' in configs:  # one block
+        desc = c._pfasst_description(c.N_PFASST, c.NC_PFASST, torch.float32, 'cuda', c.RESTOL_PFASST)
+        ctrl = c._block_controller(desc, c.P_PFASST, coarse_mode='diag')
+        u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+        report(f'pfasst fused block {c.N_PFASST}^2/{c.NC_PFASST}^2 fp32', lambda: ctrl.run_fused(u0, 0.0, c.P_PFASST * c.DT),
+               5)
+        del ctrl
 
-    # sparse: phase 67's block (its PCG loops nest inside the block's loop where the block is one graph)
-    desc = c._sparse_description(c.N_SPARSE, torch.float32, 'cuda', restol=c.RESTOL_SF, maxiter=c.MAXITER_SF)
-    ctrl = ShardedController(c.P_SF, {'logger_level': 30}, desc)
-    us = c._sin_field(ctrl.MS[0].levels[0].prob)
-    report(f'sparse fused block {c.N_SPARSE}^2 fp32', lambda: ctrl.run_fused(us, 0.0, c.P_SF * c.DT_SPARSE), 3,
-           busy=False)
-    del ctrl
-    torch.cuda.empty_cache()
+    if 'march' in configs:  # phase 16's PFASST march of 4 blocks
+        desc = c._pfasst_description(c.N_PFASST, c.NC_PFASST, torch.float32, 'cuda', c.RESTOL_PFASST)
+        desc['level_params'] = dict(desc['level_params'], residual_type='full_rel')
+        ctrl = c._block_controller(desc, c.P_PFASST)
+        u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+        n_steps = c.MARCH_BLOCKS * c.P_PFASST
+        report(f'fused march {c.MARCH_BLOCKS} blocks', lambda: ctrl.run_fused(u0, 0.0, n_steps * c.DT), 3)
+        del ctrl
 
-    # rbc: stage and fused in turns
-    desc = c._rbc_description('cuda')
-    block = c.P_RBC * c.DT_RBC
-    lanes = {lane: ShardedController(c.P_RBC, {'logger_level': 30}, desc) for lane in ('stage', 'fused')}
-    ur = lanes['stage'].MS[0].levels[0].prob.u_exact(0.0)
-    try:
-        lanes['fused'].run(ur, 0.0, block, lane='fused')
-    except ControllerError as err:
-        print(f'TIME {tag} rbc fused lane refused: {err} [{card}]')
-        del lanes['fused']
-    for lane in list(lanes) * 2:
-        report(f'rbc {lane} block 256x64 fp64', lambda: lanes[lane].run(ur, 0.0, block, lane=lane), 3)
+    if 'sparse' in configs:  # phase 67's block (its PCG loops nest inside the block's loop)
+        desc = c._sparse_description(c.N_SPARSE, torch.float32, 'cuda', restol=c.RESTOL_SF, maxiter=c.MAXITER_SF)
+        ctrl = ShardedController(c.P_SF, {'logger_level': 30}, desc)
+        us = c._sin_field(ctrl.MS[0].levels[0].prob)
+        report(f'sparse fused block {c.N_SPARSE}^2 fp32', lambda: ctrl.run_fused(us, 0.0, c.P_SF * c.DT_SPARSE), 3,
+               busy=False)
+        del ctrl
+        torch.cuda.empty_cache()
+
+    def both_lanes(name, desc, u0_of, block):
+        """Stage and fused in turns, 3 runs each."""
+        lanes = {lane: ShardedController(c.P_RBC, {'logger_level': 30}, desc) for lane in ('stage', 'fused')}
+        u0 = u0_of(lanes['stage'])
+        try:
+            lanes['fused'].run(u0, 0.0, block, lane='fused')
+        except ControllerError as err:
+            print(f'TIME {tag} {name} fused lane refused: {err} [{card}]')
+            del lanes['fused']
+        for lane in list(lanes) * 2:
+            report(f'{name} {lane} block', lambda: lanes[lane].run(u0, 0.0, block, lane=lane), 3)
+        del lanes
+        torch.cuda.empty_cache()
+
+    def exact(ctrl):
+        return ctrl.MS[0].levels[0].prob.u_exact(0.0)
+
+    if 'rbc' in configs:
+        both_lanes('rbc 256x64 fp64', c._rbc_description('cuda'), exact, c.P_RBC * c.DT_RBC)
+    if 'linearized' in configs:
+        from pysdc_tpu_torch import LinearizedImplicitParallel
+        from pysdc_tpu_torch.models.heat import HeatND
+
+        n = c.N_LINEARIZED
+        desc = dict(problem_class=HeatND, problem_params=dict(nvars=(n, n), nu=0.1, freq=2, bc='periodic',
+                                                              dtype=torch.float64, device='cuda'),
+                    sweeper_class=LinearizedImplicitParallel,
+                    sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', jacobian=0, basis='Q'),
+                    level_params=dict(dt=0.01, restol=1e-10), step_params=dict(maxiter=20))
+        both_lanes(f'linearized HeatND {n}^2 fp64', desc, exact, 0.04)
+    if 'rbc128' in configs:
+        both_lanes(f'rbc {c.RBC_LU["nx"]}x{c.RBC_LU["nz"]} fp64', c._rbc_lu_description(c.RBC_LU, 'cuda'), exact,
+                   c.P_RBC * c.DT_RBC)
     return 0
 
 

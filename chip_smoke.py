@@ -401,8 +401,12 @@ raises and the script exits nonzero without printing the final line:
    the fused lane, one graph a block; against ``lane='stage'`` equal ``niter``,
    ``uend`` to 1e-12 relative; no ``cont`` read, one fetch; the peak device
    memory; the batched solve's kernels by name; ms a block on both lanes and
-   the idle share.  Then ``HeatChebyshev1D``, ``Burgers1D`` and
-   ``Heat2DChebyshev`` (phase 53's sizes) on the fused lane, card against CPU.
+   the idle share.  First ``ops/linalg.py``'s routes inside a device ``while``
+   body, bit for bit against the eager call, and against LAPACK on the CPU to
+   ``max(1e-13, 4 eps cond(A))``: random batches and the matrices of phase 72,
+   which need pivoting across their halves (the pivoted route from 512 rows).
+   Then ``HeatChebyshev1D``, ``Burgers1D`` and ``Heat2DChebyshev`` (phase 53's
+   sizes) on the fused lane, card against CPU.
 70. linearized fused — phase 60's configuration through
    ``ShardedController(4).run``, one block: the fused lane against the stage
    lane and the CPU (equal ``niter``, ``uend`` to 1e-11); K1 in a replayed block
@@ -413,6 +417,26 @@ raises and the script exits nonzero without printing the final line:
    one block each: the fused lane against the stage lane and the CPU (equal
    ``niter``, ``uend`` to 1e-12); K2 in a replayed block (counted on the card)
    equal to the stage lane's; ms a block on both lanes.
+72. dense LU — the panel kernel of ``ops/linalg.py``'s pivoted route
+   (``lu_panel``) against its plain version on the first panel of matrices
+   that need pivoting across their halves (RayleighBenard 8x128 and 8x256
+   modes, HeatChebyshev1D 512, a matrix whose leading half is zero); ``Piline``,
+   ``BuckConverter`` and ``BatteryNCapacitors`` float64 through
+   ``ShardedController(4).run``: the fused lane, one graph a block, against the
+   stage lane and the CPU (equal ``niter``, ``uend`` to 1e-12);
+   ``RayleighBenard(256, 128)`` float64 (512 rows a mode), 2 blocks: the fused
+   lane against the stage lane (equal ``niter``, ``uend`` to 1e-12 relative), no
+   ``cont`` read and one fetch, the panel kernel's launches counted on the card
+   (in a replayed block equal to the stage lane's), ms a block on both lanes;
+   ``RayleighBenard(8, 128)``, one block, card against CPU.
+73. dense LU times — the panel kernel at RayleighBenard 256x128's first panel
+   (complex128) beside its bound, its plain version and the library's
+   ``lu_factor_ex`` of the panel; the pivoted route at that batch of modes
+   beside its FP64 bound and cuSOLVER's ``getrf`` + ``getrs``; at 256 rows beside
+   ``_batched_solve``.
+
+Phases 72-73 run right after phase 1, while the card's memory is free: the
+graphs and pools of the phases before them in this list keep tens of GiB.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -1776,8 +1800,9 @@ def _niter(stats):
 
 
 def _counting_launches(phase):
-    """``phase`` with K1's and K2's device-side launch counts armed (``cross_stencil_2d.device_count``,
-    ``dia_spmv.device_count``, the tensors of :data:`_LAUNCH_COUNTS`): each wrapper adds one on the card at each
+    """``phase`` with K1's, K2's and the dense LU panel's device-side launch counts armed
+    (``cross_stencil_2d.device_count``, ``dia_spmv.device_count``, ``lu_panel.device_count``, the tensors of
+    :data:`_LAUNCH_COUNTS`): each wrapper adds one on the card at each
     launch, on the launch's stream, so a graph that captured the launch counts it again at every replay, inside
     conditional bodies too, where the profiler sees the kernels of one level of loops but not those of a loop
     inside a loop (a fused block's PCG, a GMRES restart's Arnoldi steps) on an H100 80GB HBM3 with CUDA 12.9.
@@ -1789,21 +1814,23 @@ def _counting_launches(phase):
     def run(*args):
         import torch
 
+        from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel
         from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
         from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 
-        for name in ('k1', 'k2'):
+        for name in ('k1', 'k2', 'lu'):
             _LAUNCH_COUNTS.setdefault(name, torch.zeros((), dtype=torch.int64, device='cuda'))
         cross_stencil_2d.device_count, dia_spmv.device_count = _LAUNCH_COUNTS['k1'], _LAUNCH_COUNTS['k2']
+        lu_panel.device_count = _LAUNCH_COUNTS['lu']
         try:
             return phase(*args)
         finally:
-            cross_stencil_2d.device_count = dia_spmv.device_count = None
+            cross_stencil_2d.device_count = dia_spmv.device_count = lu_panel.device_count = None
 
     return run
 
 
-_LAUNCH_COUNTS = {}  # 'k1', 'k2': the 0-d int64 launch counters on the card that _counting_launches arms
+_LAUNCH_COUNTS = {}  # 'k1', 'k2', 'lu': the 0-d int64 launch counters on the card that _counting_launches arms
 
 
 def _k1_kernels(fn):
@@ -6238,28 +6265,39 @@ def _one_graph_a_block(ctrl, label):
 
 
 # (dtype, batch, rows) of the dense solves held inside a device while loop's body: each route of ops/linalg.py (a
-# batch padded onto cuBLAS's batched LU, one matrix, one or two systems, block elimination from 512 rows on)
+# batch padded onto cuBLAS's batched LU, one matrix, one or two systems, the pivoted blocked LU from 512 rows on);
+# random matrices plus 2 n I; beside them the matrices of LU_PIVOTING_CASES, which need pivoting across their halves
 LINALG_LOOP_CASES = (('complex128', 2, 32), ('complex128', 2, 64), ('complex128', 1, 600), ('complex128', 12, 1024),
-                     ('complex128', 1024, 256), ('float64', 2048, 2), ('float64', 128, 256))
+                     ('complex128', 1024, 256), ('float64', 2048, 2), ('float64', 128, 256), ('float64', 1, 512),
+                     ('float32', 3, 520))
 
 
 def _linalg_in_a_loop(card):
     """``ops/linalg.py``'s solve (and inverse) inside the body of a device ``while`` of 2 trips, captured and
-    replayed, equal bit for bit to the eager call: what a fused block's loop needs of the dense solves."""
+    replayed, equal bit for bit to the eager call: what a fused block's loop needs of the dense solves.  Each case
+    is also held against LAPACK on the CPU (float64 and complex128; the first two matrices of a random case, every
+    matrix of a pivoting case) to the CPU test's gate, ``max(1e-13, 4 eps cond(A))``."""
     import torch
 
     from pysdc_tpu_torch.ops import graph_loop, linalg
 
     graph_loop.prepare(torch.device('cuda'))
     gen = torch.Generator(device='cuda').manual_seed(5)
-    lines = []
+    cases = []
     for dtype_name, batch, n in LINALG_LOOP_CASES:
         dtype = getattr(torch, dtype_name)
         A = torch.randn((batch, n, n), dtype=dtype, device='cuda', generator=gen) \
             + 2 * n * torch.eye(n, dtype=dtype, device='cuda')
-        B = torch.randn((batch, n, 1), dtype=dtype, device='cuda', generator=gen)
+        cases.append((f'{dtype_name} ({batch}, {n}, {n})', A, torch.randn((batch, n, 1), dtype=dtype, device='cuda',
+                                                                            generator=gen)))
+    for name, factor in LU_PIVOTING_CASES:
+        A, B = _pivoting_matrix(name, factor)
+        cases.append((f'{name} {tuple(A.shape)}', A.cuda(), B.cuda()))
+    lines = []
+    for i, (label, A, B) in enumerate(cases):
+        n = A.shape[-1]
         for name, op, args in (('solve', linalg.solve, (A, B)), ('inv', linalg.inv, (A,))):
-            if name == 'inv' and n > 256:
+            if name == 'inv' and (n > 256 and A.shape[0] > 1 or n > 600):
                 continue
             want = op(*args)
             side = torch.cuda.Stream()
@@ -6276,12 +6314,20 @@ def _linalg_in_a_loop(card):
             graph.replay()
             torch.cuda.synchronize()
             if int(trips) != 2 or not torch.equal(got, want):
-                raise AssertionError(f'spectral fused: linalg.{name} {dtype_name} ({batch}, {n}, {n}) in a device while '
-                                     f'body: {int(trips)} trips, |got - eager| {(got - want).abs().max().item():.3e}')
-            lines.append(f'{name} {dtype_name} ({batch}, {n}, {n})')
+                raise AssertionError(f'spectral fused: linalg.{name} {label} in a device while body: {int(trips)} '
+                                     f'trips, |got - eager| {(got - want).abs().max().item():.3e}')
             del graph
+        count = 2 if i < len(LINALG_LOOP_CASES) else A.shape[0]  # every matrix of a pivoting case
+        head = A[:count].cpu().to(torch.complex128 if A.is_complex() else torch.float64)
+        bound, _ = _lapack_bound(head)
+        with _one_cpu_thread():
+            want = torch.linalg.solve(head, B[:count].cpu().to(head.dtype))
+        rel = _rel_err(linalg.solve(A[:count], B[:count]), want)
+        if A.dtype in (torch.float64, torch.complex128) and not rel <= bound:
+            raise AssertionError(f'spectral fused: linalg.solve {label} against LAPACK: {rel:.3e} > {bound:.3e}')
+        lines.append(f'{label} (LAPACK {rel:.1e})')
     print(f'spectral fused: ops/linalg.py inside a device while body, captured and replayed, bit for bit the eager '
-          f'call: {"; ".join(lines)} [{card}]')
+          f'call (solve, and inv up to 600 rows): {"; ".join(lines)} [{card}]')
 
 
 def phase_spectral_fused(card):
@@ -6504,6 +6550,326 @@ def phase_direct_fused(card):
     return total
 
 
+# -- the dense solves from 512 rows on: the pivoted blocked LU, its panel kernel, and the circuit problems -------------
+# (phases 72-73; main() runs them right after the build, while the card's memory is free)
+# NVIDIA H100 SXM data sheet, 700 W: FP64 with the tensor cores (cuBLAS's DGEMM / ZGEMM take them; 34e12 without)
+FP64_FLOP_PER_S = 67e12
+# Rayleigh-Benard at twice the reference class's vertical resolution: 4 x 128 = 512 coupled rows a Fourier mode, the
+# first size whose solves take the pivoted route; the rest as phase 69
+RBC_LU = dict(nx=256, nz=128, Rayleigh=2e6, Prandtl=1)
+BLOCKS_RBC_LU = 2
+# RayleighBenard 8x128 card against CPU, relative to max|uend|: its modes' operators have cond up to 1e8 (factor
+# 1e-3), so two backward-stable solves of one system may differ by 4 eps cond ~ 1e-7 relative
+RBC_LU_CPU_RTOL = 1e-7
+RBC_LU_SMALL = dict(nx=8, nz=128, Rayleigh=2e6, Prandtl=1)  # one block, card against CPU
+# the circuit problems of the fused lane (float64, IMEX M=3 RADAU-RIGHT LU / EE, dt 0.05, restol 1e-10, 2 blocks of 4);
+# the buck converter at fsw 7, so that no node time lands on a switching instant (tests/test_torch_circuits_fused.py)
+CIRCUITS = {'Piline': {}, 'BuckConverter': dict(fsw=7.0), 'BatteryNCapacitors': dict(ncapacitors=2)}
+CIRCUIT_BOUND = 1e-12  # float64, absolute; fields of size <= 10
+# (name, factor): the matrices of the pivoted route's checks that need pivoting across the whole matrix
+LU_PIVOTING_CASES = (('RayleighBenard 8x128 modes', 1e-2), ('RayleighBenard 8x256 modes', 1e-3),
+                     ('HeatChebyshev1D 512', 1e-2), ('zero leading block 512', None))
+
+
+def _pivoting_matrix(name, factor):
+    """A matrix (batch, n, n) on the CPU that needs pivoting across its halves, and a right-hand side: a spectral
+    problem's shifted operator with its tau rows, as ``TensorProductSpectral.solve_shifted`` builds it, or
+    ``[[0, I + N1], [I + N2, N3]]`` (each N 0.1 x a Gaussian, numpy seed 1) of 512 rows."""
+    import torch
+
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+    from pysdc_tpu_torch.models.spectral_problems import HeatChebyshev1D
+
+    rng = np.random.default_rng(1)
+    if factor is None:
+        h = 256
+        N1, N2, N3 = (0.1 * rng.standard_normal((h, h)) for _ in range(3))
+        A = torch.as_tensor(np.block([[np.zeros((h, h)), np.eye(h) + N1], [np.eye(h) + N2, N3]])).unsqueeze(0)
+    else:
+        prob = (HeatChebyshev1D(nvars=512, device='cpu') if name.startswith('Heat')
+                else RayleighBenard(nx=8, nz=int(name.split('x')[1].split()[0]), device='cpu'))
+        spec = prob.spec
+        like = torch.zeros((1,), dtype=torch.complex128)
+        keep = torch.as_tensor(spec.keep_mask)
+        A = (spec._dev('M_all', like) + factor * spec._dev('L_all', like)) * keep[:, :, None] \
+            + spec._dev('bc_rows', like)
+    B = torch.as_tensor(rng.standard_normal(tuple(A.shape[:-1]) + (2,))).to(A.dtype)
+    return A, B
+
+
+def _lapack_bound(A):
+    """The CPU test's gate: two backward-stable solves differ by up to a few eps x cond(A)."""
+    import torch
+
+    with _one_cpu_thread():
+        cond = float(torch.linalg.cond(A).max())
+    return max(1e-13, 4 * torch.finfo(torch.float64).eps * cond), cond
+
+
+def _panel_checks(card):
+    """The panel kernel on the first panel of each matrix of LU_PIVOTING_CASES against its plain version (LAPACK's
+    ``getrf`` of the panel) on the same inputs: the same rows, the factors to 1e-12 of their largest entry (phase
+    69 holds the whole route on these matrices against LAPACK).  Returns the largest difference."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels import dense_lu
+
+    worst, lines = 0.0, []
+    for name, factor in LU_PIVOTING_CASES:
+        A, _ = _pivoting_matrix(name, factor)
+        panel = A.cuda()[:, :, :dense_lu.panel_width(A.shape[-1], A.element_size())]
+        plain = panel.cpu().clone()
+        perm = dense_lu.lu_panel(panel)
+        with _one_cpu_thread():
+            plain_perm = dense_lu.plain_panel(plain)
+        err = (panel.cpu() - plain).abs().max().item()
+        same_rows = torch.equal(perm.cpu(), plain_perm)
+        if not same_rows or not err <= 1e-12 * plain.abs().max().item():
+            raise AssertionError(f'dense LU: the panel kernel on {name} {tuple(panel.shape)} against its plain version: '
+                                 f'rows equal {same_rows}, max abs diff {err:.3e}')
+        worst = max(worst, err)
+        lines.append(f'{name} {tuple(panel.shape)} {err:.1e}')
+    print(f'dense LU: the panel kernel against its plain version on the first panels of matrices that need pivoting '
+          f'(the same rows, max abs diff): {"; ".join(lines)} [{card}]')
+    return worst
+
+
+def _rbc_lu_description(params, device):
+    import torch
+
+    return dict(_rbc_description(device), problem_params=dict(params, dtype=torch.float64, device=device))
+
+
+def _circuits_fused(card):
+    """``Piline``, ``BuckConverter`` and ``BatteryNCapacitors`` float64 through ``ShardedController(4).run``, 2 blocks:
+    ``'auto'`` takes the fused lane, one graph a block, no ``cont`` read and one fetch; equal ``niter`` and ``uend``
+    within CIRCUIT_BOUND of ``lane='stage'`` and of the CPU's fused run."""
+    import torch
+
+    from pysdc_tpu_torch import IMEXSweeper, ShardedController
+    from pysdc_tpu_torch.models import power_electronics
+
+    lines = []
+    for name, params in CIRCUITS.items():
+        def description(device):
+            return dict(problem_class=getattr(power_electronics, name),
+                        problem_params=dict(params, dtype=torch.float64, device=device), sweeper_class=IMEXSweeper,
+                        sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', QI='LU', QE='EE'),
+                        level_params=dict(dt=0.05, restol=1e-10), step_params=dict(maxiter=20))
+
+        label = f'dense LU: ShardedController(4) {name} fp64 IMEX M=3 LU / EE dt 0.05, 2 blocks'
+        fused = stage = ShardedController(4, {'logger_level': 30}, description('cuda'))  # one controller, both lanes
+        u0 = fused.MS[0].levels[0].prob.u_exact(0.0)
+        uend, stats = fused.run(u0, 0.0, 0.4)
+        reads = dict(fused.host_reads)
+        uend_s, stats_s = stage.run(u0, 0.0, 0.4, lane='stage')
+        with _one_cpu_thread():
+            cpu = ShardedController(4, {'logger_level': 30}, description('cpu'))
+            uend_c, stats_c = cpu.run(cpu.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.4)
+        niter, niter_s, niter_c = _niter(stats), _niter(stats_s), _niter(stats_c)
+        diff, gap = (uend - uend_s).abs().max().item(), (uend.cpu() - uend_c).abs().max().item()
+        if _lane(stats) != ['fused'] or _lane(stats_s) != ['stage'] or _lane(stats_c) != ['fused'] \
+                or niter != niter_s or niter != niter_c or len(niter) != 8 or not diff <= CIRCUIT_BOUND \
+                or not gap <= CIRCUIT_BOUND or reads != {'cont': 0, 'fetch': 1}:
+            raise AssertionError(f'{label}: lanes {_lane(stats)} / {_lane(stats_s)} / CPU {_lane(stats_c)}, niter {niter}, '
+                                 f'stage {niter_s}, CPU {niter_c}; |uend_fused - uend_stage| {diff:.3e}, card against '
+                                 f'CPU {gap:.3e}; host reads {reads}')
+        _one_graph_a_block(fused, label)
+        lines.append(f'{name}: niter {niter}, |fused - stage| {diff:.1e}, card against CPU {gap:.1e}')
+    print(f'dense LU: the circuit problems through ShardedController(4) fp64, lane fused under \'auto\', one graph a '
+          f'block, host reads {{cont: 0, fetch: 1}}, equal niter (stage, CPU), bound {CIRCUIT_BOUND}: '
+          + '; '.join(lines) + f' [{card}]')
+
+
+@_counting_launches
+def phase_dense_lu(card):
+    """Phase 72: the panel kernel against its plain version on matrices that need pivoting; the circuit problems on
+    the fused lane; ``RayleighBenard(256, 128)`` float64 (512 rows a mode: the
+    pivoted route) through ``ShardedController(4).run``, 2 blocks: ``'auto'`` takes the fused lane, one graph a block,
+    equal ``niter`` and ``uend`` within SPECTRAL_FUSED_RTOL of ``lane='stage'``, no ``cont`` read and one fetch, the
+    panel kernel's launches (counted on the card) in the run and in a replayed block equal to the stage lane's, ms a
+    block on both lanes; ``RayleighBenard(8, 128)``, one block, card against CPU.  Returns the kernel's launches on
+    the main path (the fused run, counted on the card) and its largest difference from the plain version."""
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel
+
+    worst = _panel_checks(card)
+    _circuits_fused(card)
+
+    count = _LAUNCH_COUNTS['lu']
+    label = (f'dense LU: ShardedController({P_RBC}) RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]} fp64 IMEX M=3 LU/PIC '
+             f'dt {DT_RBC:g}, restol -1, maxiter {MAXITER_RBC}, {BLOCKS_RBC_LU} blocks')
+    Tend, block = BLOCKS_RBC_LU * P_RBC * DT_RBC, P_RBC * DT_RBC
+    fused = stage = ShardedController(P_RBC, {'logger_level': 30}, _rbc_lu_description(RBC_LU, 'cuda'))
+    u0 = fused.MS[0].levels[0].prob.u_exact(0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count.zero_()
+    lu_panel.launches = 0
+    start = time.perf_counter()
+    uend, stats = fused.run(u0, 0.0, Tend)  # the main path: warm-up, capture, the march
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    main_launches, main_wrapper = int(count), lu_panel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    reads = dict(fused.host_reads)
+    uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
+    niter, niter_s = _niter(stats), _niter(stats_s)
+    rel = _rel_err(uend, uend_s)
+    if _lane(stats) != ['fused'] or _lane(stats_s) != ['stage'] or niter != niter_s \
+            or len(niter) != BLOCKS_RBC_LU * P_RBC or not rel <= SPECTRAL_FUSED_RTOL or not bool(uend.isfinite().all()):
+        raise AssertionError(f'{label}: lanes {_lane(stats)} / {_lane(stats_s)}, niter {niter} against {niter_s}, '
+                             f'|uend_fused - uend_stage| / max|uend_stage| {rel:.3e}')
+    if reads != {'cont': 0, 'fetch': 1} or main_launches < 1:
+        raise AssertionError(f'{label}: host reads {reads}, panel kernel launches in the run {main_launches}')
+    _one_graph_a_block(fused, label)
+    count.zero_()
+    lu_panel.launches = 0
+    fused_ms, (uend_r, _) = _events_ms(lambda: fused.run_fused(u0, 0.0, block))
+    replay, through_wrapper = int(count), lu_panel.launches
+    count.zero_()
+    lu_panel.launches = 0
+    stage_ms, _ = _events_ms(lambda: stage.run(u0, 0.0, block, lane='stage'))
+    stage_count, stage_wrapper = int(count), lu_panel.launches
+    if through_wrapper != 0 or replay != stage_count or stage_count != stage_wrapper or replay < 1:
+        raise AssertionError(f'{label}: panel kernel in a replayed block {replay} (counted on the card), through the '
+                             f'wrapper {through_wrapper}; the stage lane\'s block {stage_count} (counted on the card) of '
+                             f'{stage_wrapper} launches')
+    print(f'{label}: lane fused under \'auto\', one graph a block, niter {niter} = the stage lane\'s, '
+          f'|uend_fused - uend_stage| / max|uend_stage| {rel:.3e} <= {SPECTRAL_FUSED_RTOL}; host reads {reads}; the '
+          f'panel kernel {main_launches} launches in the run (counted on the card; {main_wrapper} through the wrapper in '
+          f'warm-up and capture), {replay} in a replayed block = the stage lane\'s {stage_count}; peak device memory '
+          f'{peak:.0f} MiB; wall {wall:.3f} s with the capture [{card}]')
+    print(f'times: RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]} fp64 block of {P_RBC} steps: fused {fused_ms:.3f} ms '
+          f'(a replay) against stage {stage_ms:.3f} ms (x{stage_ms / fused_ms:.2f}), CUDA events [{card}]')
+    del fused, stage
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        with _one_cpu_thread():
+            ctrl = ShardedController(P_RBC, {'logger_level': 30}, _rbc_lu_description(RBC_LU_SMALL, device))
+            u, st = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, block)
+        runs[device] = (u.cpu(), _niter(st), _lane(st))
+    (u_card, it_card, lane_card), (u_cpu, it_cpu, lane_cpu) = runs['cuda'], runs['cpu']
+    rel = _rel_err(u_card, u_cpu)
+    if lane_card != lane_cpu or lane_card != ['fused'] or it_card != it_cpu or not rel <= RBC_LU_CPU_RTOL:
+        raise AssertionError(f'dense LU: RayleighBenard 8x128 lanes {lane_card} / {lane_cpu}, niter {it_card} against '
+                             f'the CPU\'s {it_cpu}, uend rel diff {rel:.3e}')
+    print(f'dense LU: ShardedController({P_RBC}) RayleighBenard 8x128 fp64, one block on the fused lane, card against '
+          f'CPU: niter {it_card}, uend rel diff {rel:.3e} <= {RBC_LU_CPU_RTOL} [{card}]')
+    return dict(main=main_launches, replayed_block=replay), worst
+
+
+def phase_dense_lu_times(card):
+    """Phase 73: the panel kernel at the main path's first panel (RayleighBenard 256x128's modes, complex128) against
+    its plain version and the library's ``lu_factor_ex`` of the panel; the pivoted route at the main path's batch
+    of modes beside its bound and cuSOLVER's ``getrf`` + ``getrs`` outside any graph; at 256 rows beside
+    ``_batched_solve``.  CUDA events.  Returns the kernel's numbers for the ``kernels`` line."""
+    import torch
+
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+    from pysdc_tpu_torch.ops import linalg
+    from pysdc_tpu_torch.ops.kernels import dense_lu
+
+    spec = RayleighBenard(**RBC_LU, dtype=torch.float64, device='cuda').spec
+    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
+    keep = torch.as_tensor(spec.keep_mask, device='cuda')
+    A = (spec._dev('M_all', like) + 0.3 * DT_RBC * spec._dev('L_all', like)) * keep[:, :, None] \
+        + spec._dev('bc_rows', like)
+    del spec
+    b, n = A.shape[0], A.shape[-1]
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    B = torch.randn((P_RBC, b, n, 1), dtype=torch.complex128, device='cuda', generator=gen)
+    w = dense_lu.panel_width(n, A.element_size())
+    work = A.clone()
+    panel = work[:, :, :w]
+    lu_ms = _event_ms(lambda i: dense_lu.lu_panel(panel.copy_(A[:, :, :w])), 10)
+    copy_ms = _event_ms(lambda i: panel.copy_(A[:, :, :w]), 10)
+    plain_ms = _event_ms(lambda i: dense_lu.plain_panel(panel.copy_(A[:, :, :w])), 3, warmup=1) - copy_ms
+    library_ms = _event_ms(lambda i: torch.linalg.lu_factor_ex(A[:, :, :w]), 3, warmup=1)
+    with linalg._cusolver(A):
+        cusolver_panel_ms = _event_ms(lambda i: torch.linalg.lu_factor_ex(A[:, :, :w]), 3, warmup=1)
+    lu_ms -= copy_ms
+    got = panel.copy_(A[:, :, :w])
+    perm = dense_lu.lu_panel(got)
+    plain = A[:, :, :w].clone()
+    plain_perm = dense_lu.plain_panel(plain)
+    err = (got - plain).abs().max().item()
+    if not torch.equal(perm, plain_perm) or not err <= 1e-12 * plain.abs().max().item():
+        raise AssertionError(f'dense LU: the panel kernel at ({b}, {n}, {w}) complex128 against its plain version: rows '
+                             f'equal {torch.equal(perm, plain_perm)}, max abs diff {err:.3e}')
+    steps = sum((n - k) * (w - k) for k in range(w))
+    flops = 8 * b * steps
+    nbytes = 2 * b * n * w * 16 + b * n * 8
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
+    bound_by = 'bytes' if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S else 'operations'
+    print(f'times: the panel kernel at ({b}, {n}, {w}) complex128 (RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]}\'s first '
+          f'panel): {lu_ms:.4f} ms against its bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, '
+          f'{flops / 1e9:.2f} GFLOP); plain version (lu_factor_ex, the permutation) {plain_ms:.4f} ms; library '
+          f'torch.linalg.lu_factor_ex of the panel {library_ms:.4f} ms (asked for cuSOLVER: {cusolver_panel_ms:.4f} ms, '
+          f'one getrf a matrix); max abs diff to the plain version {err:.3e}, the same rows [{card}]')
+    del work, panel, got, plain
+
+    # the whole route at the main path's batch: A (modes, n, n), the right-hand sides of a block's steps
+    route_ms = _event_ms(lambda i: linalg.solve(A, B), 3, warmup=1)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        linalg.solve(A, B)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        linalg.solve(A, B)
+    route_graph_ms = _event_ms(lambda i: graph.replay(), 3, warmup=1)
+    del graph
+    rhs = B.permute(1, 2, 0, 3).reshape(b, n, P_RBC)
+
+    def cusolver():
+        with linalg._cusolver(A):
+            LU, pivots, _ = torch.linalg.lu_factor_ex(A)
+            return torch.linalg.lu_solve(LU, pivots, rhs)
+
+    cusolver_ms = _event_ms(lambda i: cusolver(), 2, warmup=1)
+
+    def library_panel(panel):
+        """Library route (a): the panel by ``lu_factor_ex`` with torch asked for cuSOLVER (``getrf`` of each tall
+        panel, one matrix at a time), which a conditional body holds too."""
+        with linalg._cusolver(panel):
+            return dense_lu.plain_panel(panel)
+
+    linalg.lu_panel = library_panel
+    try:
+        library_route_ms = _event_ms(lambda i: linalg.solve(A, B), 1, warmup=1)
+    finally:
+        linalg.lu_panel = dense_lu.lu_panel
+    rel = _rel_err(linalg.solve(A, B).permute(1, 2, 0, 3).reshape(b, n, P_RBC), cusolver())
+    route_flops = b * (8 / 3 * n ** 3 + 8 * n * n * P_RBC)
+    route_bytes = (A.numel() + 2 * B.numel()) * 16
+    route_bound = 1e3 * max(route_flops / FP64_FLOP_PER_S, route_bytes / HBM_BYTES_PER_S)
+    print(f'times: the pivoted route (ops/linalg.py) at RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]}\'s modes, A ({b}, '
+          f'{n}, {n}) complex128, B {tuple(B.shape)}: {route_ms:.3f} ms eager, {route_graph_ms:.3f} ms from a CUDA graph, '
+          f'against its bound {route_bound:.3f} ms (operations: {route_flops / 1e9:.1f} GFLOP at FP64 '
+          f'{FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s); cuSOLVER getrf + getrs outside any graph {cusolver_ms:.3f} ms '
+          f'(rel diff {rel:.2e}); the same route with its panels by cuSOLVER\'s getrf (library route (a)) '
+          f'{library_route_ms:.3f} ms [{card}]')
+    del A, B, rhs
+    torch.cuda.empty_cache()
+
+    A2 = torch.randn((b, 256, 256), dtype=torch.complex128, device='cuda', generator=gen) \
+        + 512 * torch.eye(256, dtype=torch.complex128, device='cuda')
+    B2 = torch.randn((P_RBC, b, 256, 1), dtype=torch.complex128, device='cuda', generator=gen)
+    batched_ms = _event_ms(lambda i: linalg._batched_solve(A2, B2), 3, warmup=1)
+    pivoted_ms = _event_ms(lambda i: linalg._pivoted_solve(A2, B2), 3, warmup=1)
+    print(f'times: at 256 rows ({b} matrices complex128, B {tuple(B2.shape)}): _batched_solve (cuBLAS\'s batched LU, the '
+          f'route below 512 rows) {batched_ms:.3f} ms, _pivoted_solve {pivoted_ms:.3f} ms [{card}]')
+    return dict(ms=lu_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                max_abs_err=err, route_ms=route_ms, route_graph_ms=route_graph_ms, route_bound_ms=route_bound,
+                route_cusolver_ms=cusolver_ms, route_with_library_panels_ms=library_route_ms)
+
+
 def main():
     import torch
 
@@ -6524,6 +6890,9 @@ def main():
         return out
 
     phase(phase_build, card)
+    # phases 72-73 first: RayleighBenard 256x128 needs GiBs that the graphs and pools of the later phases keep
+    lu_launches, lu_err = phase(phase_dense_lu, card)
+    lu = phase(phase_dense_lu_times, card)
     main_err, pfasst_err = phase(phase_kernels)
     ctrl, launches = phase(phase_main, card)
     phase(phase_parity)
@@ -6626,6 +6995,10 @@ def main():
         dict(name='bsr_spmm', route='cuda', source='pysdc_tpu_torch/csrc/bsr_spmm.cu',
              replaces='pysdc_tpu/ops/pallas/spmv.py:29', launches=k3_launches,
              max_abs_err=sparse_errs['bsr_spmm'], **k3),
+        dict(name='lu_panel', route='cuda', source='pysdc_tpu_torch/csrc/dense_lu.cu',
+             replaces='none: no TPU kernel (XLA computes the LU of jnp.linalg.solve, pysdc_tpu/ops/spectral.py:565)',
+             tpu_twin=False, launches=lu_launches['main'], launches_in_a_replayed_block=lu_launches['replayed_block'],
+             max_abs_err_pivoting_cases=lu_err, **lu),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

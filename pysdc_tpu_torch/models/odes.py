@@ -22,7 +22,7 @@ import torch
 
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX
-from pysdc_tpu_torch.ops import loops
+from pysdc_tpu_torch.ops import linalg
 from pysdc_tpu_torch.ops.loops import masked_loop
 
 
@@ -61,33 +61,6 @@ def _sin(t):
     return torch.sin(t) if isinstance(t, torch.Tensor) else math.sin(t)
 
 
-def eliminate(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve the small dense systems ``A x = b`` (``A (..., n, n)``, ``b (..., n)``)
-    by Gaussian elimination with partial pivoting, written as tensor operations
-    over the batch: ``torch.linalg.solve`` reads its error flag on the host,
-    which a CUDA graph capture does not permit.  About ``10 n`` small kernels;
-    meant for the few unknowns of an ODE system."""
-    n = A.shape[-1]
-    rows = torch.arange(n, device=A.device)
-    M = torch.cat([A, b.unsqueeze(-1)], dim=-1)  # (..., n, n + 1)
-    for k in range(n):
-        # the row at or below k with the largest entry in column k comes to row k
-        p = M[..., k:, k].abs().argmax(dim=-1) + k
-        is_p = (rows == p.unsqueeze(-1)).unsqueeze(-1)
-        row_k = M[..., k:k + 1, :]
-        row_p = (M * is_p).sum(dim=-2, keepdim=True)
-        M = torch.where(is_p, row_k, torch.where((rows == k).reshape(-1, 1), row_p, M))
-        factors = torch.where(rows > k, M[..., :, k] / M[..., k:k + 1, k], torch.zeros_like(M[..., :, k]))
-        M = M - factors.unsqueeze(-1) * M[..., k:k + 1, :]
-    x = [None] * n
-    for k in range(n - 1, -1, -1):
-        acc = M[..., k, n]
-        for j in range(k + 1, n):
-            acc = acc - M[..., k, j] * x[j]
-        x[k] = acc / M[..., k, k]
-    return torch.stack(x, dim=-1)
-
-
 def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, trace=None):
     """Solve ``u - factor * f(u) = rhs`` with Newton for a batch of systems.
 
@@ -105,11 +78,12 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, trace=None):
     the host every ``READ_EVERY`` iterations and stops with the last system.
 
     While a CUDA graph is being captured the host cannot read: the loop is
-    then a device ``while`` that runs to ``tol`` or ``maxiter`` as eager does,
-    and it solves its linear systems with :func:`eliminate`
-    (``torch.linalg.solve`` reads its error flag on the host).  ``trace``,
-    when a list, receives the iterations each system ran (host integers; None
-    under a capture).
+    then a device ``while`` that runs to ``tol`` or ``maxiter`` as eager does.
+    Each Newton step solves its linear systems with
+    :func:`pysdc_tpu_torch.ops.linalg.solve` in both modes (no error flag read
+    on the host), so the stage lane and the fused lanes compute alike.
+    ``trace``, when a list, receives the iterations each system ran (host
+    integers; None under a capture).
     """
     n = u0.shape[-1]
     factor = _behind(factor, u0, 1)
@@ -122,13 +96,11 @@ def newton_solve(f, jac, rhs, factor, u0, tol, maxiter, trace=None):
         return u - factor * f(u) - rhs
 
     fac = factor.unsqueeze(-1) if isinstance(factor, torch.Tensor) and factor.dim() > 0 else factor  # against (n, n)
-    capture = loops.capturing(u0)
 
     def body(carry, flags):
         u, G = carry
         J = eye - fac * jac(u)
-        du = eliminate(J, G) if capture else torch.linalg.solve(J, G.unsqueeze(-1)).squeeze(-1)
-        u = u - du
+        u = u - linalg.solve(J, G.unsqueeze(-1)).squeeze(-1)
         return u, g(u)
 
     out = masked_loop(body, lambda c: torch.linalg.vector_norm(c[1], dim=-1) > tol, (u0, g(u0)), int(maxiter))
@@ -208,14 +180,14 @@ class NewtonODE(Problem):
         """``(I - factor * J(u)) x = rhs`` with the dense (possibly complex) Jacobian: ParaDiag's inner solve."""
         J = self._jacobian_at(rhs, u, (), t)
         A = torch.eye(J.shape[-1], dtype=rhs.dtype, device=rhs.device) - factor * J
-        return torch.linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
+        return linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
 
     def solve_jacobian_batched(self, rhs, factor, u=None, t=None):
         """Every system of the batch (ParaDiag's ``(L, M)`` steps and nodes) in one batched complex
-        ``torch.linalg.solve``; ``factor`` and ``t`` hold one shift and one time per system."""
+        :func:`pysdc_tpu_torch.ops.linalg.solve`; ``factor`` and ``t`` hold one shift and one time per system."""
         J = self._jacobian_at(rhs, u, factor.shape, t)
         A = torch.eye(J.shape[-1], dtype=rhs.dtype, device=rhs.device) - factor.to(rhs.dtype)[..., None, None] * J
-        return torch.linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
+        return linalg.solve(A, rhs.unsqueeze(-1)).squeeze(-1)
 
     def solve_system_batched(self, rhs, factor, u0, t):
         """All nodes in one Newton solve: ``factor`` holds one shift per node."""

@@ -24,6 +24,7 @@ import torch
 from pysdc_tpu_torch.core.problem import Problem, WorkCounter
 from pysdc_tpu_torch.core.state import IMEX
 from pysdc_tpu_torch.models.odes import _behind, _time, per_step
+from pysdc_tpu_torch.ops import linalg
 
 
 def _factor(factor, rhs):
@@ -35,12 +36,13 @@ def _factor(factor, rhs):
 
 def _solve_shifted(A, factor, rhs):
     """``(I - factor A) x = rhs`` over the last axis; ``A (..., n, n)`` and
-    ``factor`` per system of the batch."""
+    ``factor`` per system of the batch.  :func:`pysdc_tpu_torch.ops.linalg.solve`
+    reads no error flag on the host, so a CUDA graph holds it."""
     n = rhs.shape[-1]
     eye = torch.eye(n, dtype=rhs.dtype, device=rhs.device)
     fac = factor.unsqueeze(-1) if isinstance(factor, torch.Tensor) and factor.dim() > 0 else factor
     lhs = (eye - fac * A.to(rhs.dtype)).expand(rhs.shape + (n,))
-    return torch.linalg.solve(lhs, rhs)
+    return linalg.solve(lhs, rhs.unsqueeze(-1)).squeeze(-1)
 
 
 class _Circuit(Problem):

@@ -5,8 +5,9 @@ The counterparts of ``pysdc_tpu/models/spectral_problems.py`` (reference
 ``HeatEquation_Chebychev.py`` and ``Burgers.py``) on the generic
 tensor-product spectral layer (:mod:`pysdc_tpu_torch.ops.spectral`).  Every
 problem here is a pure declaration: the engine handles basis conversion, tau
-lines and the batched solves (one ``torch.linalg.solve_ex`` over the modes,
-:mod:`pysdc_tpu_torch.ops.linalg`).  The fused lanes capture them.
+lines and the batched solves (one :func:`pysdc_tpu_torch.ops.linalg.solve`
+over the modes: LAPACK on the CPU, on the card cuBLAS's batched LU below 512
+rows and the pivoted blocked LU from 512 on).  The fused lanes capture them.
 """
 
 from __future__ import annotations

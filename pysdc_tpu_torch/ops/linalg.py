@@ -1,8 +1,9 @@
 """Batched dense solves and inverses that a CUDA graph can hold, inside a device ``while`` loop too.
 
-``torch.linalg.solve_ex`` and ``inv_ex`` check nothing on the host, but which
-library computes them is torch's choice, by shape, and not every choice can be
-captured.  On an NVIDIA H100 with torch 2.11 and CUDA 12.9:
+The JAX package's dense solves are ``jnp.linalg.solve``: LU with partial
+pivoting.  ``torch.linalg.solve_ex`` and ``inv_ex`` check nothing on the host,
+but which library computes them is torch's choice, by shape, and not every
+choice can be captured.  On an NVIDIA H100 with torch 2.11 and CUDA 12.9:
 
 - by default a batch of more than a few matrices goes to MAGMA's batched LU,
   whose queue synchronizes: a capture that reaches it fails;
@@ -10,33 +11,52 @@ captured.  On an NVIDIA H100 with torch 2.11 and CUDA 12.9:
   than 512 rows by cuBLAS's batched LU (``getrf_panel``, ``getrf_2x2``, ...)
   and substitutes a batch of three or more systems by cuBLAS's batched
   ``getrs``: both capture, in the body of a conditional WHILE node too;
-- it sends one matrix, or any of 512 rows or more, to cuSOLVER's ``getrf``
-  one at a time, and one or two systems of 64 rows or more to cuSOLVER's
-  ``getrs``: those capture in a plain graph but not in a conditional node's
-  body (``cudaErrorInvalidValue`` when the graph is made).
+- it sends one matrix, any of 512 rows or more, or a tall one, to cuSOLVER's
+  ``getrf`` one at a time, and one or two systems of 64 rows or more to
+  cuSOLVER's ``getrs``: those capture in a plain graph but not in a
+  conditional node's body (``cudaErrorInvalidValue`` when the graph is made).
 
-So on a CUDA tensor :func:`solve` and :func:`inv` ask torch for cuSOLVER for
-their calls, pad a batch of one matrix with an identity and a batch of fewer
-than three systems with copies (padding whose results are dropped), and solve
-a matrix of 512 rows or more by block elimination over its halves
-(:func:`_blocked_solve`: the halves' solves and products, the Schur complement
-factored the same way), with partial pivoting inside each block of fewer than
-512 rows.  Eager and captured take the same path, so the stage lane and the
-fused lanes compute alike.  torch's library preference is a process-wide
-setting: it is set for the call and restored after it.  On a CPU tensor
-:func:`solve` is ``torch.linalg.solve_ex``.  ``chip_smoke.py`` phase 69 holds
-the routes taken here inside a device ``while`` body, bit for bit against the
-eager call, and ``tests/test_torch_linalg.py`` holds them against LAPACK.
+So on a CUDA tensor :func:`solve` and :func:`inv` take two routes:
+
+- fewer than :data:`PIVOTED_FROM` rows (:func:`_batched_solve`): torch asked
+  for cuSOLVER for the call, a batch of one matrix padded with an identity
+  and a batch of fewer than three systems with copies (padding whose results
+  are dropped).  torch's library preference is a process-wide setting: it is
+  set for the call and restored after it;
+- from :data:`PIVOTED_FROM` rows on (:func:`_pivoted_solve`): LAPACK's blocked
+  right-looking ``getrf``, its loop unrolled here, with the pivots LAPACK
+  chooses over the whole matrix.  Each panel is factored down the whole
+  remaining height by the hand-written kernel
+  :func:`~pysdc_tpu_torch.ops.kernels.dense_lu.lu_panel`; its row swaps reach
+  the rest of the rows by a gather, ``U12`` comes from
+  ``torch.linalg.solve_triangular`` and the trailing matrix is updated by a
+  batched GEMM with TF32 off.  The substitution is the permutation's gather
+  and triangular solves by blocks of :data:`BLOCK` rows.  Nothing is read on
+  the host.
+
+Eager and captured take the same path, so the stage lane and the fused lanes
+compute alike.  On a CPU tensor :func:`solve` and :func:`inv` are LAPACK
+(``solve_ex``, ``inv_ex``); :func:`_pivoted_solve` on a CPU tensor runs the
+same blocked loop with the kernel's plain version (LAPACK's ``getrf`` of each
+panel), which ``tests/test_torch_linalg.py`` holds against LAPACK on matrices
+that need pivoting.  ``chip_smoke.py`` holds both routes inside a device
+``while`` body, bit for bit against the eager call, and against LAPACK.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
-#: from this many rows torch factors one matrix at a time with cuSOLVER, which a conditional node's body does not hold
-BLOCKED_FROM = 512
+from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, panel_width
+
+#: from this many rows a solve on the card takes the pivoted blocked LU: torch would factor such a matrix with
+#: cuSOLVER's ``getrf``, which a conditional node's body does not hold
+PIVOTED_FROM = 512
+#: the outer block of the LU (the trailing update's depth) and the substitution's block of rows
+BLOCK = 64
 
 
 @contextlib.contextmanager
@@ -53,6 +73,17 @@ def _cusolver(x: torch.Tensor):
         torch.backends.cuda.preferred_linalg_library(before)
 
 
+@contextlib.contextmanager
+def _full_precision():
+    """Products in full float32 (no TF32) for the call; restored after it."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def _padded(x: torch.Tensor, count: int, fill: torch.Tensor) -> torch.Tensor:
     """``x`` (N, ...) with copies of ``fill`` (...) appended up to ``count`` entries."""
     extra = count - x.shape[0]
@@ -60,7 +91,7 @@ def _padded(x: torch.Tensor, count: int, fill: torch.Tensor) -> torch.Tensor:
 
 
 def _batched_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``A^-1 B`` for fewer than :data:`BLOCKED_FROM` rows by cuBLAS's batched LU and substitution."""
+    """``A^-1 B`` for fewer than :data:`PIVOTED_FROM` rows by cuBLAS's batched LU and substitution."""
     n, k = A.shape[-1], B.shape[-1]
     lead = tuple(A.shape[:-2])
     batch = torch.broadcast_shapes(lead, B.shape[:-2])
@@ -79,25 +110,75 @@ def _batched_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return x[:systems].reshape(batch + (n, k))
 
 
-def _blocked_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``A^-1 B`` by block elimination over the halves of ``A``: ``A11 [Y | y] = [A12 | B1]``, the Schur complement
-    ``S = A22 - A21 Y`` solves ``S x2 = B2 - A21 y``, and ``x1 = y - Y x2``.  Each half's solve recurses until it
-    has fewer than :data:`BLOCKED_FROM` rows; it pivots inside those blocks, not across them, which suits the
-    diagonally dominant and well-conditioned systems of the port (the implicit stages of a linearized sweep, the
-    tensor-product spectral operators)."""
-    n = A.shape[-1]
+def _getrf(A: torch.Tensor, width: int) -> torch.Tensor:
+    """Factor ``A`` (a ``(batch, m, w)`` view, ``m >= w``) in place as ``P A = L U`` with partial pivoting, LAPACK's
+    blocked right-looking ``getrf``: panels of :data:`BLOCK` columns, each factored the same way in panels of
+    ``width`` columns, which :func:`lu_panel` factors.  Returns the permutation ``(batch, m)``: row r of the factored
+    matrix is row ``perm[r]`` of the matrix given."""
+    b, m, w = A.shape
+    if w <= width:
+        return lu_panel(A)
+    step = BLOCK if w > BLOCK else width
+    perm = torch.arange(m, device=A.device).expand(b, m).clone()
+    for j in range(0, w, step):
+        jb = min(step, w - j)
+        rows = _getrf(A[:, j:, j:j + jb], width)
+        index = rows.unsqueeze(-1)
+        for side in (A[:, j:, :j], A[:, j:, j + jb:]):  # the panel's row swaps reach the rest of its rows
+            if side.shape[-1]:
+                side.copy_(side.gather(1, index.expand(side.shape)))
+        perm[:, j:] = perm[:, j:].gather(1, rows)
+        if j + jb < w:
+            U12 = torch.linalg.solve_triangular(A[:, j:j + jb, j:j + jb], A[:, j:j + jb, j + jb:], upper=False,
+                                                unitriangular=True)
+            A[:, j:j + jb, j + jb:] = U12
+            A[:, j + jb:, j + jb:].baddbmm_(A[:, j + jb:, j:j + jb], U12, alpha=-1)
+    return perm
+
+
+def _substitute(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``x`` of ``L U x = B[perm]`` by blocks of :data:`BLOCK` rows: ``LU (b, n, n)``, ``perm (b, n)``, ``B (b, n, k)``."""
+    n, k = LU.shape[-1], B.shape[-1]
+    x = B.gather(1, perm.unsqueeze(-1).expand(perm.shape + (k,)))
+    starts = list(range(0, n, BLOCK))
+    for j in starts:
+        jb = min(BLOCK, n - j)
+        if j:
+            x[:, j:j + jb].baddbmm_(LU[:, j:j + jb, :j], x[:, :j], alpha=-1)
+        x[:, j:j + jb] = torch.linalg.solve_triangular(LU[:, j:j + jb, j:j + jb], x[:, j:j + jb], upper=False,
+                                                       unitriangular=True)
+    for j in reversed(starts):
+        jb = min(BLOCK, n - j)
+        if j + jb < n:
+            x[:, j:j + jb].baddbmm_(LU[:, j:j + jb, j + jb:], x[:, j + jb:], alpha=-1)
+        x[:, j:j + jb] = torch.linalg.solve_triangular(LU[:, j:j + jb, j:j + jb], x[:, j:j + jb], upper=True)
+    return x
+
+
+def _pivoted_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A^-1 B`` by the blocked LU with partial pivoting over the whole matrix (:func:`_getrf`), for
+    :data:`PIVOTED_FROM` rows and more on the card.  Each matrix of ``A``'s own batch is factored once; the batch
+    axes over which ``A`` is broadcast ride along as columns of the right-hand side."""
+    n, k = A.shape[-1], B.shape[-1]
     batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
-    A, B = A.expand(batch + A.shape[-2:]), B.expand(batch + B.shape[-2:])
-    h = n // 2
-    A11, A12, A21, A22 = A[..., :h, :h], A[..., :h, h:], A[..., h:, :h], A[..., h:, h:]
-    Yy = _solve(A11, torch.cat([A12, B[..., :h, :]], dim=-1))
-    Y, y = Yy[..., :n - h], Yy[..., n - h:]
-    x2 = _solve(A22 - A21 @ Y, B[..., h:, :] - A21 @ y)
-    return torch.cat([y - Y @ x2, x2], dim=-2)
+    lead = (1,) * (len(batch) - (A.dim() - 2)) + tuple(A.shape[:-2])
+    moved = [i for i, (a, s) in enumerate(zip(lead, batch)) if a == 1 and s > 1]
+    kept = [i for i in range(len(batch)) if i not in moved]
+    kept_shape = tuple(batch[i] for i in kept)
+    moved_shape = tuple(batch[i] for i in moved)
+    order = kept + [len(batch)] + moved + [len(batch) + 1]
+    rhs = B.expand(batch + (n, k)).permute(order).reshape((-1, n, math.prod(moved_shape) * k))
+    LU = A.reshape(lead + (n, n)).reshape((-1, n, n)).clone(memory_format=torch.contiguous_format)
+    with _full_precision():
+        perm = _getrf(LU, panel_width(n, A.element_size()))
+        x = _substitute(LU, perm, rhs)
+    x = x.reshape(kept_shape + (n,) + moved_shape + (k,))
+    inverse = [order.index(i) for i in range(len(order))]
+    return x.permute(inverse)
 
 
 def _solve(A, B):
-    return _blocked_solve(A, B) if A.shape[-1] >= BLOCKED_FROM else _batched_solve(A, B)
+    return _pivoted_solve(A, B) if A.shape[-1] >= PIVOTED_FROM else _batched_solve(A, B)
 
 
 def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,13 @@ FFTHelper, SpectralHelper with ``add_axis``/``add_component``/``add_BC``/
     any ordered mix of Fourier and ultraspherical axes.  Fourier axes stay
     diagonal and become one flattened, batched *mode* axis; all
     ultraspherical axes are Kronecker-coupled into dense per-mode blocks.
-    The implicit solve is one batched ``torch.linalg.solve_ex`` over the
-    modes through :mod:`pysdc_tpu_torch.ops.linalg` (no error flag read on
-    the host, a library that a CUDA graph capture takes); ``dt`` may be a
-    float or a device tensor, and no factorization is kept between solves.
+    The implicit solve is one batched
+    :func:`pysdc_tpu_torch.ops.linalg.solve` over the modes (no error flag
+    read on the host, a route that a CUDA graph capture takes: LAPACK's
+    ``solve_ex`` on the CPU; on the card cuBLAS's batched LU below 512 rows
+    a mode and the pivoted blocked LU with its panel kernel from 512 on);
+    ``dt`` may be a float or a device tensor, and no factorization is kept
+    between solves.
   - **Automatic ultraspherical basis conversion.**  Operator terms are
     declared as derivative orders per axis; the engine computes the row
     basis C^(lambda) per (equation, axis) as the highest derivative order
@@ -553,11 +556,12 @@ class TensorProductSpectral:
         return u.permute(tuple(int(q) for q in np.argsort(perm)))
 
     def apply_operator(self, Op_all, u_hat):
-        """Apply a stacked per-mode operator (the name of an assembly, or a tensor) along the flattened mode axis."""
+        """Apply a stacked per-mode operator (the name of an assembly, or a tensor) along the flattened mode axis.
+        The leading batch axes ride as columns of one product a mode: a broadcast ``Op @ v[..., None]`` copies the
+        operator once per batch entry (12 GiB for RayleighBenard 256x128's nodes and steps)."""
         Op = self._dev(Op_all, u_hat) if isinstance(Op_all, str) else Op_all
         v = self._flatten_modes(u_hat)
-        out = (Op @ v.unsqueeze(-1)).squeeze(-1)
-        return self._unflatten_modes(out)
+        return self._unflatten_modes(torch.einsum('mij,...mj->...mi', Op, v))
 
     def apply_axis_matrix(self, mat, u_hat, axis):
         """Apply an (N, N) coefficient-space matrix along named ``axis`` (or the JAX package's index ``1 + i`` of

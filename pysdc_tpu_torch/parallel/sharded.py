@@ -728,10 +728,10 @@ class ShardedController(ControllerNonMPI):
 
     def run_fused(self, u0, t0, Tend):
         """Whole-block device-resident run (parallel/fused.py): on the card
-        the PFASST iterate-until-converged loop of a block is a few captured
-        CUDA graphs replayed by a short host loop.  Same uend and iteration
-        counts as :meth:`run` (gated in tests/test_torch_fused.py); stats
-        carry the default entries only.  Adaptive configurations route to
+        a block is one captured CUDA graph, its PFASST iterate-until-converged
+        loop a device ``while``, and the march reads the host once, at its
+        fetch.  Same uend and iteration counts as :meth:`run` (gated in
+        tests/test_torch_fused.py); stats carry the default entries only.  Adaptive configurations route to
         the device-resident adaptive lane.  Raises ControllerError for
         configurations needing the stage machine (k-dependent
         preconditioners, hooks needing per-sweep data, ...)."""

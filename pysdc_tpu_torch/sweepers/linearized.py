@@ -18,9 +18,11 @@ Newton-SDC of the "fixed" variant) or ``eig(QDelta)`` (the preconditioned
 flavors), and J is the RHS Jacobian — frozen at one node, or evaluated
 per node for the non-fixed variant.
 
-The M complex dense solves are one batched ``torch.linalg.solve_ex``
-(:mod:`pysdc_tpu_torch.ops.linalg`: no error flag read on the host, a library
-that a CUDA graph capture takes; complex128 for float64 fields, complex64 for
+The M complex dense solves are one batched
+:func:`pysdc_tpu_torch.ops.linalg.solve` (no error flag read on the host, a
+route that a CUDA graph capture takes: LAPACK's ``solve_ex`` on the CPU; on the
+card cuBLAS's batched LU below 512 rows and the pivoted blocked LU with its
+panel kernel from 512 rows on; complex128 for float64 fields, complex64 for
 float32).  Jacobians come from the problem's
 ``eval_jacobian`` where it has one, else from ``torch.func.jacfwd`` of the
 flattened RHS, one system at a time.  A dense Jacobian is for small systems;

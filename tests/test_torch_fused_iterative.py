@@ -15,9 +15,10 @@ loops then take the device loop's plain version, which calls the body while the 
 - the PCG, CG and Arnoldi bodies traced once (``make_fx``, the CPU's counterpart of a graph capture) and
   replayed until their flag clears give the carry of the eager loop bit for bit: no body branches on a host
   counter;
-- the fused block's loop body (``work`` then ``check``: PFASST heat, Rayleigh-Benard, the linearized sweeper) and
-  the direct sparse solves (``'banded'``, ``'block_tridiag'``), with ``dt`` a 0-d tensor, traced once by
-  ``make_fx``: no operation reads a value on the host (no ``aten._local_scalar_dense``, no
+- the fused block's loop body (``work`` then ``check``: PFASST heat, Rayleigh-Benard, the linearized sweeper, the
+  circuit problems ``Piline``, ``BuckConverter`` and ``BatteryNCapacitors``, ``VanDerPol`` with its Newton loop as a
+  capture records it) and the direct sparse solves (``'banded'``, ``'block_tridiag'``), with ``dt`` a 0-d tensor,
+  traced once by ``make_fx``: no operation reads a value on the host (no ``aten._local_scalar_dense``, no
   ``aten._linalg_check_errors``).
 
 One JAX run is shared per case through ``functools.lru_cache``; the port's CPU runs use one thread.
@@ -26,6 +27,7 @@ One JAX run is shared per case through ``functools.lru_cache``; the port's CPU r
 from __future__ import annotations
 
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -306,13 +308,76 @@ def _direct(solver):
     return lambda rhs, factor: op.solve_shifted(rhs, factor), (rhs, factor)
 
 
+def _circuit(name):
+    """A circuit problem's block: IMEX M=3, its implicit part a dense solve of the circuit's few unknowns."""
+    from pysdc_tpu_torch.models import power_electronics
+
+    params = dict(ncapacitors=2) if name == 'BatteryNCapacitors' else dict(fsw=7.0) if name == 'BuckConverter' else {}
+    desc = dict(problem_class=getattr(power_electronics, name), problem_params=dict(params, device='cpu'),
+                sweeper_class=pysdc_tpu_torch.IMEXSweeper,
+                sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', QI='LU', QE='EE'),
+                level_params=dict(dt=0.05, restol=1e-10), step_params=dict(maxiter=10))
+    return _block_body(desc, 2)
+
+
+def _one_trip(flag_fn, body, carry):
+    """The device loop as a capture records it: the first flag computed on the device and not read, the body once."""
+    carry = tuple(carry)
+    flag_fn(carry)
+    return tuple(body(carry)), None
+
+
+def _newton():
+    """VanDerPol under GenericImplicit: each node's solve is ``newton_solve``'s masked loop, which a capture holds as
+    a device ``while`` (its body traced once here: one Newton step and its dense solve)."""
+    from pysdc_tpu_torch.models.odes import VanDerPol
+
+    desc = dict(problem_class=VanDerPol, problem_params=dict(mu=2.0, device='cpu'),
+                sweeper_class=pysdc_tpu_torch.GenericImplicit,
+                sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', QI='LU'),
+                level_params=dict(dt=0.05, restol=1e-10), step_params=dict(maxiter=10))
+    trip, args = _block_body(desc, 2)
+
+    def captured(*leaves):
+        with mock.patch.object(loops, 'capturing', lambda x: True), mock.patch.object(loops, 'device_while', _one_trip):
+            return trip(*leaves)
+
+    return captured, args
+
+
 @pytest.mark.parametrize('make', [_pfasst_heat, _spectral, _linearized, lambda: _direct('banded'),
-                                  lambda: _direct('block_tridiag')],
+                                  lambda: _direct('block_tridiag'), lambda: _circuit('Piline'),
+                                  lambda: _circuit('BuckConverter'), lambda: _circuit('BatteryNCapacitors'), _newton],
                          ids=['pfasst-heat-block', 'spectral-block', 'linearized-block', 'banded-solve',
-                              'block-tridiag-solve'])
+                              'block-tridiag-solve', 'piline-block', 'buck-converter-block',
+                              'battery-n-capacitors-block', 'newton-vanderpol-block'])
 def test_captured_code_reads_nothing_on_the_host(make):
-    """The fused block's loop body (PFASST heat, Rayleigh-Benard, the linearized sweeper) and the direct sparse
-    solves, with ``dt`` a 0-d tensor as the fused lanes give it, traced once: no operation reads a value on the
-    host, so a CUDA graph holds them."""
+    """The fused block's loop body (PFASST heat, Rayleigh-Benard, the linearized sweeper, the circuit problems' dense
+    solves, a Newton ODE's device loop) and the direct sparse solves, with ``dt`` a 0-d tensor as the fused lanes
+    give it, traced once: no operation reads a value on the host, so a CUDA graph holds them."""
     fn, args = make()
     assert _host_reads_in(fn, *args) == []
+
+
+@pytest.mark.parametrize('name', ['VanDerPol', 'Lorenz', 'ChemicalReaction3Var'])
+def test_newton_step_is_one_algorithm(monkeypatch, name):
+    """A Newton ODE solves each step's linear systems with one call, eager and under a capture: the system under
+    GenericImplicit through ``ShardedController(2)``, eager and under a simulated capture (the Newton loops take
+    the device loop's plain version), equal ``niter`` and ``uend`` bit for bit."""
+    from pysdc_tpu_torch.models import odes
+
+    def run():
+        desc = dict(problem_class=getattr(odes, name), problem_params=dict(device='cpu'),
+                    sweeper_class=pysdc_tpu_torch.GenericImplicit,
+                    sweeper_params=dict(num_nodes=3, quad_type='RADAU-RIGHT', QI='LU'),
+                    level_params=dict(dt=0.02, restol=1e-10), step_params=dict(maxiter=10))
+        ctrl = pysdc_tpu_torch.ShardedController(2, {'logger_level': 40}, desc)
+        uend, stats = ctrl.run(ctrl.MS[0].levels[0].prob.u_exact(0.0), 0.0, 0.08)
+        return uend, _summary(pysdc_tpu_torch, ctrl, uend, stats)
+
+    eager, eager_summary = run()
+    monkeypatch.setattr(loops, 'capturing', lambda x: True)
+    captured, captured_summary = run()
+    assert eager_summary['lane'] == captured_summary['lane'] == ['fused']
+    assert eager_summary['niter'] == captured_summary['niter'] and len(eager_summary['niter']) == 4
+    assert torch.equal(captured, eager)

@@ -3,10 +3,12 @@ complex128).
 
 On the card :func:`~pysdc_tpu_torch.ops.linalg.solve` takes two routes that torch does not choose by itself: a batch
 padded so that torch's cuSOLVER preference lands on cuBLAS's batched LU and substitution (``_batched_solve``), and
-block elimination over the halves from 512 rows on (``_blocked_solve``).  Both are device-agnostic torch code, so
-they are held here on the CPU: broadcast batches, one matrix, one and two systems, several right-hand sides, and the
-two kinds of large systems the port solves (a linearized sweep's implicit stages on HeatND 32^2 and the
-Heat2DChebyshev 24^2 tensor-product operator), each to 1e-13 relative, or to 4 eps cond(A) where the matrix's
+from 512 rows on LAPACK's blocked right-looking LU with partial pivoting over the whole matrix (``_pivoted_solve``),
+whose panels a hand-written kernel factors on the card.  Both are torch code around that kernel; on the CPU the
+panel is the kernel's plain version (LAPACK's ``getrf`` of the panel), so the routes are held here: broadcast
+batches, one matrix, one and two systems, several right-hand sides, and the large systems the port solves, several
+of which need pivoting across the whole matrix (Rayleigh-Benard's modes, the Chebyshev heat and Burgers operators, a
+matrix whose leading half is zero).  Each is gated at 1e-13 relative, or at 4 eps cond(A) where the matrix's
 condition number makes two backward-stable solves differ by more.
 """
 
@@ -15,8 +17,10 @@ import pytest
 import torch
 
 from pysdc_tpu_torch.models.heat import HeatND
-from pysdc_tpu_torch.models.spectral_problems import Heat2DChebyshev
+from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+from pysdc_tpu_torch.models.spectral_problems import Burgers1D, Heat2DChebyshev, HeatChebyshev1D
 from pysdc_tpu_torch.ops import linalg
+from pysdc_tpu_torch.ops.kernels import dense_lu
 
 torch.set_num_threads(1)
 
@@ -53,22 +57,79 @@ def _linearized_lhs():
     return lhs, _random(np.random.default_rng(3), (3, 4, 1024, 1))
 
 
-def _spectral_operator():
-    """Heat2DChebyshev 24^2's shifted operator with its tau rows (576 coupled unknowns), and a right-hand side."""
-    spec = Heat2DChebyshev(nx=24, nz=24, device='cpu').spec
+def _spectral_operator(problem, factor, rhs_batch=(2,)):
+    """``problem``'s shifted spectral operator ``(M + factor L)`` with its tau rows, as ``solve_shifted`` builds it
+    (one coupled block a Fourier mode), and a right-hand side."""
+    spec = problem.spec
     like = torch.zeros((1,), dtype=torch.complex128)
     keep = torch.as_tensor(spec.keep_mask)
-    A = (spec._dev('M_all', like) + 0.015 * spec._dev('L_all', like)) * keep[:, :, None] + spec._dev('bc_rows', like)
-    return A, _random(np.random.default_rng(4), (2,) + tuple(A.shape[:-1]) + (1,))
+    A = (spec._dev('M_all', like) + factor * spec._dev('L_all', like)) * keep[:, :, None] + spec._dev('bc_rows', like)
+    return A, _random(np.random.default_rng(4), rhs_batch + tuple(A.shape[:-1]) + (1,))
 
 
-@pytest.mark.parametrize('make', [_linearized_lhs, _spectral_operator], ids=['linearized-1024', 'spectral-576'])
-def test_blocked_route_equals_lapack(make):
-    A, B = make()
-    assert A.shape[-1] >= linalg.BLOCKED_FROM
-    # two backward-stable solves differ by up to a few eps x cond(A) (the spectral operator's cond is about 2.7e3)
+def _zero_leading_block():
+    """``[[0, I + N1], [I + N2, N3]]`` of 512 rows, each ``N`` 0.1 x a Gaussian: its leading half is exactly zero,
+    so every pivot of the first 256 columns lies in the lower half (cond about 9.6e3)."""
+    rng = np.random.default_rng(1)
+    h = 256
+    N1, N2, N3 = (0.1 * rng.standard_normal((h, h)) for _ in range(3))
+    eye = np.eye(h)
+    A = torch.as_tensor(np.block([[np.zeros((h, h)), eye + N1], [eye + N2, N3]]))
+    return A, torch.as_tensor(rng.standard_normal((3, 2 * h, 2)))
+
+
+PIVOTED_CASES = {
+    'linearized-heat-1024': _linearized_lhs,
+    'heat2d-chebyshev-576': lambda: _spectral_operator(Heat2DChebyshev(nx=24, nz=24, device='cpu'), 0.015),
+    'rbc-8x128-1e-2': lambda: _spectral_operator(RayleighBenard(nx=8, nz=128, device='cpu'), 1e-2),
+    'rbc-8x128-0.25': lambda: _spectral_operator(RayleighBenard(nx=8, nz=128, device='cpu'), 0.25),
+    'rbc-8x256-1e-3': lambda: _spectral_operator(RayleighBenard(nx=8, nz=256, device='cpu'), 1e-3, ()),
+    'heat-chebyshev-512': lambda: _spectral_operator(HeatChebyshev1D(nvars=512, device='cpu'), 1e-2),
+    'burgers-512': lambda: _spectral_operator(Burgers1D(nvars=512, device='cpu'), 1e-2),
+    'zero-leading-block-512': _zero_leading_block,
+}
+
+
+@pytest.mark.parametrize('name', list(PIVOTED_CASES))
+def test_pivoted_route_equals_lapack(name):
+    """From PIVOTED_FROM rows on the blocked LU pivots over the whole matrix, as LAPACK does (block elimination over
+    the halves, without pivoting across them, gave NaN or errors up to 1e176 on all but the first two cases)."""
+    A, B = PIVOTED_CASES[name]()
+    assert A.shape[-1] >= linalg.PIVOTED_FROM
+    # two backward-stable solves differ by up to a few eps x cond(A)
     bound = 4 * torch.finfo(torch.float64).eps * float(torch.linalg.cond(A).max())
-    assert _rel(linalg._blocked_solve(A, B), torch.linalg.solve(A, B)) < max(RTOL, bound)
+    assert _rel(linalg._pivoted_solve(A, B), torch.linalg.solve(A, B)) < max(RTOL, bound)
+
+
+def test_pivoted_route_takes_lapacks_pivots():
+    """The blocked factorization chooses the rows LAPACK's ``getrf`` chooses, and the same factors."""
+    A, _ = _zero_leading_block()
+    LU = A.unsqueeze(0).clone()
+    perm = linalg._getrf(LU, dense_lu.panel_width(A.shape[-1], A.element_size()))
+    want, pivots = torch.linalg.lu_factor(A)
+    assert torch.equal(perm[0], dense_lu.permutation(pivots.unsqueeze(0), A.shape[-1])[0])
+    assert _rel(LU[0], want) < RTOL
+
+
+@pytest.mark.parametrize('shape_a, shape_b', [((512, 512), (512, 1)), ((2, 1, 520, 520), (2, 3, 520, 2)),
+                                              ((1, 600, 600), (4, 1, 600, 1)), ((3, 530, 530), (530, 530))])
+def test_pivoted_route_broadcasts(shape_a, shape_b):
+    """Batch axes over which ``A`` is broadcast ride along as columns of the right-hand side; every other axis is a
+    matrix of its own.  Random matrices: partial pivoting on every column."""
+    rng = np.random.default_rng(sum(shape_a))
+    A, B = _random(rng, shape_a), _random(rng, shape_b)
+    bound = 4 * torch.finfo(torch.float64).eps * float(torch.linalg.cond(A).max())
+    got, want = linalg._pivoted_solve(A, B), torch.linalg.solve(A, B)
+    assert got.shape == want.shape
+    assert _rel(got, want) < max(RTOL, bound)
+
+
+def test_panel_widths_fit_the_kernel():
+    """The panel width falls as rows and item size grow, and every panel fits the kernel's shared memory."""
+    widths = {(m, size): dense_lu.panel_width(m, size) for m in (512, 600, 1024, 4096) for size in (4, 8, 16)}
+    assert widths[(512, 4)] == dense_lu.MAX_WIDTH and widths[(512, 16)] == 16 and widths[(1024, 16)] == 8
+    assert all(dense_lu.smem_bytes(m, w, size) <= dense_lu.SMEM_BUDGET for (m, size), w in widths.items())
+    assert all(w & (w - 1) == 0 for w in widths.values())
 
 
 def test_inverse_and_cpu_route():
