@@ -413,30 +413,35 @@ raises and the script exits nonzero without printing the final line:
    (counted on the card) equal to the stage lane's.
 71. direct fused — ``HeatND(4095, bc='dirichlet-zero', backend='sparse')``
    (the ``'banded'`` solver) and ``VarCoeffDiffusion2D`` 256^2 with
-   ``solver='block_tridiag'``, float64, through ``ShardedController(4).run``,
+   ``solver='block_tridiag'``, float64, through ``ShardedController(2).run``,
    one block each: the fused lane against the stage lane and the CPU (equal
    ``niter``, ``uend`` to 1e-12); K2 in a replayed block (counted on the card)
    equal to the stage lane's; ms a block on both lanes.
-72. dense LU — the panel kernel of ``ops/linalg.py``'s pivoted route
-   (``lu_panel``) against its plain version on the first panel of matrices
-   that need pivoting across their halves (RayleighBenard 8x128 and 8x256
-   modes, HeatChebyshev1D 512, a matrix whose leading half is zero); ``Piline``,
+72. dense LU — both kernels of ``ops/linalg.py``'s pivoted route against
+   their plain versions on matrices that need pivoting across their halves
+   (RayleighBenard 8x128 and 8x256 modes, HeatChebyshev1D 512, a matrix whose
+   leading half is zero): ``lu_panel`` on the first block of 64 columns (the
+   same rows, to 1e-12), ``lu_swap_trsm`` at the first, second and last block
+   (the same row interchanges, ``U12`` to 1e-12); ``Piline``,
    ``BuckConverter`` and ``BatteryNCapacitors`` float64 through
    ``ShardedController(4).run``: the fused lane, one graph a block, against the
    stage lane and the CPU (equal ``niter``, ``uend`` to 1e-12);
    ``RayleighBenard(256, 128)`` float64 (512 rows a mode), 2 blocks: the fused
-   lane against the stage lane (equal ``niter``, ``uend`` to 1e-12 relative), no
-   ``cont`` read and one fetch, the panel kernel's launches counted on the card
-   (in a replayed block equal to the stage lane's), ms a block on both lanes;
-   ``RayleighBenard(8, 128)``, one block, card against CPU.
-73. dense LU times — the panel kernel at RayleighBenard 256x128's first panel
-   (complex128) beside its bound, its plain version and the library's
-   ``lu_factor_ex`` of the panel; the pivoted route at that batch of modes
-   beside its FP64 bound and cuSOLVER's ``getrf`` + ``getrs``; at 256 rows beside
-   ``_batched_solve``.
+   lane against the stage lane (equal ``niter``, ``uend`` bitwise equal), no
+   ``cont`` read and one fetch, both kernels' launches counted on the card (in
+   a replayed block equal to the stage lane's, one of each a block of 64
+   columns), ms a block on both lanes; ``RayleighBenard(8, 128)``, one block,
+   card against CPU.
+73. dense LU times — both kernels at RayleighBenard 256x128's first block
+   (complex128) beside their bounds, their plain versions and the torch calls
+   they stand for (``lu_factor_ex`` of the panel; the gathers, copies and
+   ``solve_triangular`` of the plain version); the pivoted route at that batch
+   of modes, eager and from a CUDA graph, beside its FP64 bound and cuSOLVER's
+   ``getrf`` + ``getrs``; at 256 rows beside ``_batched_solve``.
 
 Phases 72-73 run right after phase 1, while the card's memory is free: the
 graphs and pools of the phases before them in this list keep tens of GiB.
+Phase 4 runs right after them (its parity once missed its gate there).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -1800,9 +1805,9 @@ def _niter(stats):
 
 
 def _counting_launches(phase):
-    """``phase`` with K1's, K2's and the dense LU panel's device-side launch counts armed
-    (``cross_stencil_2d.device_count``, ``dia_spmv.device_count``, ``lu_panel.device_count``, the tensors of
-    :data:`_LAUNCH_COUNTS`): each wrapper adds one on the card at each
+    """``phase`` with K1's, K2's and the dense LU kernels' device-side launch counts armed
+    (``cross_stencil_2d.device_count``, ``dia_spmv.device_count``, ``lu_panel.device_count``,
+    ``lu_swap_trsm.device_count``, the tensors of :data:`_LAUNCH_COUNTS`): each wrapper adds one on the card at each
     launch, on the launch's stream, so a graph that captured the launch counts it again at every replay, inside
     conditional bodies too, where the profiler sees the kernels of one level of loops but not those of a loop
     inside a loop (a fused block's PCG, a GMRES restart's Arnoldi steps) on an H100 80GB HBM3 with CUDA 12.9.
@@ -1814,23 +1819,24 @@ def _counting_launches(phase):
     def run(*args):
         import torch
 
-        from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel
+        from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, lu_swap_trsm
         from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
         from pysdc_tpu_torch.ops.kernels.stencil import cross_stencil_2d
 
-        for name in ('k1', 'k2', 'lu'):
+        for name in ('k1', 'k2', 'lu', 'swap'):
             _LAUNCH_COUNTS.setdefault(name, torch.zeros((), dtype=torch.int64, device='cuda'))
         cross_stencil_2d.device_count, dia_spmv.device_count = _LAUNCH_COUNTS['k1'], _LAUNCH_COUNTS['k2']
-        lu_panel.device_count = _LAUNCH_COUNTS['lu']
+        lu_panel.device_count, lu_swap_trsm.device_count = _LAUNCH_COUNTS['lu'], _LAUNCH_COUNTS['swap']
         try:
             return phase(*args)
         finally:
-            cross_stencil_2d.device_count = dia_spmv.device_count = lu_panel.device_count = None
+            cross_stencil_2d.device_count = dia_spmv.device_count = None
+            lu_panel.device_count = lu_swap_trsm.device_count = None
 
     return run
 
 
-_LAUNCH_COUNTS = {}  # 'k1', 'k2', 'lu': the 0-d int64 launch counters on the card that _counting_launches arms
+_LAUNCH_COUNTS = {}  # 'k1', 'k2', 'lu', 'swap': the 0-d int64 launch counters on the card that _counting_launches arms
 
 
 def _k1_kernels(fn):
@@ -6226,6 +6232,9 @@ DIRECT_FUSED = {
     'VarCoeffDiffusion2D 256^2 block_tridiag': ((256, 256), 1e-3),
 }
 DIRECT_FUSED_BOUND = 1e-12  # float64, fields of size <= 1
+# steps a block of phase 71 (4 until PR 16): each step assembles its own operator on the host, and the CPU leg runs
+# on one thread, so the phase's time grows with its depth; cut to keep the whole script near half its limit
+P_DIRECT = 2
 
 
 @contextlib.contextmanager
@@ -6469,9 +6478,9 @@ def phase_linearized_fused(card):
 def phase_direct_fused(card):
     """The direct sparse solves with the fused lane's device ``dt``: HeatND 4095 Dirichlet-0 (``'banded'``, as
     block CR over 2 x 2 blocks) and VarCoeffDiffusion2D 256^2 (``'block_tridiag'``, prepared, with its refinement
-    loop) float64 through ``ShardedController(4).run``, one block each: ``'auto'`` takes the fused lane, one graph
-    a block, equal ``niter`` and ``uend`` within DIRECT_FUSED_BOUND of the stage lane and of the CPU's fused run; K2
-    in a replayed block (counted on the card) equals the stage lane's.  Returns the K2 launches through the wrapper
+    loop) float64 through ``ShardedController(P_DIRECT).run``, one block each: ``'auto'`` takes the fused lane, one
+    graph a block, equal ``niter`` and ``uend`` within DIRECT_FUSED_BOUND of the stage lane and of the CPU's fused run;
+    K2 in a replayed block (counted on the card) equals the stage lane's.  Returns the K2 launches through the wrapper
     (warm-up and capture)."""
     import torch
 
@@ -6498,11 +6507,11 @@ def phase_direct_fused(card):
             prob = ctrl.MS[0].levels[0].prob
             return prob.u_exact(0.0) if isinstance(nvars, int) else _sin_field(prob)
 
-        label = f'direct fused: ShardedController(4) {name} fp64 M=3 LU dt {dt:g}, one block'
-        # one controller runs both lanes: each of the 4 steps assembles its own operator (and HeatND its
-        # preconditioner's 4095 x 4095 eigenbasis), which costs seconds of host time
-        fused = stage = ShardedController(4, {'logger_level': 30}, description('cuda'))
-        u0, Tend = start(fused), 4 * dt
+        label = f'direct fused: ShardedController({P_DIRECT}) {name} fp64 M=3 LU dt {dt:g}, one block'
+        # one controller runs both lanes: each step assembles its own operator (and HeatND its preconditioner's
+        # 4095 x 4095 eigenbasis), which costs seconds of host time
+        fused = stage = ShardedController(P_DIRECT, {'logger_level': 30}, description('cuda'))
+        u0, Tend = start(fused), P_DIRECT * dt
         dia_spmv.launches = 0
         start_t = time.perf_counter()
         uend, stats = fused.run(u0, 0.0, Tend)
@@ -6519,13 +6528,13 @@ def phase_direct_fused(card):
         replay_k2, through_wrapper = int(k2_count), dia_spmv.launches
         stage_ms, _ = _events_ms(lambda: stage.run(u0, 0.0, Tend, lane='stage'))
         with _one_cpu_thread():
-            cpu = ShardedController(4, {'logger_level': 30}, description('cpu'))
+            cpu = ShardedController(P_DIRECT, {'logger_level': 30}, description('cpu'))
             uend_c, stats_c = cpu.run(start(cpu), 0.0, Tend)
         niter, niter_s, niter_c = _niter(stats), _niter(stats_s), _niter(stats_c)
         diff, gap = (uend - uend_s).abs().max().item(), (uend.cpu() - uend_c).abs().max().item()
         kind = fused.MS[0].levels[0].prob.A.solver_kind
         if _lane(stats) != ['fused'] or _lane(stats_c) != ['fused'] or niter != niter_s or niter != niter_c \
-                or len(niter) != 4 or max(niter) >= 20 or not diff <= DIRECT_FUSED_BOUND \
+                or len(niter) != P_DIRECT or max(niter) >= 20 or not diff <= DIRECT_FUSED_BOUND \
                 or not gap <= DIRECT_FUSED_BOUND or kind != name.split()[-1]:
             raise AssertionError(f'{label}: solver {kind}, lanes {_lane(stats)} / CPU {_lane(stats_c)}, niter {niter}, '
                                  f'stage {niter_s}, CPU {niter_c}; |uend_fused - uend_stage| {diff:.3e}, card against '
@@ -6543,7 +6552,8 @@ def phase_direct_fused(card):
               f'{DIRECT_FUSED_BOUND}; host reads {reads}; K2 in a replayed block {replay_k2} (counted on the card at each '
               f'launch; 0 through the wrapper) = the stage lane\'s {stage_k2}; {launches} K2 launches through the '
               f'wrapper in warm-up and capture; wall {wall:.3f} s with the capture [{card}]')
-        print(f'times: {name} fp64 block of 4 steps: fused {fused_ms:.3f} ms (a replay) against stage {stage_ms:.3f} ms '
+        print(f'times: {name} fp64 block of {P_DIRECT} steps: fused {fused_ms:.3f} ms (a replay) against stage '
+              f'{stage_ms:.3f} ms '
               f'(x{stage_ms / fused_ms:.2f}), CUDA events [{card}]')
         del fused, stage
         torch.cuda.empty_cache()
@@ -6606,32 +6616,99 @@ def _lapack_bound(A):
     return max(1e-13, 4 * torch.finfo(torch.float64).eps * cond), cond
 
 
-def _panel_checks(card):
-    """The panel kernel on the first panel of each matrix of LU_PIVOTING_CASES against its plain version (LAPACK's
-    ``getrf`` of the panel) on the same inputs: the same rows, the factors to 1e-12 of their largest entry (phase
-    69 holds the whole route on these matrices against LAPACK).  Returns the largest difference."""
+def _kernel_checks(card):
+    """Both kernels of the dense LU on each matrix of LU_PIVOTING_CASES against their plain versions on the same
+    inputs on the card: ``lu_panel`` on the first block of BLOCK columns (LAPACK's ``getrf`` of the panel: the same
+    rows, the factors to 1e-12 of their largest entry), and ``lu_swap_trsm`` on the blocks at columns 0 (right of
+    the panel only), BLOCK (both sides) and n - BLOCK (left only), each block's panel factored first by the plain
+    version (the row interchanges bit for bit, ``U12`` to 1e-12 of its largest entry).  Phase 69 holds the whole
+    route on these matrices against LAPACK.  Returns the largest difference of each kernel."""
     import torch
 
+    from pysdc_tpu_torch.ops import linalg
     from pysdc_tpu_torch.ops.kernels import dense_lu
 
-    worst, lines = 0.0, []
+    worst, lines, jb = {'lu_panel': 0.0, 'lu_swap_trsm': 0.0}, [], linalg.BLOCK
     for name, factor in LU_PIVOTING_CASES:
         A, _ = _pivoting_matrix(name, factor)
-        panel = A.cuda()[:, :, :dense_lu.panel_width(A.shape[-1], A.element_size())]
-        plain = panel.cpu().clone()
+        A = A.cuda()
+        n = A.shape[-1]
+        panel = A[:, :, :jb].clone()
+        plain = panel.clone()
         perm = dense_lu.lu_panel(panel)
-        with _one_cpu_thread():
-            plain_perm = dense_lu.plain_panel(plain)
-        err = (panel.cpu() - plain).abs().max().item()
-        same_rows = torch.equal(perm.cpu(), plain_perm)
+        plain_perm = dense_lu.plain_panel(plain)
+        err = (panel - plain).abs().max().item()
+        same_rows = torch.equal(perm, plain_perm)
         if not same_rows or not err <= 1e-12 * plain.abs().max().item():
-            raise AssertionError(f'dense LU: the panel kernel on {name} {tuple(panel.shape)} against its plain version: '
-                                 f'rows equal {same_rows}, max abs diff {err:.3e}')
-        worst = max(worst, err)
-        lines.append(f'{name} {tuple(panel.shape)} {err:.1e}')
-    print(f'dense LU: the panel kernel against its plain version on the first panels of matrices that need pivoting '
-          f'(the same rows, max abs diff): {"; ".join(lines)} [{card}]')
+            raise AssertionError(f'dense LU: lu_panel on {name} {tuple(panel.shape)} against its plain version: rows '
+                                 f'equal {same_rows}, max abs diff {err:.3e}')
+        worst['lu_panel'] = max(worst['lu_panel'], err)
+        swaps = []
+        for j in (0, jb, n - jb):
+            base = A.clone()
+            rows = dense_lu.plain_panel(base[:, j:, j:j + jb])
+            got, want = base.clone(), base.clone()
+            dense_lu.lu_swap_trsm(got, j, jb, rows)
+            dense_lu.plain_swap_trsm(want, j, jb, rows)
+            swapped = torch.equal(got[:, :, :j + jb], want[:, :, :j + jb]) and torch.equal(got[:, j + jb:],
+                                                                                          want[:, j + jb:])
+            diff = (got - want).abs().max().item()
+            scale = want[:, j:j + jb, j + jb:].abs().max().item() if j + jb < n else 0.0
+            if not swapped or not diff <= 1e-12 * scale:
+                raise AssertionError(f'dense LU: lu_swap_trsm on {name} block {j} against its plain version: row '
+                                     f'interchanges equal {swapped}, max abs diff {diff:.3e} (U12 up to {scale:.3e})')
+            worst['lu_swap_trsm'] = max(worst['lu_swap_trsm'], diff)
+            swaps.append(f'{j}: {int((rows != torch.arange(n - j, device=rows.device)).sum(-1).max())} rows moved, '
+                         f'{diff:.1e}')
+        lines.append(f'{name} {tuple(A.shape)}: lu_panel {err:.1e}; lu_swap_trsm at block {", ".join(swaps)}')
+    print(f'dense LU: both kernels against their plain versions on matrices that need pivoting (lu_panel the same '
+          f'rows, lu_swap_trsm the same row interchanges; max abs diff): {"; ".join(lines)} [{card}]')
+    _float_kernel_checks(card)
     return worst
+
+
+# float32 and complex64 at 1024 rows: sub-panels of 32 and 16 columns, so lu_panel's products take the CUDA cores (the
+# float64 types take the tensor cores); float32 rounding (6e-8) grown by the elimination, stated relative to max|A|
+FLOAT_LU_TOL = 1e-5
+
+
+def _float_kernel_checks(card):
+    """Both kernels on random (4, 1024, 1024) float32 and complex64 matrices: ``lu_panel`` on the first block of
+    BLOCK columns factors ``A[perm] = L U`` with ``|L| <= 1`` (``sqrt(2)`` complex: the pivot has the largest
+    ``|re| + |im|``) to FLOAT_LU_TOL (its pivots may part from LAPACK's on
+    near ties at this rounding, so the factors are held to the matrix, not to the plain version's); ``lu_swap_trsm``
+    at the second block against its plain version (the row interchanges bit for bit, ``U12`` to FLOAT_LU_TOL of its
+    largest entry)."""
+    import torch
+
+    from pysdc_tpu_torch.ops import linalg
+    from pysdc_tpu_torch.ops.kernels import dense_lu
+
+    gen, jb, lines = torch.Generator(device='cuda').manual_seed(17), linalg.BLOCK, []
+    for dtype in (torch.float32, torch.complex64):
+        A = torch.randn((4, 1024, 1024), dtype=dtype, device='cuda', generator=gen)
+        panel = A[:, :, :jb].clone()
+        perm = dense_lu.lu_panel(panel)
+        L = torch.tril(panel, -1) + torch.eye(1024, jb, dtype=dtype, device='cuda')
+        U = torch.triu(panel[:, :jb])
+        gap = (A[:, :, :jb].gather(1, perm.unsqueeze(-1).expand(-1, -1, jb)) - L @ U).abs().max().item()
+        scale, l_bound = A.abs().max().item(), (2 ** 0.5 if A.is_complex() else 1.0) * (1 + FLOAT_LU_TOL)
+        rows = dense_lu.plain_panel(A[:, jb:, jb:2 * jb])
+        got, want = A.clone(), A.clone()
+        dense_lu.lu_swap_trsm(got, jb, jb, rows)
+        dense_lu.plain_swap_trsm(want, jb, jb, rows)
+        diff = (got - want).abs().max().item()
+        swapped = torch.equal(got[:, 2 * jb:], want[:, 2 * jb:]) \
+            and torch.equal(got[:, :, :2 * jb], want[:, :, :2 * jb])
+        if not gap <= FLOAT_LU_TOL * scale or not L.abs().max().item() <= l_bound or not swapped \
+                or not diff <= FLOAT_LU_TOL * want[:, jb:2 * jb, 2 * jb:].abs().max().item():
+            raise AssertionError(f'dense LU: {dtype} (4, 1024, 1024): lu_panel |A[perm] - L U| {gap:.3e} (max|A| '
+                                 f'{scale:.3e}), max|L| {L.abs().max().item():.3e}; lu_swap_trsm row interchanges '
+                                 f'equal {swapped}, max abs diff {diff:.3e}')
+        lines.append(f'{dtype}: lu_panel |A[perm] - L U| {gap:.1e}, lu_swap_trsm {diff:.1e}')
+    print(f'dense LU: float kernels at (4, 1024, 1024), sub-panels of '
+          f'{dense_lu.panel_width(1024, 4)} / {dense_lu.panel_width(1024, 8)} columns: {"; ".join(lines)} '
+          f'(bound {FLOAT_LU_TOL} relative) [{card}]')
 
 
 def _rbc_lu_description(params, device):
@@ -6683,22 +6760,32 @@ def _circuits_fused(card):
 
 @_counting_launches
 def phase_dense_lu(card):
-    """Phase 72: the panel kernel against its plain version on matrices that need pivoting; the circuit problems on
-    the fused lane; ``RayleighBenard(256, 128)`` float64 (512 rows a mode: the
-    pivoted route) through ``ShardedController(4).run``, 2 blocks: ``'auto'`` takes the fused lane, one graph a block,
-    equal ``niter`` and ``uend`` within SPECTRAL_FUSED_RTOL of ``lane='stage'``, no ``cont`` read and one fetch, the
-    panel kernel's launches (counted on the card) in the run and in a replayed block equal to the stage lane's, ms a
-    block on both lanes; ``RayleighBenard(8, 128)``, one block, card against CPU.  Returns the kernel's launches on
-    the main path (the fused run, counted on the card) and its largest difference from the plain version."""
+    """Phase 72: both kernels of the dense LU against their plain versions on matrices that need pivoting; the
+    circuit problems on the fused lane; ``RayleighBenard(256, 128)`` float64 (512 rows a mode: the pivoted route)
+    through ``ShardedController(4).run``, 2 blocks: ``'auto'`` takes the fused lane, one graph a block, equal
+    ``niter`` and ``uend`` bitwise equal to ``lane='stage'``'s (the same kernels and calls on both lanes), no ``cont``
+    read and one fetch, each kernel's launches (counted on the card) in the run and in a replayed block equal to the
+    stage lane's, one of each a block of 64 columns, ms a block on both lanes; ``RayleighBenard(8, 128)``, one block,
+    card against CPU.  Returns each kernel's launches on the main path (the fused run, counted on the card) and in a
+    replayed block, and its largest difference from its plain version."""
     import torch
 
     from pysdc_tpu_torch import ShardedController
-    from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel
+    from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, lu_swap_trsm
 
-    worst = _panel_checks(card)
+    worst = _kernel_checks(card)
     _circuits_fused(card)
 
-    count = _LAUNCH_COUNTS['lu']
+    kernels = {'lu_panel': (lu_panel, _LAUNCH_COUNTS['lu']), 'lu_swap_trsm': (lu_swap_trsm, _LAUNCH_COUNTS['swap'])}
+
+    def counted():
+        """(on the card, through the wrappers) of each kernel since the last call, the counts then set to 0"""
+        out = {name: (int(count), fn.launches) for name, (fn, count) in kernels.items()}
+        for fn, count in kernels.values():
+            count.zero_()
+            fn.launches = 0
+        return out
+
     label = (f'dense LU: ShardedController({P_RBC}) RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]} fp64 IMEX M=3 LU/PIC '
              f'dt {DT_RBC:g}, restol -1, maxiter {MAXITER_RBC}, {BLOCKS_RBC_LU} blocks')
     Tend, block = BLOCKS_RBC_LU * P_RBC * DT_RBC, P_RBC * DT_RBC
@@ -6706,42 +6793,44 @@ def phase_dense_lu(card):
     u0 = fused.MS[0].levels[0].prob.u_exact(0.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    count.zero_()
-    lu_panel.launches = 0
+    counted()
     start = time.perf_counter()
     uend, stats = fused.run(u0, 0.0, Tend)  # the main path: warm-up, capture, the march
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    main_launches, main_wrapper = int(count), lu_panel.launches
+    main = counted()
     peak = torch.cuda.max_memory_allocated() / 2**20
     reads = dict(fused.host_reads)
     uend_s, stats_s = stage.run(u0, 0.0, Tend, lane='stage')
     niter, niter_s = _niter(stats), _niter(stats_s)
     rel = _rel_err(uend, uend_s)
     if _lane(stats) != ['fused'] or _lane(stats_s) != ['stage'] or niter != niter_s \
-            or len(niter) != BLOCKS_RBC_LU * P_RBC or not rel <= SPECTRAL_FUSED_RTOL or not bool(uend.isfinite().all()):
+            or len(niter) != BLOCKS_RBC_LU * P_RBC or not torch.equal(uend, uend_s) or not bool(uend.isfinite().all()):
         raise AssertionError(f'{label}: lanes {_lane(stats)} / {_lane(stats_s)}, niter {niter} against {niter_s}, '
                              f'|uend_fused - uend_stage| / max|uend_stage| {rel:.3e}')
-    if reads != {'cont': 0, 'fetch': 1} or main_launches < 1:
-        raise AssertionError(f'{label}: host reads {reads}, panel kernel launches in the run {main_launches}')
+    if reads != {'cont': 0, 'fetch': 1} or min(card_count for card_count, _ in main.values()) < 1:
+        raise AssertionError(f'{label}: host reads {reads}, kernel launches in the run (on the card, through the '
+                             f'wrapper) {main}')
     _one_graph_a_block(fused, label)
-    count.zero_()
-    lu_panel.launches = 0
+    counted()
     fused_ms, (uend_r, _) = _events_ms(lambda: fused.run_fused(u0, 0.0, block))
-    replay, through_wrapper = int(count), lu_panel.launches
-    count.zero_()
-    lu_panel.launches = 0
+    replay = counted()
     stage_ms, _ = _events_ms(lambda: stage.run(u0, 0.0, block, lane='stage'))
-    stage_count, stage_wrapper = int(count), lu_panel.launches
-    if through_wrapper != 0 or replay != stage_count or stage_count != stage_wrapper or replay < 1:
-        raise AssertionError(f'{label}: panel kernel in a replayed block {replay} (counted on the card), through the '
-                             f'wrapper {through_wrapper}; the stage lane\'s block {stage_count} (counted on the card) of '
-                             f'{stage_wrapper} launches')
+    stage_counts = counted()
+    for name in kernels:
+        (replayed, through_wrapper), (on_card, stage_wrapper) = replay[name], stage_counts[name]
+        if through_wrapper != 0 or replayed != on_card or on_card != stage_wrapper or replayed < 1 \
+                or replayed != replay['lu_panel'][0]:
+            raise AssertionError(f'{label}: {name} in a replayed block {replayed} (counted on the card), through the '
+                                 f'wrapper {through_wrapper}; the stage lane\'s block {on_card} (counted on the card) '
+                                 f'of {stage_wrapper} launches; lu_panel {replay["lu_panel"]}')
     print(f'{label}: lane fused under \'auto\', one graph a block, niter {niter} = the stage lane\'s, '
-          f'|uend_fused - uend_stage| / max|uend_stage| {rel:.3e} <= {SPECTRAL_FUSED_RTOL}; host reads {reads}; the '
-          f'panel kernel {main_launches} launches in the run (counted on the card; {main_wrapper} through the wrapper in '
-          f'warm-up and capture), {replay} in a replayed block = the stage lane\'s {stage_count}; peak device memory '
-          f'{peak:.0f} MiB; wall {wall:.3f} s with the capture [{card}]')
+          f'uend bitwise equal to the stage lane\'s; host reads {reads}; '
+          + '; '.join(f'{name} {main[name][0]} launches in the run (counted on the card; {main[name][1]} through the '
+                      f'wrapper in warm-up and capture), {replay[name][0]} in a replayed block = the stage lane\'s '
+                      f'{stage_counts[name][0]}' for name in kernels)
+          + f' (one of each a block of 64 columns, 8 a solve); peak device memory {peak:.0f} MiB; '
+          f'wall {wall:.3f} s with the capture [{card}]')
     print(f'times: RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]} fp64 block of {P_RBC} steps: fused {fused_ms:.3f} ms '
           f'(a replay) against stage {stage_ms:.3f} ms (x{stage_ms / fused_ms:.2f}), CUDA events [{card}]')
     del fused, stage
@@ -6760,14 +6849,32 @@ def phase_dense_lu(card):
                              f'the CPU\'s {it_cpu}, uend rel diff {rel:.3e}')
     print(f'dense LU: ShardedController({P_RBC}) RayleighBenard 8x128 fp64, one block on the fused lane, card against '
           f'CPU: niter {it_card}, uend rel diff {rel:.3e} <= {RBC_LU_CPU_RTOL} [{card}]')
-    return dict(main=main_launches, replayed_block=replay), worst
+    return {name: dict(main=main[name][0], replayed_block=replay[name][0]) for name in kernels}, worst
+
+
+def _swap_trsm_work(rows, n, j, jb, itemsize):
+    """(bytes, flops) ``lu_swap_trsm`` must move and compute at block ``j`` of ``(b, n, n)`` matrices with this run's
+    permutation ``rows`` (b, n - j): the moved rows read and written in every column outside the panel, the ``A12``
+    tile read and written, ``L11`` once a CTA right of the panel, the permutation read; ``jb^2 / 2`` multiply-adds a
+    column right of the panel (8 flops each complex, 2 real)."""
+    import torch
+
+    from pysdc_tpu_torch.ops.kernels.dense_lu import SWAP_TILE
+
+    b = rows.shape[0]
+    moved = int((rows != torch.arange(n - j, device=rows.device)).sum())
+    right = n - j - jb
+    right_tiles = -(-right // SWAP_TILE)
+    nbytes = (2 * moved * (n - jb) + 2 * jb * right * b + jb * jb * right_tiles * b) * itemsize + rows.numel() * 8
+    return nbytes, (8 if itemsize == 16 else 2) * b * right * jb * (jb - 1) // 2, moved
 
 
 def phase_dense_lu_times(card):
-    """Phase 73: the panel kernel at the main path's first panel (RayleighBenard 256x128's modes, complex128) against
-    its plain version and the library's ``lu_factor_ex`` of the panel; the pivoted route at the main path's batch
-    of modes beside its bound and cuSOLVER's ``getrf`` + ``getrs`` outside any graph; at 256 rows beside
-    ``_batched_solve``.  CUDA events.  Returns the kernel's numbers for the ``kernels`` line."""
+    """Phase 73: both kernels at the main path's first block (RayleighBenard 256x128's modes, complex128, columns
+    0..BLOCK) beside their bounds, their plain versions and the torch calls they stand for (``lu_factor_ex`` of the
+    panel; the plain version's gather, ``copy_`` and ``solve_triangular``); the pivoted route at the main path's
+    batch of modes, eager and from a CUDA graph, beside its bound and cuSOLVER's ``getrf`` + ``getrs``; at 256 rows
+    beside ``_batched_solve``.  CUDA events.  Returns each kernel's numbers for the ``kernels`` line."""
     import torch
 
     from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
@@ -6781,9 +6888,9 @@ def phase_dense_lu_times(card):
         + spec._dev('bc_rows', like)
     del spec
     b, n = A.shape[0], A.shape[-1]
+    w = linalg.BLOCK
     gen = torch.Generator(device='cuda').manual_seed(13)
     B = torch.randn((P_RBC, b, n, 1), dtype=torch.complex128, device='cuda', generator=gen)
-    w = dense_lu.panel_width(n, A.element_size())
     work = A.clone()
     panel = work[:, :, :w]
     lu_ms = _event_ms(lambda i: dense_lu.lu_panel(panel.copy_(A[:, :, :w])), 10)
@@ -6799,19 +6906,50 @@ def phase_dense_lu_times(card):
     plain_perm = dense_lu.plain_panel(plain)
     err = (got - plain).abs().max().item()
     if not torch.equal(perm, plain_perm) or not err <= 1e-12 * plain.abs().max().item():
-        raise AssertionError(f'dense LU: the panel kernel at ({b}, {n}, {w}) complex128 against its plain version: rows '
+        raise AssertionError(f'dense LU: lu_panel at ({b}, {n}, {w}) complex128 against its plain version: rows '
                              f'equal {torch.equal(perm, plain_perm)}, max abs diff {err:.3e}')
+    ws = dense_lu.panel_width(n, A.element_size())
     steps = sum((n - k) * (w - k) for k in range(w))
     flops = 8 * b * steps
     nbytes = 2 * b * n * w * 16 + b * n * 8
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
     bound_by = 'bytes' if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S else 'operations'
-    print(f'times: the panel kernel at ({b}, {n}, {w}) complex128 (RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]}\'s first '
-          f'panel): {lu_ms:.4f} ms against its bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, '
-          f'{flops / 1e9:.2f} GFLOP); plain version (lu_factor_ex, the permutation) {plain_ms:.4f} ms; library '
-          f'torch.linalg.lu_factor_ex of the panel {library_ms:.4f} ms (asked for cuSOLVER: {cusolver_panel_ms:.4f} ms, '
-          f'one getrf a matrix); max abs diff to the plain version {err:.3e}, the same rows [{card}]')
-    del work, panel, got, plain
+    print(f'times: lu_panel at ({b}, {n}, {w}) complex128 (RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]}\'s first '
+          f'block, sub-panels of {ws} columns, one launch): {lu_ms:.4f} ms against its bound {bound_ms:.4f} ms '
+          f'({bound_by}: '
+          f'{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain version (lu_factor_ex, the permutation) '
+          f'{plain_ms:.4f} ms; library torch.linalg.lu_factor_ex of the panel {library_ms:.4f} ms (asked for cuSOLVER: '
+          f'{cusolver_panel_ms:.4f} ms, one getrf a matrix); max abs diff to the plain version {err:.3e}, the same '
+          f'rows [{card}]')
+    panel_numbers = dict(ms=lu_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                         max_abs_err=err, shape=[b, n, w], sub_panel_width=ws)
+
+    # lu_swap_trsm at the same block: the rows the panel moved, in the rest of the matrix, and U12
+    factored = A.clone()
+    rows = dense_lu.lu_panel(factored[:, :, :w])
+    # timed in place, call after call: the work is the same whatever the values (the same rows move each time)
+    work.copy_(factored)
+    swap_ms = _event_ms(lambda i: dense_lu.lu_swap_trsm(work, 0, w, rows), 10)
+    swap_plain_ms = _event_ms(lambda i: dense_lu.plain_swap_trsm(work, 0, w, rows), 3, warmup=1)
+    got = work.copy_(factored)
+    dense_lu.lu_swap_trsm(got, 0, w, rows)
+    want = factored.clone()
+    dense_lu.plain_swap_trsm(want, 0, w, rows)
+    swap_err = (got - want).abs().max().item()
+    if not torch.equal(got[:, w:], want[:, w:]) or not swap_err <= 1e-12 * want[:, :w, w:].abs().max().item():
+        raise AssertionError(f'dense LU: lu_swap_trsm at ({b}, {n}, {n}) block 0 against its plain version: rows '
+                             f'{w}.. equal {torch.equal(got[:, w:], want[:, w:])}, max abs diff {swap_err:.3e}')
+    swap_bytes, swap_flops, moved = _swap_trsm_work(rows, n, 0, w, 16)
+    swap_bound = 1e3 * max(swap_bytes / HBM_BYTES_PER_S, swap_flops / FP64_FLOP_PER_S)
+    swap_by = 'bytes' if swap_bytes / HBM_BYTES_PER_S >= swap_flops / FP64_FLOP_PER_S else 'operations'
+    print(f'times: lu_swap_trsm at ({b}, {n}, {n}) complex128 block 0 (width {w}, {moved} rows moved in all): '
+          f'{swap_ms:.4f} ms against its bound {swap_bound:.4f} ms ({swap_by}: {swap_bytes / 1e6:.1f} MB, '
+          f'{swap_flops / 1e9:.2f} GFLOP); plain version, the torch calls it stands for (gather and copy_ of each '
+          f'side, solve_triangular) {swap_plain_ms:.4f} ms; max abs diff to the plain version {swap_err:.3e} [{card}]')
+    swap_numbers = dict(ms=swap_ms, plain_ms=swap_plain_ms, bound_ms=swap_bound, bound_by=swap_by, library_ms=None,
+                        torch_calls_ms=swap_plain_ms, max_abs_err=swap_err, shape=[b, n, n], block=[0, w],
+                        rows_moved=moved)
+    del work, panel, got, plain, factored, want
 
     # the whole route at the main path's batch: A (modes, n, n), the right-hand sides of a block's steps
     route_ms = _event_ms(lambda i: linalg.solve(A, B), 3, warmup=1)
@@ -6865,9 +7003,9 @@ def phase_dense_lu_times(card):
     pivoted_ms = _event_ms(lambda i: linalg._pivoted_solve(A2, B2), 3, warmup=1)
     print(f'times: at 256 rows ({b} matrices complex128, B {tuple(B2.shape)}): _batched_solve (cuBLAS\'s batched LU, the '
           f'route below 512 rows) {batched_ms:.3f} ms, _pivoted_solve {pivoted_ms:.3f} ms [{card}]')
-    return dict(ms=lu_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                max_abs_err=err, route_ms=route_ms, route_graph_ms=route_graph_ms, route_bound_ms=route_bound,
-                route_cusolver_ms=cusolver_ms, route_with_library_panels_ms=library_route_ms)
+    route = dict(route_ms=route_ms, route_graph_ms=route_graph_ms, route_bound_ms=route_bound,
+                 route_cusolver_ms=cusolver_ms, route_with_library_panels_ms=library_route_ms)
+    return dict(panel_numbers, **route), swap_numbers
 
 
 def main():
@@ -6890,12 +7028,13 @@ def main():
         return out
 
     phase(phase_build, card)
-    # phases 72-73 first: RayleighBenard 256x128 needs GiBs that the graphs and pools of the later phases keep
+    # phases 72-73 first: RayleighBenard 256x128 needs GiBs that the graphs and pools of the later phases keep; phase
+    # 4 right after them, where its parity once read 4.574e-10 against its 1e-11 gate (ROADMAP queue 3)
     lu_launches, lu_err = phase(phase_dense_lu, card)
-    lu = phase(phase_dense_lu_times, card)
+    lu, swap = phase(phase_dense_lu_times, card)
+    phase(phase_parity)
     main_err, pfasst_err = phase(phase_kernels)
     ctrl, launches = phase(phase_main, card)
-    phase(phase_parity)
     k1 = phase(phase_times, ctrl, card)
     sparse_errs = phase(phase_sparse_kernels)
     sparse_ctrl, k2_launches = phase(phase_sparse_main, card)
@@ -6997,8 +7136,14 @@ def main():
              max_abs_err=sparse_errs['bsr_spmm'], **k3),
         dict(name='lu_panel', route='cuda', source='pysdc_tpu_torch/csrc/dense_lu.cu',
              replaces='none: no TPU kernel (XLA computes the LU of jnp.linalg.solve, pysdc_tpu/ops/spectral.py:565)',
-             tpu_twin=False, launches=lu_launches['main'], launches_in_a_replayed_block=lu_launches['replayed_block'],
-             max_abs_err_pivoting_cases=lu_err, **lu),
+             tpu_twin=False, launches=lu_launches['lu_panel']['main'],
+             launches_in_a_replayed_block=lu_launches['lu_panel']['replayed_block'],
+             max_abs_err_pivoting_cases=lu_err['lu_panel'], **lu),
+        dict(name='lu_swap_trsm', route='cuda', source='pysdc_tpu_torch/csrc/dense_lu.cu',
+             replaces='none: no TPU kernel (XLA computes the LU of jnp.linalg.solve, pysdc_tpu/ops/spectral.py:565)',
+             tpu_twin=False, launches=lu_launches['lu_swap_trsm']['main'],
+             launches_in_a_replayed_block=lu_launches['lu_swap_trsm']['replayed_block'],
+             max_abs_err_pivoting_cases=lu_err['lu_swap_trsm'], **swap),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

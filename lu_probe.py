@@ -2,6 +2,8 @@
 
     python3 lu_probe.py faults [--root DIR]
     python3 lu_probe.py routes
+    python3 lu_probe.py split [--root DIR]
+    python3 lu_probe.py order
 
 ``faults`` imports ``pysdc_tpu_torch`` from DIR (default: this checkout; another commit unpacked with ``git
 archive``) and runs, float64: ``Piline``, ``BuckConverter`` (fsw 10 and 7) and ``BatteryNCapacitors`` through
@@ -19,6 +21,17 @@ Each part prints one line starting with ``###``; ``FAULTS=rbc`` skips the circui
 - (b) cuBLAS's ``getrfBatched`` / ``getrsBatched`` on whole matrices, from a small C entry point compiled here by
   ``nvcc`` into ``pysdc_tpu_torch/_build`` and loaded with ``ctypes``; its pointer arrays are made on the device.
 
+``split`` times the pivoted route of DIR's ``ops/linalg.py`` eager at RayleighBenard 256x128's batch (256 matrices
+of 512^2 complex128, 4 right-hand sides each) and splits it by the calls the route makes: each call of the panel
+kernel, of ``lu_swap_trsm`` where DIR has it, of ``gather`` / ``copy_`` / ``__setitem__``, ``solve_triangular`` and
+``baddbmm_`` runs inside a ``torch.profiler`` range named for its part (the level of ``_getrf``'s recursion by the
+width of the side or the triangle, the GEMM by its rank, everything of ``_substitute`` as the substitution) and
+between two CUDA events.  It prints the device time of each part by the profiler and by the events, the calls, and
+what neither part names ("other": the route's time less the parts').
+
+``order`` runs ``chip_smoke.py``'s phases 1, 72, 73 and 4 in that order (phase 4's parity once missed its gate
+right after phases 72-73; ROADMAP queue 3) and prints phase 4's outcome on a line starting with ``###``.
+
 The CPU legs run on one thread (the CPU torch's LAPACK has hung multithreaded on a card's host).  Every line ends
 with the card's name and power limit.
 """
@@ -27,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -266,9 +280,288 @@ def routes(card):
         _in_body(lambda: route_b(A, B), f'(b) getrfBatched / getrsBatched RayleighBenard(8, {nz}) modes', card)
 
 
+def _split_parts(linalg, torch):
+    """Wrap the calls ``linalg``'s route makes so that each runs inside a profiler range and between two CUDA events
+    named for its part.  Returns (parts, undo): parts maps a name to its (start, end) event pairs."""
+    parts, stage = {}, ['factor']
+
+    def side_level(width):
+        return 'outer' if width >= 64 else 'inner'
+
+    def name_of(kind, args):
+        if stage[0] == 'substitute':
+            return 'substitution'
+        if kind in ('gather', 'copy_'):
+            t = args[0]
+            return 'perm' if t.dim() == 2 else f'side {kind}, {side_level(t.shape[-1])}'
+        if kind == 'setitem':
+            return 'setitem (perm, U12)'
+        if kind == 'trsm':
+            return f'solve_triangular, {"outer" if args[0].shape[-1] >= 64 else "inner"}'
+        if kind == 'baddbmm_':
+            return f'baddbmm rank {args[1].shape[-1]}'
+        return kind
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            if stage[0] is None:  # inside another part (a plain version's own calls): that part's time
+                return fn(*args, **kwargs)
+            name = name_of(kind, args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before, stage[0] = stage[0], None
+            try:
+                with torch.profiler.record_function(f'part: {name}'):
+                    start.record()
+                    out = fn(*args, **kwargs)
+                    end.record()
+            finally:
+                stage[0] = before
+            parts.setdefault(name, []).append((start, end))
+            return out
+        return call
+
+    def staged(name, fn):
+        def call(*args, **kwargs):
+            before, stage[0] = stage[0], name
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stage[0] = before
+        return call
+
+    saved = [(linalg, '_getrf', linalg._getrf), (linalg, '_substitute', linalg._substitute),
+             (linalg, 'lu_panel', linalg.lu_panel), (torch.linalg, 'solve_triangular', torch.linalg.solve_triangular),
+             (torch.Tensor, 'gather', torch.Tensor.gather), (torch.Tensor, 'copy_', torch.Tensor.copy_),
+             (torch.Tensor, '__setitem__', torch.Tensor.__setitem__), (torch.Tensor, 'baddbmm_', torch.Tensor.baddbmm_)]
+    if hasattr(linalg, 'lu_swap_trsm'):
+        saved.append((linalg, 'lu_swap_trsm', linalg.lu_swap_trsm))
+    kinds = {'_getrf': None, '_substitute': None, 'lu_panel': 'panel kernel', 'lu_swap_trsm': 'lu_swap_trsm kernel',
+             'solve_triangular': 'trsm', 'gather': 'gather', 'copy_': 'copy_', '__setitem__': 'setitem',
+             'baddbmm_': 'baddbmm_'}
+    for owner, attr, fn in saved:
+        if attr == '_getrf':
+            setattr(owner, attr, staged('factor', fn))
+        elif attr == '_substitute':
+            setattr(owner, attr, staged('substitute', fn))
+        else:
+            setattr(owner, attr, timed(kinds[attr], fn))
+
+    def undo():
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+    return parts, undo
+
+
+def split(card):
+    import torch
+
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+    from pysdc_tpu_torch.ops import linalg
+
+    spec = RayleighBenard(nx=256, nz=128, Rayleigh=2e6, Prandtl=1, dtype=torch.float64, device='cuda').spec
+    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
+    keep = torch.as_tensor(spec.keep_mask, device='cuda')
+    A = (spec._dev('M_all', like) + 0.3 * 0.01 * spec._dev('L_all', like)) * keep[:, :, None] \
+        + spec._dev('bc_rows', like)
+    del spec
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    B = torch.randn((4,) + tuple(A.shape[:-1]) + (1,), dtype=torch.complex128, device='cuda', generator=gen)
+    label = f'A {tuple(A.shape)} complex128, B {tuple(B.shape)}'
+    for _ in range(2):
+        linalg.solve(A, B)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        linalg.solve(A, B)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    print(f'### split: the route eager, {label}: {", ".join(f"{t:.3f}" for t in times)} ms (CUDA events, 3 runs) '
+          f'[{card}]', flush=True)
+
+    parts, undo = _split_parts(linalg, torch)
+    try:
+        linalg.solve(A, B)  # once with the wrappers before the profiled call
+        torch.cuda.synchronize()
+        parts.clear()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            start.record()
+            linalg.solve(A, B)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    total = start.elapsed_time(end)
+    device = {}
+    for evt in prof.key_averages():
+        ms = getattr(evt, 'device_time_total', None)
+        ms = (ms if ms is not None else getattr(evt, 'cuda_time_total', 0.0)) / 1e3
+        if evt.key.startswith('part: '):
+            device[evt.key[6:]] = ms
+    by_events = {name: sum(s.elapsed_time(e) for s, e in pairs) for name, pairs in parts.items()}
+    for name in sorted(by_events, key=lambda k: -by_events[k]):
+        print(f'### split part {name}: {len(parts[name])} calls, {device.get(name, 0.0):.3f} ms on the card '
+              f'(profiler), {by_events[name]:.3f} ms between CUDA events [{card}]', flush=True)
+    named = sum(by_events.values())
+    print(f'### split total: {total:.3f} ms between CUDA events with the wrappers and the profiler on; parts '
+          f'{named:.3f} ms (events), {sum(device.values()):.3f} ms on the card (profiler) [{card}]', flush=True)
+
+
+def order(card):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location('chip_smoke', ROOT / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_build(card)
+    smoke.phase_dense_lu(card)
+    smoke.phase_dense_lu_times(card)
+    try:
+        smoke.phase_parity()
+        print(f'### order: phase 4 right after phases 72-73 passed its gate [{card}]', flush=True)
+    except AssertionError as err:
+        print(f'### order: phase 4 right after phases 72-73 FAILED: {err} [{card}]', flush=True)
+
+
+TIMING_HEADER = r'''
+__device__ unsigned long long dl_marks[128];
+__device__ unsigned long long dl_cta[2 * 8192];
+__device__ long long dl_clock[2];
+__device__ inline unsigned long long dl_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define DL_FIRST (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+#define DL_CTA (blockIdx.y * gridDim.x + blockIdx.x)
+#define DL_START const unsigned long long dl_t0 = dl_now(); int dl_n = 0; \
+  if (DL_FIRST) { dl_marks[dl_n++] = dl_t0; dl_clock[0] = clock64(); }
+#define DL_MARK if (DL_FIRST && dl_n < 128) dl_marks[dl_n++] = dl_now();
+#define DL_END if (threadIdx.x == 0 && DL_CTA < 8192) { \
+    dl_cta[2 * DL_CTA] = dl_t0; dl_cta[2 * DL_CTA + 1] = dl_now(); } \
+  if (DL_FIRST) dl_clock[1] = clock64(); DL_MARK
+extern "C" int dl_read(void* marks, void* ctas, void* clocks) {
+  if (cudaMemcpyFromSymbol(clocks, dl_clock, sizeof(dl_clock)) != cudaSuccess) return 3;
+  if (cudaMemcpyFromSymbol(marks, dl_marks, sizeof(dl_marks)) != cudaSuccess) return 1;
+  return cudaMemcpyFromSymbol(ctas, dl_cta, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
+}
+extern "C" int dl_clear() {
+  static unsigned long long zero[2 * 8192] = {0};
+  if (cudaMemcpyToSymbol(dl_marks, zero, sizeof(dl_marks)) != cudaSuccess) return 1;
+  return cudaMemcpyToSymbol(dl_cta, zero, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
+}
+'''
+
+# (anchor in csrc/dense_lu.cu, text inserted after it): the marks of the instrumented copy
+TIMING_MARKS = (
+    ('  T* A = a + static_cast<long long>(blockIdx.x) * batch_stride;\n', '  DL_START\n'),
+    ('    for (int r = tid; r < m; r += THREADS) slot[r] = r;\n    __syncthreads();\n', '    DL_MARK\n'),
+    ('        if (lane < ws) p[c * sld + t0 + lane] = x;\n      }\n      __syncthreads();\n', '      DL_MARK\n'),
+    ('    // while the others update), and the rank-1 update finds the next column\'s candidates\n', '    DL_MARK\n'),
+    ('      const int slot_k = diag[b];\n', '      if (k < 2) { DL_MARK }\n'),
+    ('        if (next) diag[b ^ 1] = slot[kr + 1];\n      }\n      __syncthreads();\n', '      if (k < 2) { DL_MARK }\n'),
+    ('    // the write-back\n', '    DL_MARK\n'),
+    ('        [&](int i, T v) { p[i] = v; });\n    __syncthreads();\n', '    DL_MARK\n'),
+    ('  for (int r = tid; r < m; r += THREADS) out[r] = perm[r];\n', '  DL_END\n'),
+    ('  const long long* P = perm + static_cast<long long>(blockIdx.y) * rows;\n', '  DL_START\n'),
+    ('  const int n_moved = min(*count, cap);\n', '  DL_MARK\n'),
+    ('  if (!right) return;\n', '  DL_MARK\n'),
+    ('      if (r < jb && cw + g < c_hi) top[static_cast<long long>(r) * ld + cw + g] = x[g][h];\n    }\n  }\n',
+     '  DL_END\n'),
+)
+
+
+def kernel_timing(card):
+    """Both kernels once at RayleighBenard 256x128's first block from a copy of csrc/dense_lu.cu with marks of the
+    card's global timer: the first CTA's time at each mark, its SM clock (cycles over the timer's time), and each
+    CTA's start and end (its waves).  ``LU_TIMING_SUBST='old=>new;;...'`` (or a JSON list of [old, new] pairs in the
+    file ``LU_TIMING_SUBST_FILE``) edits the copy first: a variant."""
+    import ctypes
+    import types
+
+    import numpy as np
+    import torch
+
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+    from pysdc_tpu_torch.ops.kernels import build, dense_lu
+
+    source = (build.CSRC_DIR / 'dense_lu.cu').read_text()
+    source = source.replace('#include <cstdint>\n', '#include <cstdint>\n' + TIMING_HEADER, 1)
+    write_back = '    for (int i = tid; i < m * wc; i += THREADS) {\n      const int r = i / wc, c = i - r * wc;\n'
+    source = source.replace(write_back, '    // the write-back\n' + write_back, 1)
+    edits = [edit.split('=>') for edit in os.environ.get('LU_TIMING_SUBST', '').split(';;') if edit]
+    if os.environ.get('LU_TIMING_SUBST_FILE'):
+        edits += json.loads(Path(os.environ['LU_TIMING_SUBST_FILE']).read_text())
+    for old, new in edits:
+        if source.count(old) < 1:
+            raise RuntimeError(f'kernel timing: variant text not found: {old!r}')
+        source = source.replace(old, new)
+    for anchor, text in TIMING_MARKS:
+        if source.count(anchor) != 1:
+            raise RuntimeError(f'kernel timing: anchor not found once: {anchor!r}')
+        source = source.replace(anchor, anchor + text)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, so = build.BUILD_DIR / 'dense_lu_timing.cu', build.BUILD_DIR / 'libdense_lu_timing.so'
+    cu.write_text(source)
+    out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, '-o', str(so), str(cu)], check=True, capture_output=True,
+                         text=True)
+    entry = ''
+    for line in (out.stdout + out.stderr).splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1]
+        elif ('Used' in line or 'spill' in line) and 'CxIdE' in entry:
+            print(f'### kernel timing ptxas {entry[-60:]}: {line.split(":", 1)[-1].strip()}', flush=True)
+    lib = ctypes.CDLL(str(so))
+    real = dense_lu._library()
+    lib.dense_lu_panel.argtypes = real.panel.argtypes
+    lib.dense_lu_swap_trsm.argtypes = real.swap_trsm.argtypes
+    lib.dense_lu_panel.restype = lib.dense_lu_swap_trsm.restype = ctypes.c_int
+    dense_lu._library = lambda: types.SimpleNamespace(panel=lib.dense_lu_panel, swap_trsm=lib.dense_lu_swap_trsm)
+
+    spec = RayleighBenard(nx=256, nz=128, Rayleigh=2e6, Prandtl=1, dtype=torch.float64, device='cuda').spec
+    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
+    keep = torch.as_tensor(spec.keep_mask, device='cuda')
+    A = (spec._dev('M_all', like) + 0.3 * 0.01 * spec._dev('L_all', like)) * keep[:, :, None] \
+        + spec._dev('bc_rows', like)
+    marks, ctas = np.zeros(128, dtype=np.uint64), np.zeros(2 * 8192, dtype=np.uint64)
+    clocks = np.zeros(2, dtype=np.int64)
+
+    def run(label, fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        lib.dl_clear()
+        fn()
+        torch.cuda.synchronize()
+        if lib.dl_read(marks.ctypes.data, ctas.ctypes.data, clocks.ctypes.data) != 0:
+            raise RuntimeError('kernel timing: reading the marks failed')
+        got = marks[marks > 0].astype(np.int64)
+        steps = np.diff(got) / 1e3
+        pairs = ctas.reshape(-1, 2).astype(np.int64)
+        pairs = pairs[pairs[:, 0] > 0]
+        t0 = pairs[:, 0].min()
+        start, length = (pairs[:, 0] - t0) / 1e3, (pairs[:, 1] - pairs[:, 0]) / 1e3
+        mhz = (clocks[1] - clocks[0]) / max(float(got[-1] - got[0]) / 1e3, 1e-9)
+        print(f'### kernel timing {label}: SM clock {mhz:.0f} MHz; the first CTA\'s steps between marks (us): '
+              f'{", ".join(f"{x:.1f}" for x in steps)}; {len(pairs)} CTAs, each {np.median(length):.1f} us median '
+              f'({length.min():.1f}-{length.max():.1f}), starts from 0 to {start.max():.1f} us, the last ends at '
+              f'{(pairs[:, 1].max() - t0) / 1e3:.1f} us [{card}]', flush=True)
+
+    work = A.clone()
+    run('lu_panel (256, 512, 64)', lambda: dense_lu.lu_panel(work[:, :, :64].copy_(A[:, :, :64])))
+    factored = A.clone()
+    rows = dense_lu.lu_panel(factored[:, :, :64])
+    run('lu_swap_trsm block 0', lambda: dense_lu.lu_swap_trsm(work.copy_(factored), 0, 64, rows))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument('what', choices=('faults', 'routes'))
+    parser.add_argument('what', choices=('faults', 'routes', 'split', 'order', 'timing'))
     parser.add_argument('--root', default=None, help='import pysdc_tpu_torch from this directory')
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve() if args.root else ROOT))
@@ -279,7 +572,7 @@ def main():
         return 1
     card = _card()
     start = time.perf_counter()
-    (faults if args.what == 'faults' else routes)(card)
+    {'faults': faults, 'routes': routes, 'split': split, 'order': order, 'timing': kernel_timing}[args.what](card)
     print(f'lu_probe {args.what}: {time.perf_counter() - start:.1f} s [{card}]')
     return 0
 

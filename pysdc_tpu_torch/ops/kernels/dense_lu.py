@@ -1,20 +1,26 @@
-"""The panel of the port's dense LU, by hand in CUDA for Hopper.
+"""The two kernels of the port's dense LU, by hand in CUDA for Hopper.
 
-Replaces no TPU kernel: the JAX package's dense solves are ``jnp.linalg.solve``,
+Replace no TPU kernel: the JAX package's dense solves are ``jnp.linalg.solve``,
 an LU with partial pivoting that XLA computes by itself.  The port's route for
-512 rows and more (:mod:`pysdc_tpu_torch.ops.linalg`) is LAPACK's blocked
-right-looking ``getrf`` written in torch, and this kernel
-(``pysdc_tpu_torch/csrc/dense_lu.cu``) factors its panels: no library call
-factors a tall panel, with its pivots searched down the whole height, inside
-the body of a CUDA graph's conditional WHILE node.
+512 rows and more (:func:`pysdc_tpu_torch.ops.linalg._getrf`) is LAPACK's
+blocked right-looking ``getrf`` by blocks of 64 columns, and these kernels
+(``pysdc_tpu_torch/csrc/dense_lu.cu``) do all of a block but its trailing
+GEMM: no library call factors a tall panel, with its pivots searched down the
+whole height, inside the body of a CUDA graph's conditional WHILE node.
 
-:func:`lu_panel` factors a ``(batch, m, w)`` view in place and returns the row
-permutation it applied.  A tensor on the CPU takes the plain version,
-:func:`plain_panel` (LAPACK's ``getrf`` of the panel); a CUDA tensor launches
-the kernel or raises.  ``lu_panel.launches`` counts the launches on the host;
-``lu_panel.device_count``, where a caller sets it to a 0-d int64 tensor on the
-card, gets one added at each launch, on the launch's stream, so a replayed
-graph counts its own launches.
+- :func:`lu_panel` factors a ``(batch, m, w)`` view (``w <= 64``) in place in one
+  launch, left-looking over sub-panels of :func:`panel_width` columns, and
+  returns the row permutation it applied;
+- :func:`lu_swap_trsm` applies that permutation to the block's rows in every
+  other column of the matrix and solves ``L11 U12 = A12`` right of the panel.
+
+A tensor on the CPU takes the plain versions, :func:`plain_panel` (LAPACK's
+``getrf`` of the panel) and :func:`plain_swap_trsm` (a gather and
+``torch.linalg.solve_triangular``); a CUDA tensor launches the kernel or
+raises.  Each wrapper's ``launches`` counts its launches on the host; its
+``device_count``, where a caller sets it to a 0-d int64 tensor on the card, gets
+one added at each launch, on the launch's stream, so a replayed graph counts its
+own launches.
 """
 
 from __future__ import annotations
@@ -29,20 +35,33 @@ from pysdc_tpu_torch.ops.kernels.build import current_stream, load, refuse_diffe
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2, torch.complex128: 3}
 
-#: the panel's shared memory: the reduction's scratch, the panel (column-major, m + 1 a column) and the permutation
+#: the panel's shared memory: the pivot candidates' scratch, a sub-panel (column-major, m + 1 a column), the
+#: permutation and the row map
 SCRATCH_BYTES = 384
-#: the most shared memory a panel may fill (one CTA an SM), and the widest panel
+#: the most shared memory a sub-panel may fill (one CTA an SM)
 SMEM_BUDGET = 192 * 1024
+#: the widest panel one launch factors (the route's block), and the widest sub-panel
 MAX_WIDTH = 64
+#: columns a CTA of :func:`lu_swap_trsm` owns, and columns it stages at a time for the row interchanges
+SWAP_TILE, SWAP_CHUNK = 64, 16
 
 
-def smem_bytes(m: int, w: int, itemsize: int) -> int:
-    """Shared memory of one CTA for an ``m x w`` panel (the library checks this formula when it loads)."""
-    return SCRATCH_BYTES + w * (m + 1) * itemsize + 4 * m
+def smem_bytes(m: int, ws: int, itemsize: int) -> int:
+    """Shared memory of one CTA of :func:`lu_panel` for ``m`` rows and sub-panels of ``ws`` columns (the library
+    checks this formula when it loads)."""
+    return SCRATCH_BYTES + ws * (m + 1) * itemsize + 8 * m
+
+
+def swap_smem_bytes(rows: int, jb: int, itemsize: int) -> int:
+    """Shared memory of one CTA of :func:`lu_swap_trsm`: a counter, ``L11`` (column-major, ``jb + 1`` a column),
+    the moved rows (at most ``2 jb``) staged :data:`SWAP_CHUNK` columns at a time, and their list."""
+    cap = min(2 * jb, rows)
+    return 16 + jb * (jb + 1) * itemsize + cap * SWAP_CHUNK * itemsize + 4 * cap
 
 
 def panel_width(m: int, itemsize: int) -> int:
-    """The widest panel of ``m`` rows, a power of two up to :data:`MAX_WIDTH`, that fits :data:`SMEM_BUDGET`."""
+    """The sub-panel width of ``m`` rows: the widest power of two up to :data:`MAX_WIDTH` that fits
+    :data:`SMEM_BUDGET`."""
     w = MAX_WIDTH
     while w >= 1 and smem_bytes(m, w, itemsize) > SMEM_BUDGET:
         w //= 2
@@ -53,21 +72,26 @@ def panel_width(m: int, itemsize: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> SimpleNamespace:
-    """The panel library with its argument types set (built at first use, never at import), its shared-memory
-    formula checked against :func:`smem_bytes`."""
+    """The library with its argument types set (built at first use, never at import), its shared-memory formulas
+    and limits checked against this module's."""
     lib = load('dense_lu')
     lib.dense_lu_panel.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    lib.dense_lu_panel.restype = ctypes.c_int
-    lib.dense_lu_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.dense_lu_smem_bytes.restype = ctypes.c_longlong
-    lib.dense_lu_max_smem_bytes.restype = ctypes.c_int
-    for m, w, itemsize in ((512, 16, 16), (1024, 8, 16), (600, 32, 8), (513, 64, 4)):
-        if lib.dense_lu_smem_bytes(m, w, itemsize) != smem_bytes(m, w, itemsize):
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.dense_lu_swap_trsm.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
+    lib.dense_lu_panel.restype = lib.dense_lu_swap_trsm.restype = ctypes.c_int
+    for name in ('dense_lu_smem_bytes', 'dense_lu_swap_smem_bytes'):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_longlong
+    for m, w, itemsize in ((512, 16, 16), (1024, 8, 16), (600, 32, 8), (513, 64, 4), (64, 64, 16)):
+        if lib.dense_lu_smem_bytes(m, w, itemsize) != smem_bytes(m, w, itemsize) \
+                or lib.dense_lu_swap_smem_bytes(m, w, itemsize) != swap_smem_bytes(m, w, itemsize):
             raise RuntimeError('dense LU: the library and ops/kernels/dense_lu.py disagree on the shared memory')
-    if lib.dense_lu_max_smem_bytes() < SMEM_BUDGET:
-        raise RuntimeError('dense LU: SMEM_BUDGET exceeds what the library lets a CTA use')
-    return SimpleNamespace(launch=lib.dense_lu_panel)
+    if lib.dense_lu_max_smem_bytes() < max(SMEM_BUDGET, swap_smem_bytes(2 * MAX_WIDTH, MAX_WIDTH, 16)) \
+            or lib.dense_lu_max_width() != MAX_WIDTH or lib.dense_lu_swap_tile() != SWAP_TILE:
+        raise RuntimeError('dense LU: the library\'s limits are not those of ops/kernels/dense_lu.py')
+    return SimpleNamespace(panel=lib.dense_lu_panel, swap_trsm=lib.dense_lu_swap_trsm)
 
 
 def permutation(pivots: torch.Tensor, m: int) -> torch.Tensor:
@@ -91,40 +115,91 @@ def plain_panel(panel: torch.Tensor) -> torch.Tensor:
     return permutation(pivots, panel.shape[-2])
 
 
-def lu_panel(panel: torch.Tensor) -> torch.Tensor:
-    """Factor ``panel`` (a ``(batch, m, w)`` view, ``m >= w``, rows of unit stride) in place with partial pivoting,
-    as ``P panel = L U`` (L unit lower below the diagonal, U on and above it); returns the permutation ``(batch, m)``
-    int64: row r of the factored panel is row ``perm[r]`` of the panel given.  One launch for the whole batch; a
-    CUDA tensor that a gradient is asked of raises (the kernel writes in place, outside autograd)."""
-    if panel.device.type == 'cpu':
-        return plain_panel(panel)
-    if panel.device.type != 'cuda':
-        raise ValueError(f'lu_panel runs on cuda or cpu tensors, got {panel.device}')
-    refuse_differentiated('lu_panel', panel)
-    if panel.dtype not in _DTYPE_CODES:
-        raise TypeError(f'lu_panel takes float32, float64, complex64 or complex128, got {panel.dtype}')
-    b, m, w = panel.shape
-    if not 1 <= w <= m or panel.stride(-1) != 1 or panel.stride(-2) < w or b < 1:
-        raise ValueError(f'lu_panel: a ({b}, {m}, {w}) panel of strides {panel.stride()} is not one it takes')
-    if smem_bytes(m, w, panel.element_size()) > SMEM_BUDGET or b >= 2**31:
-        raise ValueError(f'lu_panel: a ({b}, {m}, {w}) {panel.dtype} panel exceeds the kernel limits')
-    index = panel.device.index if panel.device.index is not None else torch.cuda.current_device()
-    lib = _library()
-    perm = torch.empty((b, m), dtype=torch.int64, device=panel.device)
-    args = (_DTYPE_CODES[panel.dtype], panel.data_ptr(), panel.stride(0), panel.stride(1), m, w, b, perm.data_ptr(),
-            current_stream(index))
+def plain_swap_trsm(A: torch.Tensor, j: int, jb: int, rows: torch.Tensor) -> None:
+    """The plain version of :func:`lu_swap_trsm`: the rows ``j..`` of each side of the panel gathered by ``rows``
+    and copied back, then ``U12`` by ``torch.linalg.solve_triangular``."""
+    index = rows.unsqueeze(-1)
+    for side in (A[:, j:, :j], A[:, j:, j + jb:]):
+        if side.shape[-1]:
+            side.copy_(side.gather(1, index.expand(side.shape)))
+    if j + jb < A.shape[-1]:
+        A[:, j:j + jb, j + jb:] = torch.linalg.solve_triangular(A[:, j:j + jb, j:j + jb], A[:, j:j + jb, j + jb:],
+                                                                upper=False, unitriangular=True)
+
+
+def _counted(wrapper) -> None:
+    wrapper.launches += 1
+    if wrapper.device_count is not None:
+        wrapper.device_count.add_(1)
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the library function ``fn`` for tensors on ``device`` with the device's current stream last."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    args = args + (current_stream(index),)
     if torch.cuda.current_device() == index:
-        err = lib.launch(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(index):
-            err = lib.launch(*args)
+            err = fn(*args)
     if err != 0:
-        raise RuntimeError(f'lu_panel kernel launch failed with error {err}')
-    lu_panel.launches += 1
-    if lu_panel.device_count is not None:
-        lu_panel.device_count.add_(1)
+        raise RuntimeError(f'{name} kernel launch failed with error {err}')
+
+
+def _checked(name: str, A: torch.Tensor) -> bool:
+    """True for a CUDA tensor the kernel ``name`` takes, False for a CPU tensor; raises on anything else."""
+    if A.device.type == 'cpu':
+        return False
+    if A.device.type != 'cuda':
+        raise ValueError(f'{name} runs on cuda or cpu tensors, got {A.device}')
+    refuse_differentiated(name, A)
+    if A.dtype not in _DTYPE_CODES:
+        raise TypeError(f'{name} takes float32, float64, complex64 or complex128, got {A.dtype}')
+    if A.dim() != 3 or A.stride(-1) != 1 or A.stride(-2) < A.shape[-1] or A.shape[0] < 1:
+        raise ValueError(f'{name}: a {tuple(A.shape)} view of strides {A.stride()} is not one it takes')
+    return True
+
+
+def lu_panel(panel: torch.Tensor) -> torch.Tensor:
+    """Factor ``panel`` (a ``(batch, m, w)`` view, ``w <= min(m, 64)``, rows of unit stride) in place with partial
+    pivoting, as ``P panel = L U`` (L unit lower below the diagonal, U on and above it); returns the permutation
+    ``(batch, m)`` int64: row r of the factored panel is row ``perm[r]`` of the panel given.  One launch for the
+    whole batch; a CUDA tensor that a gradient is asked of raises (the kernel writes in place, outside autograd)."""
+    if not _checked('lu_panel', panel):
+        return plain_panel(panel)
+    b, m, w = panel.shape
+    ws = min(panel_width(m, panel.element_size()), w)
+    if not 1 <= w <= min(m, MAX_WIDTH) or b >= 2**31 or min(2 * w, m) > ws * (m + 1):
+        raise ValueError(f'lu_panel: a ({b}, {m}, {w}) {panel.dtype} panel exceeds the kernel limits')
+    lib = _library()
+    perm = torch.empty((b, m), dtype=torch.int64, device=panel.device)
+    _launch('lu_panel', lib.panel, panel.device, _DTYPE_CODES[panel.dtype], panel.data_ptr(), panel.stride(0),
+            panel.stride(1), m, w, ws, b, perm.data_ptr())
+    _counted(lu_panel)
     return perm
 
 
-lu_panel.launches = 0
-lu_panel.device_count = None
+def lu_swap_trsm(A: torch.Tensor, j: int, jb: int, rows: torch.Tensor) -> None:
+    """For the block of columns ``j .. j + jb`` of ``A`` (a ``(batch, m, w)`` view, rows of unit stride) whose
+    panel :func:`lu_panel` factored, with ``rows`` ``(batch, m - j)`` the permutation it returned: apply the
+    permutation to the rows ``j..`` of every column outside the panel, and solve ``L11 U12 = A12`` in place right
+    of it (``L11`` the panel's unit lower ``jb x jb`` top).  One launch for the whole batch, none where no column
+    lies outside the panel; a CUDA tensor that a gradient is asked of raises."""
+    if not _checked('lu_swap_trsm', A):
+        return plain_swap_trsm(A, j, jb, rows)
+    b, m, w = A.shape
+    if not (0 <= j and 1 <= jb <= MAX_WIDTH and j + jb <= min(m, w)) or b > 65535:
+        raise ValueError(f'lu_swap_trsm: block ({j}, {jb}) of a ({b}, {m}, {w}) batch exceeds the kernel limits')
+    if rows.shape != (b, m - j) or rows.dtype != torch.int64 or rows.device != A.device or not rows.is_contiguous():
+        raise ValueError(f'lu_swap_trsm: rows {tuple(rows.shape)} {rows.dtype} on {rows.device}, expected contiguous '
+                         f'({b}, {m - j}) int64 on {A.device}')
+    if -(-j // SWAP_TILE) + -(-(w - j - jb) // SWAP_TILE) == 0:
+        return None
+    _launch('lu_swap_trsm', _library().swap_trsm, A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), A.stride(0),
+            A.stride(1), m, w, j, jb, b, rows.data_ptr())
+    _counted(lu_swap_trsm)
+    return None
+
+
+lu_panel.launches = lu_swap_trsm.launches = 0
+lu_panel.device_count = lu_swap_trsm.device_count = None

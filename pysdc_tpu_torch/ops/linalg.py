@@ -25,22 +25,24 @@ So on a CUDA tensor :func:`solve` and :func:`inv` take two routes:
   set for the call and restored after it;
 - from :data:`PIVOTED_FROM` rows on (:func:`_pivoted_solve`): LAPACK's blocked
   right-looking ``getrf``, its loop unrolled here, with the pivots LAPACK
-  chooses over the whole matrix.  Each panel is factored down the whole
-  remaining height by the hand-written kernel
-  :func:`~pysdc_tpu_torch.ops.kernels.dense_lu.lu_panel`; its row swaps reach
-  the rest of the rows by a gather, ``U12`` comes from
-  ``torch.linalg.solve_triangular`` and the trailing matrix is updated by a
-  batched GEMM with TF32 off.  The substitution is the permutation's gather
-  and triangular solves by blocks of :data:`BLOCK` rows.  Nothing is read on
-  the host.
+  chooses over the whole matrix.  Each block of :data:`BLOCK` columns takes
+  two hand-written kernels and one GEMM:
+  :func:`~pysdc_tpu_torch.ops.kernels.dense_lu.lu_panel` factors the block's
+  columns down the whole remaining height in one launch,
+  :func:`~pysdc_tpu_torch.ops.kernels.dense_lu.lu_swap_trsm` moves the rows its
+  pivots moved in every other column and solves for ``U12``, and a batched
+  GEMM with TF32 off updates the trailing matrix.  The substitution is the
+  permutation's gather and triangular solves by blocks of :data:`BLOCK` rows.
+  Nothing is read on the host.
 
 Eager and captured take the same path, so the stage lane and the fused lanes
 compute alike.  On a CPU tensor :func:`solve` and :func:`inv` are LAPACK
 (``solve_ex``, ``inv_ex``); :func:`_pivoted_solve` on a CPU tensor runs the
-same blocked loop with the kernel's plain version (LAPACK's ``getrf`` of each
-panel), which ``tests/test_torch_linalg.py`` holds against LAPACK on matrices
-that need pivoting.  ``chip_smoke.py`` holds both routes inside a device
-``while`` body, bit for bit against the eager call, and against LAPACK.
+same blocked loop with the kernels' plain versions (LAPACK's ``getrf`` of each
+panel, a gather and ``solve_triangular``), which ``tests/test_torch_linalg.py``
+holds against LAPACK on matrices that need pivoting.  ``chip_smoke.py`` holds
+both routes inside a device ``while`` body, bit for bit against the eager call,
+and against LAPACK.
 """
 
 from __future__ import annotations
@@ -50,12 +52,12 @@ import math
 
 import torch
 
-from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, panel_width
+from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, lu_swap_trsm
 
 #: from this many rows a solve on the card takes the pivoted blocked LU: torch would factor such a matrix with
 #: cuSOLVER's ``getrf``, which a conditional node's body does not hold
 PIVOTED_FROM = 512
-#: the outer block of the LU (the trailing update's depth) and the substitution's block of rows
+#: the LU's block of columns (one panel launch, the trailing update's depth) and the substitution's block of rows
 BLOCK = 64
 
 
@@ -110,29 +112,20 @@ def _batched_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return x[:systems].reshape(batch + (n, k))
 
 
-def _getrf(A: torch.Tensor, width: int) -> torch.Tensor:
+def _getrf(A: torch.Tensor) -> torch.Tensor:
     """Factor ``A`` (a ``(batch, m, w)`` view, ``m >= w``) in place as ``P A = L U`` with partial pivoting, LAPACK's
-    blocked right-looking ``getrf``: panels of :data:`BLOCK` columns, each factored the same way in panels of
-    ``width`` columns, which :func:`lu_panel` factors.  Returns the permutation ``(batch, m)``: row r of the factored
-    matrix is row ``perm[r]`` of the matrix given."""
+    blocked right-looking ``getrf`` by blocks of :data:`BLOCK` columns: each block's panel by :func:`lu_panel`, its
+    row interchanges and ``U12`` by :func:`lu_swap_trsm`, the trailing matrix by a batched GEMM.  Returns the
+    permutation ``(batch, m)``: row r of the factored matrix is row ``perm[r]`` of the matrix given."""
     b, m, w = A.shape
-    if w <= width:
-        return lu_panel(A)
-    step = BLOCK if w > BLOCK else width
     perm = torch.arange(m, device=A.device).expand(b, m).clone()
-    for j in range(0, w, step):
-        jb = min(step, w - j)
-        rows = _getrf(A[:, j:, j:j + jb], width)
-        index = rows.unsqueeze(-1)
-        for side in (A[:, j:, :j], A[:, j:, j + jb:]):  # the panel's row swaps reach the rest of its rows
-            if side.shape[-1]:
-                side.copy_(side.gather(1, index.expand(side.shape)))
+    for j in range(0, w, BLOCK):
+        jb = min(BLOCK, w - j)
+        rows = lu_panel(A[:, j:, j:j + jb])
         perm[:, j:] = perm[:, j:].gather(1, rows)
+        lu_swap_trsm(A, j, jb, rows)
         if j + jb < w:
-            U12 = torch.linalg.solve_triangular(A[:, j:j + jb, j:j + jb], A[:, j:j + jb, j + jb:], upper=False,
-                                                unitriangular=True)
-            A[:, j:j + jb, j + jb:] = U12
-            A[:, j + jb:, j + jb:].baddbmm_(A[:, j + jb:, j:j + jb], U12, alpha=-1)
+            A[:, j + jb:, j + jb:].baddbmm_(A[:, j + jb:, j:j + jb], A[:, j:j + jb, j + jb:], alpha=-1)
     return perm
 
 
@@ -170,7 +163,7 @@ def _pivoted_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     rhs = B.expand(batch + (n, k)).permute(order).reshape((-1, n, math.prod(moved_shape) * k))
     LU = A.reshape(lead + (n, n)).reshape((-1, n, n)).clone(memory_format=torch.contiguous_format)
     with _full_precision():
-        perm = _getrf(LU, panel_width(n, A.element_size()))
+        perm = _getrf(LU)
         x = _substitute(LU, perm, rhs)
     x = x.reshape(kept_shape + (n,) + moved_shape + (k,))
     inverse = [order.index(i) for i in range(len(order))]

@@ -4,12 +4,14 @@ complex128).
 On the card :func:`~pysdc_tpu_torch.ops.linalg.solve` takes two routes that torch does not choose by itself: a batch
 padded so that torch's cuSOLVER preference lands on cuBLAS's batched LU and substitution (``_batched_solve``), and
 from 512 rows on LAPACK's blocked right-looking LU with partial pivoting over the whole matrix (``_pivoted_solve``),
-whose panels a hand-written kernel factors on the card.  Both are torch code around that kernel; on the CPU the
-panel is the kernel's plain version (LAPACK's ``getrf`` of the panel), so the routes are held here: broadcast
+whose blocks two hand-written kernels factor on the card (the panel, then its row interchanges and ``U12``).  Both
+are torch code around those kernels; on the CPU the kernels are their plain versions (LAPACK's ``getrf`` of the
+panel; a gather and ``solve_triangular``), so the routes are held here: broadcast
 batches, one matrix, one and two systems, several right-hand sides, and the large systems the port solves, several
 of which need pivoting across the whole matrix (Rayleigh-Benard's modes, the Chebyshev heat and Burgers operators, a
 matrix whose leading half is zero).  Each is gated at 1e-13 relative, or at 4 eps cond(A) where the matrix's
-condition number makes two backward-stable solves differ by more.
+condition number makes two backward-stable solves differ by more.  The plain row interchanges and ``U12`` are held
+against an explicit permutation product and ``torch.linalg.solve_triangular``.
 """
 
 import numpy as np
@@ -105,7 +107,7 @@ def test_pivoted_route_takes_lapacks_pivots():
     """The blocked factorization chooses the rows LAPACK's ``getrf`` chooses, and the same factors."""
     A, _ = _zero_leading_block()
     LU = A.unsqueeze(0).clone()
-    perm = linalg._getrf(LU, dense_lu.panel_width(A.shape[-1], A.element_size()))
+    perm = linalg._getrf(LU)
     want, pivots = torch.linalg.lu_factor(A)
     assert torch.equal(perm[0], dense_lu.permutation(pivots.unsqueeze(0), A.shape[-1])[0])
     assert _rel(LU[0], want) < RTOL
@@ -125,11 +127,50 @@ def test_pivoted_route_broadcasts(shape_a, shape_b):
 
 
 def test_panel_widths_fit_the_kernel():
-    """The panel width falls as rows and item size grow, and every panel fits the kernel's shared memory."""
+    """One panel launch covers a block of 64 columns, down the whole height; its sub-panels (the columns the kernel
+    holds in shared memory at a time) narrow as rows and item size grow, and every one fits the budget."""
+    assert linalg.BLOCK == dense_lu.MAX_WIDTH
     widths = {(m, size): dense_lu.panel_width(m, size) for m in (512, 600, 1024, 4096) for size in (4, 8, 16)}
     assert widths[(512, 4)] == dense_lu.MAX_WIDTH and widths[(512, 16)] == 16 and widths[(1024, 16)] == 8
     assert all(dense_lu.smem_bytes(m, w, size) <= dense_lu.SMEM_BUDGET for (m, size), w in widths.items())
-    assert all(w & (w - 1) == 0 for w in widths.values())
+    assert all(w & (w - 1) == 0 and (w == dense_lu.MAX_WIDTH or w <= 32) for w in widths.values())
+    # the rows a panel moves (at most twice its width) are staged through one sub-panel's room
+    assert all(min(2 * linalg.BLOCK, m) <= w * (m + 1) for (m, _), w in widths.items())
+    assert dense_lu.swap_smem_bytes(2 * linalg.BLOCK, linalg.BLOCK, 16) <= dense_lu.SMEM_BUDGET
+
+
+def _swap_trsm_case(case, dtype):
+    """A (2, 192, 192) batch whose block ``j`` has been factored by the plain panel, with the permutation it gave."""
+    rng = np.random.default_rng(11)
+    A = _random(rng, (2, 192, 192), complex_=dtype == torch.complex128).to(dtype)
+    if case == 'no-row-moves':
+        A = A + 400 * torch.eye(192, dtype=dtype)
+    j = {'left-and-right': 64, 'last-block': 128, 'no-row-moves': 64}[case]
+    rows = dense_lu.plain_panel(A[:, j:, j:j + 64])
+    return A, j, rows
+
+
+@pytest.mark.parametrize('dtype', [torch.complex128, torch.float64])
+@pytest.mark.parametrize('case', ['left-and-right', 'last-block', 'no-row-moves'])
+def test_plain_swap_trsm_is_the_permutation_and_triangular_solve(case, dtype):
+    """``lu_swap_trsm`` on a CPU tensor (its plain version): the panel's permutation as an explicit permutation
+    matrix on the rows ``j..`` of each side, and ``U12`` by ``solve_triangular`` of the panel's unit lower top."""
+    A, j, rows = _swap_trsm_case(case, dtype)
+    jb, n = 64, A.shape[-1]
+    moved = int((rows != torch.arange(n - j)).sum(-1).max())  # rows a matrix
+    assert (moved == 0) == (case == 'no-row-moves') and moved <= 2 * jb
+    P = torch.zeros((2, n - j, n - j), dtype=dtype).scatter_(2, rows.unsqueeze(-1), 1)  # P[r, rows[r]] = 1
+    want = A.clone()
+    want[:, j:, :j] = P @ A[:, j:, :j]
+    want[:, j:, j + jb:] = P @ A[:, j:, j + jb:]
+    if j + jb < n:
+        L11 = torch.tril(A[:, j:j + jb, j:j + jb], -1) + torch.eye(jb, dtype=dtype)
+        want[:, j:j + jb, j + jb:] = torch.linalg.solve_triangular(L11, want[:, j:j + jb, j + jb:], upper=False)
+    got = A.clone()
+    dense_lu.lu_swap_trsm(got, j, jb, rows)
+    assert torch.equal(got[:, :, j:j + jb], A[:, :, j:j + jb]) and torch.equal(got[:, :j], A[:, :j])
+    assert torch.equal(got[:, j:, :j], want[:, j:, :j])
+    assert _rel(got, want) < RTOL
 
 
 def test_inverse_and_cpu_route():
