@@ -6853,19 +6853,21 @@ def phase_dense_lu(card):
 
 
 def _swap_trsm_work(rows, n, j, jb, itemsize):
-    """(bytes, flops) ``lu_swap_trsm`` must move and compute at block ``j`` of ``(b, n, n)`` matrices with this run's
-    permutation ``rows`` (b, n - j): the moved rows read and written in every column outside the panel, the ``A12``
-    tile read and written, ``L11`` once a CTA right of the panel, the permutation read; ``jb^2 / 2`` multiply-adds a
-    column right of the panel (8 flops each complex, 2 real)."""
+    """(bytes, flops, rows moved) ``lu_swap_trsm`` must move and compute at block ``j`` of ``(b, n, n)`` matrices with
+    this run's permutation ``rows`` (b, n - j), each byte once: in each matrix the moved rows read and written in the
+    columns left of the panel, the union of the moved rows and the top ``jb`` rows (``A12``) read and written in the
+    columns right of it, ``L11``'s strict lower triangle read once, the permutation read; ``jb^2 / 2`` multiply-adds
+    a column right of the panel (8 flops each complex, 2 real)."""
     import torch
 
-    from pysdc_tpu_torch.ops.kernels.dense_lu import SWAP_TILE
-
     b = rows.shape[0]
-    moved = int((rows != torch.arange(n - j, device=rows.device)).sum())
-    right = n - j - jb
-    right_tiles = -(-right // SWAP_TILE)
-    nbytes = (2 * moved * (n - jb) + 2 * jb * right * b + jb * jb * right_tiles * b) * itemsize + rows.numel() * 8
+    index = torch.arange(n - j, device=rows.device)
+    moved_mask = rows != index
+    moved = int(moved_mask.sum())
+    left, right = j, n - j - jb
+    union = int((moved_mask | (index < jb)).sum()) if right else 0
+    elements = 2 * moved * left + 2 * union * right + (b * jb * (jb - 1) // 2 if right else 0)
+    nbytes = elements * itemsize + rows.numel() * 8
     return nbytes, (8 if itemsize == 16 else 2) * b * right * jb * (jb - 1) // 2, moved
 
 

@@ -4,6 +4,7 @@
     python3 lu_probe.py routes
     python3 lu_probe.py split [--root DIR]
     python3 lu_probe.py order
+    python3 lu_probe.py timing
 
 ``faults`` imports ``pysdc_tpu_torch`` from DIR (default: this checkout; another commit unpacked with ``git
 archive``) and runs, float64: ``Piline``, ``BuckConverter`` (fsw 10 and 7) and ``BatteryNCapacitors`` through
@@ -32,6 +33,10 @@ what neither part names ("other": the route's time less the parts').
 ``order`` runs ``chip_smoke.py``'s phases 1, 72, 73 and 4 in that order (phase 4's parity once missed its gate
 right after phases 72-73; ROADMAP queue 3) and prints phase 4's outcome on a line starting with ``###``.
 
+``timing`` builds ``csrc/dense_lu.cu`` with its timing marks (``-DDENSE_LU_TIMING``) into a library of its own and
+runs both kernels once at RayleighBenard 256x128's first block through it: the first CTA's time between marks, its SM
+clock, and each CTA's start and end.
+
 The CPU legs run on one thread (the CPU torch's LAPACK has hung multithreaded on a card's host).  Every line ends
 with the card's name and power limit.
 """
@@ -40,7 +45,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import os
 import subprocess
 import sys
@@ -428,60 +432,10 @@ def order(card):
         print(f'### order: phase 4 right after phases 72-73 FAILED: {err} [{card}]', flush=True)
 
 
-TIMING_HEADER = r'''
-__device__ unsigned long long dl_marks[128];
-__device__ unsigned long long dl_cta[2 * 8192];
-__device__ long long dl_clock[2];
-__device__ inline unsigned long long dl_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define DL_FIRST (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
-#define DL_CTA (blockIdx.y * gridDim.x + blockIdx.x)
-#define DL_START const unsigned long long dl_t0 = dl_now(); int dl_n = 0; \
-  if (DL_FIRST) { dl_marks[dl_n++] = dl_t0; dl_clock[0] = clock64(); }
-#define DL_MARK if (DL_FIRST && dl_n < 128) dl_marks[dl_n++] = dl_now();
-#define DL_END if (threadIdx.x == 0 && DL_CTA < 8192) { \
-    dl_cta[2 * DL_CTA] = dl_t0; dl_cta[2 * DL_CTA + 1] = dl_now(); } \
-  if (DL_FIRST) dl_clock[1] = clock64(); DL_MARK
-extern "C" int dl_read(void* marks, void* ctas, void* clocks) {
-  if (cudaMemcpyFromSymbol(clocks, dl_clock, sizeof(dl_clock)) != cudaSuccess) return 3;
-  if (cudaMemcpyFromSymbol(marks, dl_marks, sizeof(dl_marks)) != cudaSuccess) return 1;
-  return cudaMemcpyFromSymbol(ctas, dl_cta, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
-}
-extern "C" int dl_clear() {
-  static unsigned long long zero[2 * 8192] = {0};
-  if (cudaMemcpyToSymbol(dl_marks, zero, sizeof(dl_marks)) != cudaSuccess) return 1;
-  return cudaMemcpyToSymbol(dl_cta, zero, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
-}
-'''
-
-# (anchor in csrc/dense_lu.cu, text inserted after it): the marks of the instrumented copy
-TIMING_MARKS = (
-    ('  T* A = a + static_cast<long long>(blockIdx.x) * batch_stride;\n', '  DL_START\n'),
-    ('    for (int r = tid; r < m; r += THREADS) slot[r] = r;\n    __syncthreads();\n', '    DL_MARK\n'),
-    ('        if (lane < ws) p[c * sld + t0 + lane] = x;\n      }\n      __syncthreads();\n', '      DL_MARK\n'),
-    ('    // while the others update), and the rank-1 update finds the next column\'s candidates\n', '    DL_MARK\n'),
-    ('      const int slot_k = diag[b];\n', '      if (k < 2) { DL_MARK }\n'),
-    ('        if (next) diag[b ^ 1] = slot[kr + 1];\n      }\n      __syncthreads();\n', '      if (k < 2) { DL_MARK }\n'),
-    ('    // the write-back\n', '    DL_MARK\n'),
-    ('        [&](int i, T v) { p[i] = v; });\n    __syncthreads();\n', '    DL_MARK\n'),
-    ('  for (int r = tid; r < m; r += THREADS) out[r] = perm[r];\n', '  DL_END\n'),
-    ('  const long long* P = perm + static_cast<long long>(blockIdx.y) * rows;\n', '  DL_START\n'),
-    ('  const int n_moved = min(*count, cap);\n', '  DL_MARK\n'),
-    ('  if (!right) return;\n', '  DL_MARK\n'),
-    ('      if (r < jb && cw + g < c_hi) top[static_cast<long long>(r) * ld + cw + g] = x[g][h];\n    }\n  }\n',
-     '  DL_END\n'),
-)
-
-
 def kernel_timing(card):
-    """Both kernels once at RayleighBenard 256x128's first block from a copy of csrc/dense_lu.cu with marks of the
-    card's global timer: the first CTA's time at each mark, its SM clock (cycles over the timer's time), and each
-    CTA's start and end (its waves).  ``LU_TIMING_SUBST='old=>new;;...'`` (or a JSON list of [old, new] pairs in the
-    file ``LU_TIMING_SUBST_FILE``) edits the copy first: a variant."""
-    import ctypes
+    """Both kernels once at RayleighBenard 256x128's first block, built from csrc/dense_lu.cu with its timing marks
+    (``-DDENSE_LU_TIMING``, the card's global timer): the first CTA's time at each mark, its SM clock (cycles over the
+    timer's time), and each CTA's start and end (its waves)."""
     import types
 
     import numpy as np
@@ -490,26 +444,10 @@ def kernel_timing(card):
     from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
     from pysdc_tpu_torch.ops.kernels import build, dense_lu
 
-    source = (build.CSRC_DIR / 'dense_lu.cu').read_text()
-    source = source.replace('#include <cstdint>\n', '#include <cstdint>\n' + TIMING_HEADER, 1)
-    write_back = '    for (int i = tid; i < m * wc; i += THREADS) {\n      const int r = i / wc, c = i - r * wc;\n'
-    source = source.replace(write_back, '    // the write-back\n' + write_back, 1)
-    edits = [edit.split('=>') for edit in os.environ.get('LU_TIMING_SUBST', '').split(';;') if edit]
-    if os.environ.get('LU_TIMING_SUBST_FILE'):
-        edits += json.loads(Path(os.environ['LU_TIMING_SUBST_FILE']).read_text())
-    for old, new in edits:
-        if source.count(old) < 1:
-            raise RuntimeError(f'kernel timing: variant text not found: {old!r}')
-        source = source.replace(old, new)
-    for anchor, text in TIMING_MARKS:
-        if source.count(anchor) != 1:
-            raise RuntimeError(f'kernel timing: anchor not found once: {anchor!r}')
-        source = source.replace(anchor, anchor + text)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, so = build.BUILD_DIR / 'dense_lu_timing.cu', build.BUILD_DIR / 'libdense_lu_timing.so'
-    cu.write_text(source)
-    out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, '-o', str(so), str(cu)], check=True, capture_output=True,
-                         text=True)
+    so = build.BUILD_DIR / 'libdense_lu_timing.so'
+    out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, '-DDENSE_LU_TIMING', '-o', str(so),
+                          str(build.CSRC_DIR / 'dense_lu.cu')], check=True, capture_output=True, text=True)
     entry = ''
     for line in (out.stdout + out.stderr).splitlines():
         if 'Compiling entry function' in line:

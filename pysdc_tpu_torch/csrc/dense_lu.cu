@@ -45,8 +45,10 @@
 // permutation is a bijection) of at most 2 jb rows: the CTA finds them, stages their old values (16 columns at a
 // time) in shared memory and writes them to their new places; it owns its columns, so it writes in place.  Right
 // of the panel it loads L11 once (64 KB at jb 64 complex128) and substitutes down its tile: each warp owns 8
-// columns, each lane two rows, the solved entry passed by a warp shuffle.  Bound: the moved rows read and
-// written, the A12 tile read and written, L11 once a CTA, in bytes, against jb^2 / 2 multiply-adds a column.
+// columns, each lane two rows, the solved entry passed by a warp shuffle.  Bound, each byte once: the moved rows
+// read and written left of the panel, the union of the moved rows and the top jb rows read and written right of it,
+// L11's strict lower triangle once a matrix, against jb^2 / 2 multiply-adds a column right of the panel.  The
+// kernel moves more: every CTA right of the panel reads all of L11, and the top rows again after the swaps.
 //
 // Both launch on the caller's stream, allocate nothing, read nothing on the host and use no cluster, so a CUDA
 // graph holds them inside a conditional WHILE body.  C interface, loaded with ctypes; each function returns 0 or
@@ -55,6 +57,57 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+// Timing marks, compiled in only with -DDENSE_LU_TIMING (lu_probe.py timing): the card's global timer at each mark
+// of the first CTA, its SM clock at the start and the end, and each CTA's start and end.  The library's build leaves
+// the marks empty.
+#ifdef DENSE_LU_TIMING
+__device__ unsigned long long dl_marks[128];
+__device__ unsigned long long dl_cta[2 * 8192];
+__device__ long long dl_clock[2];
+__device__ inline unsigned long long dl_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define DL_FIRST (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+#define DL_CTA (blockIdx.y * gridDim.x + blockIdx.x)
+#define DL_START                               \
+  const unsigned long long dl_t0 = dl_now(); \
+  int dl_n = 0;                              \
+  if (DL_FIRST) {                            \
+    dl_marks[dl_n++] = dl_t0;                \
+    dl_clock[0] = clock64();                 \
+  }
+#define DL_MARK \
+  if (DL_FIRST && dl_n < 128) dl_marks[dl_n++] = dl_now();
+#define DL_MARK_IF(c) \
+  if (c) {            \
+    DL_MARK           \
+  }
+#define DL_END                                  \
+  if (threadIdx.x == 0 && DL_CTA < 8192) {      \
+    dl_cta[2 * DL_CTA] = dl_t0;                 \
+    dl_cta[2 * DL_CTA + 1] = dl_now();          \
+  }                                             \
+  if (DL_FIRST) dl_clock[1] = clock64();        \
+  DL_MARK
+extern "C" int dl_read(void* marks, void* ctas, void* clocks) {
+  if (cudaMemcpyFromSymbol(clocks, dl_clock, sizeof(dl_clock)) != cudaSuccess) return 3;
+  if (cudaMemcpyFromSymbol(marks, dl_marks, sizeof(dl_marks)) != cudaSuccess) return 1;
+  return cudaMemcpyFromSymbol(ctas, dl_cta, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
+}
+extern "C" int dl_clear() {
+  static unsigned long long zero[2 * 8192] = {0};
+  if (cudaMemcpyToSymbol(dl_marks, zero, sizeof(dl_marks)) != cudaSuccess) return 1;
+  return cudaMemcpyToSymbol(dl_cta, zero, sizeof(dl_cta)) != cudaSuccess ? 2 : 0;
+}
+#else
+#define DL_START
+#define DL_MARK
+#define DL_MARK_IF(c)
+#define DL_END
+#endif
 
 namespace {
 
@@ -313,6 +366,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
     }
   };
   T* A = a + static_cast<long long>(blockIdx.x) * batch_stride;
+  DL_START
   for (int r = tid; r < m; r += THREADS) perm[r] = r;
   if (tid == 0) *moved_count = 0;
   __syncthreads();
@@ -324,6 +378,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
         [&](int i, T v) { p[(i % wc) * sld + i / wc] = v; });
     for (int r = tid; r < m; r += THREADS) slot[r] = r;
     __syncthreads();
+    DL_MARK
 
     // the earlier sub-panels [t0, t0 + ws): the rows t0.. t0 + ws of this one by L_tt's unit lower solve (ws <= 32
     // here: a warp a column, a lane a row), the rows below them up to c0 by the rank-ws product with L's columns
@@ -347,6 +402,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
         if (lane < ws) p[c * sld + t0 + lane] = x;
       }
       __syncthreads();
+      DL_MARK
       product<T, R>(p, sld, A, ld, perm, t0, ws, t0 + ws, c0, wc);
       __syncthreads();
     }
@@ -358,6 +414,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
     // factor the sub-panel's rows c0.. in shared memory, one barrier a column: each warp reduces the warps' pivot
     // candidates itself, a swap is a swap of two entries of slot[] (no row is copied, and the pivot row is read
     // while the others update), and the rank-1 update finds the next column's candidates
+    DL_MARK
     {  // the first column's candidates
       R best = R(-1);
       int at = m, where = 0;
@@ -375,6 +432,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
         keep_better(best, at, where, red_val[b * WARPS + q], red_row[b * WARPS + q], red_slot[b * WARPS + q]);
       }
       const int slot_k = diag[b];
+      DL_MARK_IF(k < 2)
       // a NaN column finds no row above -1: keep the diagonal, as LAPACK's i?amax does
       const int pr = at < m ? at : kr;
       const int sp = at < m ? where : slot_k;  // the pivot row's place in p: row kr once swapped
@@ -401,8 +459,10 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
         if (next) diag[b ^ 1] = slot[kr + 1];
       }
       __syncthreads();
+      DL_MARK_IF(k < 2)
     }
 
+    DL_MARK
     for (int i = tid; i < m * wc; i += THREADS) {
       const int r = i / wc, c = i - r * wc;
       A[static_cast<long long>(perm[r]) * ld + c0 + c] = p[c * sld + slot[r]];
@@ -428,6 +488,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
         n_moved * cn, [&](int i) { return A[static_cast<long long>(perm[moved[i / cn]]) * ld + cs + i % cn]; },
         [&](int i, T v) { p[i] = v; });
     __syncthreads();
+    DL_MARK
     for (int i = tid; i < n_moved * cn; i += THREADS) {
       const int q = i / cn, c = i - q * cn;
       A[static_cast<long long>(moved[q]) * ld + cs + c] = p[i];
@@ -436,6 +497,7 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
   }
   long long* out = perm_out + static_cast<long long>(blockIdx.x) * m;
   for (int r = tid; r < m; r += THREADS) out[r] = perm[r];
+  DL_END
 }
 
 template <typename T, typename R>
@@ -454,6 +516,7 @@ __global__ void __launch_bounds__(THREADS) lu_swap_trsm_kernel(T* __restrict__ a
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T* top = a + static_cast<long long>(blockIdx.y) * batch_stride + static_cast<long long>(j) * ld;  // row j
   const long long* P = perm + static_cast<long long>(blockIdx.y) * rows;
+  DL_START
   const bool right = static_cast<int>(blockIdx.x) >= left_tiles;
   const int c_lo = right ? j + jb + (blockIdx.x - left_tiles) * SWAP_TILE : blockIdx.x * SWAP_TILE;
   const int c_hi = min(right ? w : j, c_lo + SWAP_TILE);
@@ -472,6 +535,7 @@ __global__ void __launch_bounds__(THREADS) lu_swap_trsm_kernel(T* __restrict__ a
   }
   __syncthreads();
   const int n_moved = min(*count, cap);
+  DL_MARK
   for (int cs = c_lo; cs < c_hi; cs += SWAP_CHUNK) {
     const int cn = min(SWAP_CHUNK, c_hi - cs);
     move<T>(
@@ -485,6 +549,7 @@ __global__ void __launch_bounds__(THREADS) lu_swap_trsm_kernel(T* __restrict__ a
     __syncthreads();
   }
   if (!right) return;
+  DL_MARK
 
   // U12 = L11^-1 A12 on the tile: warp w owns columns c_lo + 8 w .. + 8, lane l rows l and l + 32 (jb <= 64)
   const int cw = c_lo + warp * SWAP_COLS;
@@ -526,6 +591,7 @@ __global__ void __launch_bounds__(THREADS) lu_swap_trsm_kernel(T* __restrict__ a
       if (r < jb && cw + g < c_hi) top[static_cast<long long>(r) * ld + cw + g] = x[g][h];
     }
   }
+  DL_END
 }
 
 // dynamic shared memory above 48 KiB for `kernel`
