@@ -422,7 +422,11 @@ raises and the script exits nonzero without printing the final line:
    (RayleighBenard 8x128 and 8x256 modes, HeatChebyshev1D 512, a matrix whose
    leading half is zero): ``lu_panel`` on the first block of 64 columns (the
    same rows, to 1e-12), ``lu_swap_trsm`` at the first, second and last block
-   (the same row interchanges, ``U12`` to 1e-12); ``Piline``,
+   (the same row interchanges, ``U12`` to 1e-12), and on random batches at
+   every shape its grid and tiles take: 600 rows (a ragged last block of 24
+   columns, a ragged last tile of columns, CTAs that own a ragged number of
+   tiles), a batch of 1, a block where no row moves, 1024 rows at a batch of
+   12, float32 and complex64 (``U12`` to 1e-5 there); ``Piline``,
    ``BuckConverter`` and ``BatteryNCapacitors`` float64 through
    ``ShardedController(4).run``: the fused lane, one graph a block, against the
    stage lane and the CPU (equal ``niter``, ``uend`` to 1e-12);
@@ -435,9 +439,11 @@ raises and the script exits nonzero without printing the final line:
 73. dense LU times — both kernels at RayleighBenard 256x128's first block
    (complex128) beside their bounds, their plain versions and the torch calls
    they stand for (``lu_factor_ex`` of the panel; the gathers, copies and
-   ``solve_triangular`` of the plain version); the pivoted route at that batch
-   of modes, eager and from a CUDA graph, beside its FP64 bound and cuSOLVER's
-   ``getrf`` + ``getrs``; at 256 rows beside ``_batched_solve``.
+   ``solve_triangular`` of the plain version); ``lu_swap_trsm`` at each of the
+   route's 8 blocks there, each beside its bound, and their sums; the pivoted
+   route at that batch of modes, eager and from a CUDA graph, beside its FP64
+   bound and cuSOLVER's ``getrf`` + ``getrs``; at 256 rows beside
+   ``_batched_solve``.
 
 Phases 72-73 run right after phase 1, while the card's memory is free: the
 graphs and pools of the phases before them in this list keep tens of GiB.
@@ -6664,6 +6670,75 @@ def _kernel_checks(card):
     print(f'dense LU: both kernels against their plain versions on matrices that need pivoting (lu_panel the same '
           f'rows, lu_swap_trsm the same row interchanges; max abs diff): {"; ".join(lines)} [{card}]')
     _float_kernel_checks(card)
+    worst['lu_swap_trsm'] = max(worst['lu_swap_trsm'], _swap_shape_checks(card))
+    return worst
+
+
+# lu_swap_trsm's shapes beyond the route's 512 rows at a batch of 256 (name, dtype, batch, rows, blocks, diagonal
+# added): every path its grid and tiles take
+SWAP_SHAPES = (('600 rows', 'complex128', 12, 600, None, 0.0), ('600 rows', 'float64', 12, 600, None, 0.0),
+               ('a batch of 1', 'complex128', 1, 512, (0, 64, 448), 0.0),
+               ('no row moves', 'complex128', 4, 512, (0, 64, 448), 4096.0),
+               ('1024 rows, phase 70\'s batch', 'complex128', 12, 1024, None, 0.0),
+               ('1024 rows', 'float32', 12, 1024, (0, 64, 960), 0.0),
+               ('1024 rows', 'complex64', 12, 1024, (0, 64, 960), 0.0))
+
+
+def _swap_shape_checks(card):
+    """``lu_swap_trsm`` against its plain version on random batches at each shape of SWAP_SHAPES, at each block
+    named (every block of the matrix where none is), each block's panel factored first by the plain version: the
+    row interchanges bit for bit (every entry but ``U12``), ``U12`` to 1e-12 of its largest entry (FLOAT_LU_TOL for
+    float32 and complex64).  Prints, for each shape, the blocks' rows moved and their ragged parts (the last block's
+    width, a partial tile of columns, CTAs that own fewer tiles than the others); returns the largest difference of
+    the float64 types."""
+    import torch
+
+    from pysdc_tpu_torch.ops import linalg
+    from pysdc_tpu_torch.ops.kernels import dense_lu
+
+    gen, worst, lines = torch.Generator(device='cuda').manual_seed(19), 0.0, []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, dtype_name, b, n, blocks, diagonal in SWAP_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        tol = FLOAT_LU_TOL if dtype in (torch.float32, torch.complex64) else 1e-12
+        A = torch.randn((b, n, n), dtype=dtype, device='cuda', generator=gen) \
+            + diagonal * torch.eye(n, dtype=dtype, device='cuda')
+        moved, ragged, largest = [], set(), 0.0
+        for j in blocks or range(0, n, linalg.BLOCK):
+            jb = min(linalg.BLOCK, n - j)
+            base = A.clone()
+            rows = dense_lu.plain_panel(base[:, j:, j:j + jb])
+            got, want = base.clone(), base.clone()
+            dense_lu.lu_swap_trsm(got, j, jb, rows)
+            dense_lu.plain_swap_trsm(want, j, jb, rows)
+            u12 = (slice(None), slice(j, j + jb), slice(j + jb, None))
+            diff = (got[u12] - want[u12]).abs().max().item() if j + jb < n else 0.0
+            scale = want[u12].abs().max().item() if j + jb < n else 0.0
+            got[u12], want[u12] = 0, 0
+            swapped = torch.equal(got, want)
+            if not swapped or not diff <= tol * scale:
+                raise AssertionError(f'dense LU: lu_swap_trsm on {name} {dtype_name} ({b}, {n}, {n}) block {j} '
+                                     f'(width {jb}) against its plain version: row interchanges equal {swapped}, U12 '
+                                     f'max abs diff {diff:.3e} (U12 up to {scale:.3e})')
+            largest = max(largest, diff / scale if scale else 0.0)
+            if dtype in (torch.float64, torch.complex128):
+                worst = max(worst, diff)
+            moved.append(int((rows != torch.arange(n - j, device=rows.device)).sum(-1).max()))
+            left, right, per_cta, _ = dense_lu.swap_grid(n, n, j, jb, b, A.element_size(), sms)
+            if jb < linalg.BLOCK:
+                ragged.add(f'a last block of {jb} columns')
+            if (n - j - jb) % dense_lu.SWAP_TILE:
+                ragged.add(f'a last tile of {(n - j - jb) % dense_lu.SWAP_TILE} columns')
+            if (left + right) % per_cta:
+                ragged.add(f'CTAs of {per_cta} tiles and one of {(left + right) % per_cta}')
+        lines.append(f'{name} {dtype_name} ({b}, {n}, {n}): rows moved a matrix {min(moved)}-{max(moved)} over '
+                     f'{len(moved)} blocks, U12 within {largest:.1e} of its largest entry'
+                     + (f' ({", ".join(sorted(ragged))})' if ragged else ''))
+    for needed in (' 0-0 ', 'a last block of', 'a last tile of', 'CTAs of'):
+        if not any(needed in line for line in lines):
+            raise AssertionError(f'dense LU: lu_swap_trsm\'s shape checks missed {needed!r}: {lines}')
+    print(f'dense LU: lu_swap_trsm against its plain version at its other shapes (the same row interchanges, U12 to '
+          f'1e-12 of its largest entry, {FLOAT_LU_TOL} for the float types): {"; ".join(lines)} [{card}]')
     return worst
 
 
@@ -6871,6 +6946,43 @@ def _swap_trsm_work(rows, n, j, jb, itemsize):
     return nbytes, (8 if itemsize == 16 else 2) * b * right * jb * (jb - 1) // 2, moved
 
 
+def swap_block_times(A, card):
+    """``lu_swap_trsm`` at each block of the route on ``A`` (``(b, n, n)`` on the card, left as it is), as the route
+    leaves the matrix there (each panel by ``lu_panel``, each trailing update by ``baddbmm_``): ms a launch (CUDA
+    events, the launch repeated in place on that block's matrix: the same rows move at every call) beside its bound
+    from :func:`_swap_trsm_work`.  Prints each block and the sums; returns ``(j, ms, bound_ms, bound_by, bytes,
+    flops, rows moved)`` a block.  ``lu_probe.py swap`` runs it on another commit's package."""
+    import torch
+
+    from pysdc_tpu_torch.ops import linalg
+    from pysdc_tpu_torch.ops.kernels import dense_lu
+
+    b, n = A.shape[0], A.shape[-1]
+    work, out = A.clone(), []
+    for j in range(0, n, linalg.BLOCK):
+        jb = min(linalg.BLOCK, n - j)
+        rows = dense_lu.lu_panel(work[:, j:, j:j + jb])
+        before = work.clone()
+        ms = _event_ms(lambda i: dense_lu.lu_swap_trsm(work, j, jb, rows), 10)
+        work.copy_(before)
+        del before
+        dense_lu.lu_swap_trsm(work, j, jb, rows)
+        nbytes, flops, moved = _swap_trsm_work(rows, n, j, jb, A.element_size())
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOP_PER_S)
+        out.append((j, ms, bound, 'bytes' if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOP_PER_S else 'operations',
+                    nbytes, flops, moved))
+        if j + jb < n:
+            work[:, j + jb:, j + jb:].baddbmm_(work[:, j + jb:, j:j + jb], work[:, j:j + jb, j + jb:], alpha=-1)
+    del work
+    torch.cuda.empty_cache()
+    ms, bound = sum(block[1] for block in out), sum(block[2] for block in out)
+    print(f'times: lu_swap_trsm at each block of the route, ({b}, {n}, {n}) {A.dtype}: '
+          + '; '.join(f'block {j}: {t:.4f} ms against {bd:.4f} ms ({by}, {nb / 1e6:.1f} MB, {mv} rows moved)'
+                      for j, t, bd, by, nb, _, mv in out)
+          + f'; the {len(out)} launches {ms:.4f} ms against their bounds\' {bound:.4f} ms ({bound / ms:.0%}) [{card}]')
+    return out
+
+
 def phase_dense_lu_times(card):
     """Phase 73: both kernels at the main path's first block (RayleighBenard 256x128's modes, complex128, columns
     0..BLOCK) beside their bounds, their plain versions and the torch calls they stand for (``lu_factor_ex`` of the
@@ -6926,12 +7038,11 @@ def phase_dense_lu_times(card):
     panel_numbers = dict(ms=lu_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                          max_abs_err=err, shape=[b, n, w], sub_panel_width=ws)
 
-    # lu_swap_trsm at the same block: the rows the panel moved, in the rest of the matrix, and U12
+    # lu_swap_trsm at the same block (the rows the panel moved, in the rest of the matrix, and U12), then at each
+    # block of the route
     factored = A.clone()
     rows = dense_lu.lu_panel(factored[:, :, :w])
-    # timed in place, call after call: the work is the same whatever the values (the same rows move each time)
     work.copy_(factored)
-    swap_ms = _event_ms(lambda i: dense_lu.lu_swap_trsm(work, 0, w, rows), 10)
     swap_plain_ms = _event_ms(lambda i: dense_lu.plain_swap_trsm(work, 0, w, rows), 3, warmup=1)
     got = work.copy_(factored)
     dense_lu.lu_swap_trsm(got, 0, w, rows)
@@ -6941,17 +7052,19 @@ def phase_dense_lu_times(card):
     if not torch.equal(got[:, w:], want[:, w:]) or not swap_err <= 1e-12 * want[:, :w, w:].abs().max().item():
         raise AssertionError(f'dense LU: lu_swap_trsm at ({b}, {n}, {n}) block 0 against its plain version: rows '
                              f'{w}.. equal {torch.equal(got[:, w:], want[:, w:])}, max abs diff {swap_err:.3e}')
-    swap_bytes, swap_flops, moved = _swap_trsm_work(rows, n, 0, w, 16)
-    swap_bound = 1e3 * max(swap_bytes / HBM_BYTES_PER_S, swap_flops / FP64_FLOP_PER_S)
-    swap_by = 'bytes' if swap_bytes / HBM_BYTES_PER_S >= swap_flops / FP64_FLOP_PER_S else 'operations'
+    del work, panel, got, plain, factored, want
+    blocks = swap_block_times(A, card)
+    swap_ms, swap_bound, swap_by, swap_bytes, swap_flops, moved = blocks[0][1:]
     print(f'times: lu_swap_trsm at ({b}, {n}, {n}) complex128 block 0 (width {w}, {moved} rows moved in all): '
           f'{swap_ms:.4f} ms against its bound {swap_bound:.4f} ms ({swap_by}: {swap_bytes / 1e6:.1f} MB, '
           f'{swap_flops / 1e9:.2f} GFLOP); plain version, the torch calls it stands for (gather and copy_ of each '
           f'side, solve_triangular) {swap_plain_ms:.4f} ms; max abs diff to the plain version {swap_err:.3e} [{card}]')
     swap_numbers = dict(ms=swap_ms, plain_ms=swap_plain_ms, bound_ms=swap_bound, bound_by=swap_by, library_ms=None,
                         torch_calls_ms=swap_plain_ms, max_abs_err=swap_err, shape=[b, n, n], block=[0, w],
-                        rows_moved=moved)
-    del work, panel, got, plain, factored, want
+                        rows_moved=moved, route_blocks_ms=[block[1] for block in blocks],
+                        route_blocks_bound_ms=[block[2] for block in blocks],
+                        route_sum_ms=sum(block[1] for block in blocks),
+                        route_sum_bound_ms=sum(block[2] for block in blocks))
 
     # the whole route at the main path's batch: A (modes, n, n), the right-hand sides of a block's steps
     route_ms = _event_ms(lambda i: linalg.solve(A, B), 3, warmup=1)

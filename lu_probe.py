@@ -4,7 +4,8 @@
     python3 lu_probe.py routes
     python3 lu_probe.py split [--root DIR]
     python3 lu_probe.py order
-    python3 lu_probe.py timing
+    python3 lu_probe.py timing [--root DIR]
+    python3 lu_probe.py swap [--root DIR]
 
 ``faults`` imports ``pysdc_tpu_torch`` from DIR (default: this checkout; another commit unpacked with ``git
 archive``) and runs, float64: ``Piline``, ``BuckConverter`` (fsw 10 and 7) and ``BatteryNCapacitors`` through
@@ -33,9 +34,12 @@ what neither part names ("other": the route's time less the parts').
 ``order`` runs ``chip_smoke.py``'s phases 1, 72, 73 and 4 in that order (phase 4's parity once missed its gate
 right after phases 72-73; ROADMAP queue 3) and prints phase 4's outcome on a line starting with ``###``.
 
-``timing`` builds ``csrc/dense_lu.cu`` with its timing marks (``-DDENSE_LU_TIMING``) into a library of its own and
-runs both kernels once at RayleighBenard 256x128's first block through it: the first CTA's time between marks, its SM
-clock, and each CTA's start and end.
+``timing`` builds DIR's ``csrc/dense_lu.cu`` with its timing marks (``-DDENSE_LU_TIMING``) into a library of its own
+and runs both kernels once at RayleighBenard 256x128's first block through it: the first CTA's time between marks,
+its SM clock, and each CTA's start and end.
+
+``swap`` times DIR's ``lu_swap_trsm`` at each of the route's 8 blocks at RayleighBenard 256x128's batch, each beside
+its bound (``chip_smoke.py``'s ``swap_block_times``): run it on two commits in one call to compare their kernels.
 
 The CPU legs run on one thread (the CPU torch's LAPACK has hung multithreaded on a card's host).  Every line ends
 with the card's name and power limit.
@@ -360,15 +364,9 @@ def _split_parts(linalg, torch):
 def split(card):
     import torch
 
-    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
     from pysdc_tpu_torch.ops import linalg
 
-    spec = RayleighBenard(nx=256, nz=128, Rayleigh=2e6, Prandtl=1, dtype=torch.float64, device='cuda').spec
-    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
-    keep = torch.as_tensor(spec.keep_mask, device='cuda')
-    A = (spec._dev('M_all', like) + 0.3 * 0.01 * spec._dev('L_all', like)) * keep[:, :, None] \
-        + spec._dev('bc_rows', like)
-    del spec
+    A = _rbc128_modes()
     gen = torch.Generator(device='cuda').manual_seed(13)
     B = torch.randn((4,) + tuple(A.shape[:-1]) + (1,), dtype=torch.complex128, device='cuda', generator=gen)
     label = f'A {tuple(A.shape)} complex128, B {tuple(B.shape)}'
@@ -441,7 +439,6 @@ def kernel_timing(card):
     import numpy as np
     import torch
 
-    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
     from pysdc_tpu_torch.ops.kernels import build, dense_lu
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -461,11 +458,7 @@ def kernel_timing(card):
     lib.dense_lu_panel.restype = lib.dense_lu_swap_trsm.restype = ctypes.c_int
     dense_lu._library = lambda: types.SimpleNamespace(panel=lib.dense_lu_panel, swap_trsm=lib.dense_lu_swap_trsm)
 
-    spec = RayleighBenard(nx=256, nz=128, Rayleigh=2e6, Prandtl=1, dtype=torch.float64, device='cuda').spec
-    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
-    keep = torch.as_tensor(spec.keep_mask, device='cuda')
-    A = (spec._dev('M_all', like) + 0.3 * 0.01 * spec._dev('L_all', like)) * keep[:, :, None] \
-        + spec._dev('bc_rows', like)
+    A = _rbc128_modes()
     marks, ctas = np.zeros(128, dtype=np.uint64), np.zeros(2 * 8192, dtype=np.uint64)
     clocks = np.zeros(2, dtype=np.int64)
 
@@ -497,9 +490,34 @@ def kernel_timing(card):
     run('lu_swap_trsm block 0', lambda: dense_lu.lu_swap_trsm(work.copy_(factored), 0, 64, rows))
 
 
+def _rbc128_modes():
+    """RayleighBenard 256x128's shifted operators on the card: 256 matrices of 512^2 complex128."""
+    import torch
+
+    from pysdc_tpu_torch.models.rayleigh_benard import RayleighBenard
+
+    spec = RayleighBenard(nx=256, nz=128, Rayleigh=2e6, Prandtl=1, dtype=torch.float64, device='cuda').spec
+    like = torch.zeros((1,), dtype=torch.complex128, device='cuda')
+    keep = torch.as_tensor(spec.keep_mask, device='cuda')
+    return (spec._dev('M_all', like) + 0.3 * 0.01 * spec._dev('L_all', like)) * keep[:, :, None] \
+        + spec._dev('bc_rows', like)
+
+
+def swap(card):
+    import importlib.util
+
+    import pysdc_tpu_torch as P
+
+    spec = importlib.util.spec_from_file_location('chip_smoke', ROOT / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    print(f'### swap: the package {P.__file__} [{card}]', flush=True)
+    smoke.swap_block_times(_rbc128_modes(), card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument('what', choices=('faults', 'routes', 'split', 'order', 'timing'))
+    parser.add_argument('what', choices=('faults', 'routes', 'split', 'order', 'timing', 'swap'))
     parser.add_argument('--root', default=None, help='import pysdc_tpu_torch from this directory')
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve() if args.root else ROOT))
@@ -510,7 +528,8 @@ def main():
         return 1
     card = _card()
     start = time.perf_counter()
-    {'faults': faults, 'routes': routes, 'split': split, 'order': order, 'timing': kernel_timing}[args.what](card)
+    {'faults': faults, 'routes': routes, 'split': split, 'order': order, 'timing': kernel_timing,
+     'swap': swap}[args.what](card)
     print(f'lu_probe {args.what}: {time.perf_counter() - start:.1f} s [{card}]')
     return 0
 

@@ -1,5 +1,6 @@
 // The port's dense LU from 512 rows: two kernels for one block of BLOCK (64) columns of LAPACK's blocked
-// right-looking getrf, one CTA per matrix of the batch (lu_panel) or per matrix and tile of columns (lu_swap_trsm).
+// right-looking getrf, one CTA per matrix of the batch (lu_panel) or per matrix and range of tiles of columns
+// (lu_swap_trsm).
 //
 // Replaces no TPU kernel.  The JAX package solves its dense systems with jnp.linalg.solve, an LU with partial
 // pivoting that XLA computes by itself.  The port's capturable route for 512 rows and more
@@ -18,10 +19,11 @@
 //   pivots LAPACK's getf2 chooses: the first row of the largest |re| + |im| (|x| for a real type) in the column.
 //   A zero pivot leaves its column unscaled, as getf2 does (the matrix is singular: the solve gives inf or NaN).
 //
-//   lu_swap_trsm(a, batch_stride, ld, m, w, j, jb, perm)
+//   lu_swap_trsm(a, batch_stride, ld, m, w, j, jb, per_cta, perm)
 //     a      element (0, 0) of the first matrix, (batch, m, w) row-major with row stride ld;
 //     j, jb  the block's first column and width; perm (batch, m - j) int64, what lu_panel returned for the panel
-//            (rows j.. of columns j .. j + jb).
+//            (rows j.. of columns j .. j + jb);
+//     per_cta  tiles of SWAP_TILE columns a CTA owns (ops/kernels/dense_lu.py:swap_grid chooses it).
 //   Applies the panel's row interchanges to rows j.. of every column outside the panel (LAPACK's laswp) and solves
 //   L11 U12 = A12 in place for the columns right of it (trsm; L11 the panel's unit lower jb x jb top).
 //
@@ -41,14 +43,28 @@
 // against w * m * w / 2 multiply-adds.  Measured (lu_probe.py timing): at 512 rows complex128 (ws 16, one CTA an
 // SM, two waves at a batch of 256) the CTA is latency-bound, about 1.5 us a column on the pivot's path.
 //
-// Design of lu_swap_trsm: one CTA per (matrix, tile of 64 columns).  The moved rows form a closed set (the
-// permutation is a bijection) of at most 2 jb rows: the CTA finds them, stages their old values (16 columns at a
-// time) in shared memory and writes them to their new places; it owns its columns, so it writes in place.  Right
-// of the panel it loads L11 once (64 KB at jb 64 complex128) and substitutes down its tile: each warp owns 8
-// columns, each lane two rows, the solved entry passed by a warp shuffle.  Bound, each byte once: the moved rows
-// read and written left of the panel, the union of the moved rows and the top jb rows read and written right of it,
-// L11's strict lower triangle once a matrix, against jb^2 / 2 multiply-adds a column right of the panel.  The
-// kernel moves more: every CTA right of the panel reads all of L11, and the top rows again after the swaps.
+// Design of lu_swap_trsm: one CTA per matrix and range of per_cta tiles of SWAP_TILE (32) columns outside the
+// panel, chosen on the host so that the grid fills the card (one CTA a matrix at a batch of 256 and 512 rows).  The
+// rows a tile must rewrite form a closed set (the permutation is a bijection): left of the panel the moved rows,
+// right of it the top jb rows and the moved rows below them, at most 2 jb.  The CTA lists the moved rows once (a
+// ballot, in ascending order), then, for each tile, copies each such row's final value straight from its source row
+// (final row r <- row P[r]) into shared memory with cp.async, all before any write: each byte is read once.  Right of
+// the panel the top jb rows solve L11 U12 = A12 where they landed, and every row of the set is written once to its
+// place.  L11 is loaded once per CTA (cp.async), by blocks of 8 x 8 in the order of the tensor cores' A operand
+// (36 KB at jb 64 complex128): each unit lower diagonal block L_ee replaced by its inverse, each strict lower block
+// L_ed by L_ee^-1 L_ed.  The substitution is blocked: rows 8 e .. 8 e + 8 of U12 are
+// L_ee^-1 A12_e - sum_{d < e} (L_ee^-1 L_ed) U12_d, one sum of products a block, on the FP64 tensor cores for float64
+// and complex128 (mma.sync m8n8k4, four real products a complex one, each into a sum of its own), on the CUDA cores
+// with operands broadcast from shared memory for the float types; a warp owns 8 columns and needs no shuffle and no
+// barrier of the CTA.  Only L11's diagonal blocks are inverted (8 x 8 unit lower triangles), never L11 itself.
+// Warps are specialised: 4 substitute a tile while the other 4 write the tile before and load the next into a
+// second buffer, so the copies are in flight while a tile solves.
+// Bound, each byte once: the moved rows read and written left of the panel, the union of the moved rows and the top
+// jb rows read and written right of it, L11's strict lower triangle once a matrix, against jb^2 / 2 multiply-adds a
+// column right of the panel.  At a batch of 256 and 512 rows the kernel reads L11 once a matrix and each row once;
+// where a matrix takes more than one CTA (small batches), each of them reads L11.  Measured (lu_probe.py timing): at
+// 512 rows complex128 the CTAs take two waves and move their rows at about 2.4 TB/s; L11's prologue and the second
+// wave's tail are most of what is left.
 //
 // Both launch on the caller's stream, allocate nothing, read nothing on the host and use no cluster, so a CUDA
 // graph holds them inside a conditional WHILE body.  C interface, loaded with ctypes; each function returns 0 or
@@ -120,10 +136,11 @@ constexpr int LCHUNK = 8;               // L entries a thread loads at a time (p
 constexpr int ROW_COLS = 16;            // columns of a row a thread holds in registers there
 constexpr int DMMA_KSTEPS = MAX_WIDTH / 4;  // k-steps of 4 of a product on the tensor cores, at most
 constexpr int DMMA_NTILES = 4;          // its 8-column tiles, at most (a sub-panel of 32 columns)
-constexpr int SWAP_TILE = 64;           // columns a CTA of lu_swap_trsm owns
-constexpr int SWAP_COLS = SWAP_TILE / WARPS;  // columns a warp substitutes
-constexpr int SWAP_CHUNK = 16;          // columns staged at a time for the row interchanges
 constexpr int IN_FLIGHT = 16;           // loads a thread issues before it stores the first (device memory latency)
+constexpr int SWAP_TILE = 32;           // columns of a tile of lu_swap_trsm
+constexpr int SOLVE_WARPS = SWAP_TILE / 8;  // its warps that substitute, 8 columns each; the others move rows
+constexpr int MOVE_WARPS = WARPS - SOLVE_WARPS;
+static_assert(SWAP_TILE == 32, "lu_swap_trsm moves a tile's row with a warp, a lane a column");
 
 // aligned to its size, so that a value moves in one 16-byte (complex128) or 8-byte access
 template <typename R>
@@ -223,9 +240,18 @@ size_t panel_smem_bytes(int m, int ws, int itemsize) {
 
 __host__ __device__ inline int moved_cap(int rows, int width) { return rows < 2 * width ? rows : 2 * width; }
 
+// lu_swap_trsm's shared memory: the header and the row lists (ints), L11 by blocks of 8 x 8 (the blocks on and
+// below the diagonal, 64 entries each), two buffers of cap rows of a tile (swap_ld entries a row: 32 bytes of
+// padding, so that the tensor cores' operand reads meet no bank twice)
+__host__ __device__ inline int swap_ld(int itemsize) { return SWAP_TILE + 32 / itemsize; }
+__host__ __device__ inline int l_blocks(int jb) { return (jb + 7) / 8 * ((jb + 7) / 8 + 1) / 2; }
+__host__ __device__ inline int swap_int_bytes(int cap) {
+  return ((16 + 2 * cap + MAX_WIDTH) * static_cast<int>(sizeof(int)) + 15) / 16 * 16;
+}
 size_t swap_smem_bytes(int rows, int jb, int itemsize) {
   const size_t cap = moved_cap(rows, jb);
-  return 16 + static_cast<size_t>(jb) * (jb + 1) * itemsize + cap * SWAP_CHUNK * itemsize + cap * sizeof(int);
+  return swap_int_bytes(static_cast<int>(cap)) + static_cast<size_t>(l_blocks(jb)) * 64 * itemsize +
+         2 * cap * swap_ld(itemsize) * itemsize;
 }
 
 // p's rows r_lo .. r_hi (columns 0 .. wc <= 32) minus L's columns k0 .. k0 + kn (kn <= 64) of those rows times
@@ -500,97 +526,321 @@ __global__ void __launch_bounds__(THREADS) lu_panel_kernel(T* __restrict__ a, lo
   DL_END
 }
 
+// a 16-, 8- or 4-byte copy from device memory to shared memory that the thread does not wait for (cp.async; the
+// 16-byte one past L1)
+template <int N>
+__device__ inline void copy_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s), "l"(src), "n"(N) : "memory");
+  }
+}
+// wait for every copy_async of this thread
+__device__ inline void wait_copies() { asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory"); }
+// barriers of lu_swap_trsm's two kinds of warps (barrier 0 is __syncthreads)
+__device__ inline void sync_movers() { asm volatile("bar.sync 1, %0;" ::"n"(MOVE_WARPS * 32) : "memory"); }
+__device__ inline void sync_solvers() { asm volatile("bar.sync 2, %0;" ::"n"(SOLVE_WARPS * 32) : "memory"); }
+
+// a + b * c, a complex one as four fused multiply-adds
+__device__ inline float madd(float a, float b, float c) { return fmaf(b, c, a); }
+__device__ inline double madd(double a, double b, double c) { return fma(b, c, a); }
+template <typename R>
+__device__ inline Cx<R> madd(Cx<R> a, Cx<R> b, Cx<R> c) {
+  return {madd(madd(a.re, -b.im, c.im), b.re, c.re), madd(madd(a.im, b.im, c.re), b.re, c.im)};
+}
+__device__ inline void set_one(float& x) { x = 1.0f; }
+__device__ inline void set_one(double& x) { x = 1.0; }
+template <typename R>
+__device__ inline void set_one(Cx<R>& x) { x = {R(1), R(0)}; }
+
+// L11 (rows and columns 0 .. jb of `top`, from column j) into Lf by blocks of 8 x 8: block (e, d <= e) at
+// e (e + 1) / 2 + d, in the order of the tensor cores' A operand (entry s * 32 + l is the block's element
+// (l / 4, 4 s + l % 4)).  Diagonal block e holds the inverse of its unit lower triangle (an identity row past jb),
+// block (e, d < e) that inverse times L's block: then U_e = L_ee^-1 X_e - sum_d (L_ee^-1 L_ed) U_d, one sum a block
+// of 8 rows.  Run by the SOLVE_WARPS warps.
+template <typename T>
+__device__ void load_l11(T* Lf, const T* top, int ld, int j, int jb) {
+  constexpr int SOLVE_THREADS = SOLVE_WARPS * 32;
+  const int tid = threadIdx.x, nb = (jb + 7) / 8;
+  for (int i = tid; i < l_blocks(jb) * 64; i += SOLVE_THREADS) {
+    const int blk = i >> 6, l = i & 31, s = (i >> 5) & 1;
+    int e = 0;
+    while ((e + 1) * (e + 2) / 2 <= blk) ++e;
+    const int r = 8 * e + (l >> 2), c = 8 * (blk - e * (e + 1) / 2) + 4 * s + (l & 3);
+    if (c < r && r < jb) {
+      copy_async<sizeof(T)>(Lf + i, top + static_cast<long long>(r) * ld + j + c);
+    } else {
+      T v{};
+      if (c == r) set_one(v);
+      Lf[i] = v;
+    }
+  }
+  wait_copies();
+  sync_solvers();
+  // column c of diagonal block e's inverse, by substitution down the block
+  {
+    const int e = tid >> 3, c = tid & 7;
+    T* D = Lf + (e < nb ? e * (e + 1) / 2 + e : 0) * 64;
+    T x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = T{};
+      if (i == c) set_one(x[i]);
+#pragma unroll
+      for (int k = 0; k < i; ++k) {
+        if (e < nb && k >= c) x[i] = fms(x[i], D[(k >> 2) * 32 + 4 * i + (k & 3)], x[k]);
+      }
+    }
+    sync_solvers();
+    if (e < nb) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) D[(c >> 2) * 32 + 4 * i + (c & 3)] = x[i];
+    }
+    sync_solvers();
+  }
+  // column c of strict lower block o = e (e - 1) / 2 + d, times the inverse of diagonal block e
+  for (int i = tid; i < (l_blocks(jb) - nb) * 8; i += SOLVE_THREADS) {
+    const int o = i >> 3, c = i & 7;
+    int e = 1;
+    while (e * (e + 1) / 2 <= o) ++e;
+    T* B = Lf + (e * (e + 1) / 2 + o - e * (e - 1) / 2) * 64;
+    const T* D = Lf + (e * (e + 1) / 2 + e) * 64;
+    T col[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) col[q] = B[(c >> 2) * 32 + 4 * q + (c & 3)];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      T v{};
+#pragma unroll
+      for (int q = 0; q <= r; ++q) v = madd(v, D[(q >> 2) * 32 + 4 * r + (q & 3)], col[q]);
+      B[(c >> 2) * 32 + 4 * r + (c & 3)] = v;
+    }
+  }
+}
+
+// U12 = L11^-1 X in place on this warp's 8 columns of a tile (X the tile's top jb rows, row stride sld), a block of 8
+// rows at a time: U_e = L_ee^-1 X_e - sum_{d < e} (L_ee^-1 L_ed) U_d with Lf as load_l11 leaves it.  FP64 tensor
+// cores, an 8 x 4 by 4 x 8 product a step; a complex product as four real ones, each k-step and term into a sum of its
+// own (8), so that no product waits for the one before it.  Rows past jb read as 0 and are not written.
+template <typename T>
+__device__ void solve_dmma(T* X, int sld, const T* Lf, int jb) {
+  constexpr bool complex = sizeof(T) == 2 * sizeof(double);
+  const int lane = threadIdx.x & 31, gr = lane >> 2, gk = lane & 3, nb = (jb + 7) / 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (e < nb) {
+      const T* Le = Lf + e * (e + 1) / 2 * 64;
+      double acc[2][4][2];  // [k-step][re += a x, re -= b y, im += a y, im += b x][the lane's two columns]
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[s][t][0] = acc[s][t][1] = 0.0;
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const T l = Le[(2 * e + s) * 32 + lane];
+        const int k = 8 * e + 4 * s + gk;
+        const T x = k < jb ? X[k * sld + gr] : T{};
+        dmma(acc[s][0], re(l), re(x));
+        if (complex) {
+          dmma(acc[s][1], -im(l), im(x));
+          dmma(acc[s][2], re(l), im(x));
+          dmma(acc[s][3], im(l), re(x));
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < e; ++d) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const T l = Le[(2 * d + s) * 32 + lane];
+          const T x = X[(8 * d + 4 * s + gk) * sld + gr];
+          dmma(acc[s][0], -re(l), re(x));
+          if (complex) {
+            dmma(acc[s][1], im(l), im(x));
+            dmma(acc[s][2], -re(l), im(x));
+            dmma(acc[s][3], -im(l), re(x));
+          }
+        }
+      }
+      __syncwarp();  // every lane has read X_e before U_e overwrites it
+      const int r = 8 * e + gr;
+      if (r < jb) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          set(X[r * sld + 2 * gk + i], (acc[0][0][i] + acc[1][0][i]) + (acc[0][1][i] + acc[1][1][i]),
+              (acc[0][2][i] + acc[1][2][i]) + (acc[0][3][i] + acc[1][3][i]));
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// solve_dmma for the float types, on the CUDA cores: lane l takes column l % 8 and rows l / 8 and l / 8 + 4 of a
+// block, each X entry it reads broadcast to the four lanes of its column
+template <typename T>
+__device__ void solve_scalar(T* X, int sld, const T* Lf, int jb) {
+  const int lane = threadIdx.x & 31, c = lane & 7, i0 = lane >> 3, nb = (jb + 7) / 8;
+  for (int e = 0; e < nb; ++e) {
+    const T* Le = Lf + e * (e + 1) / 2 * 64;
+    T acc[2] = {T{}, T{}};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const T x = 8 * e + k < jb ? X[(8 * e + k) * sld + c] : T{};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) acc[h] = madd(acc[h], Le[(2 * e + (k >> 2)) * 32 + 4 * (i0 + 4 * h) + (k & 3)], x);
+    }
+    for (int d = 0; d < e; ++d) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const T x = X[(8 * d + k) * sld + c];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) acc[h] = fms(acc[h], Le[(2 * d + (k >> 2)) * 32 + 4 * (i0 + 4 * h) + (k & 3)], x);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (8 * e + i0 + 4 * h < jb) X[(8 * e + i0 + 4 * h) * sld + c] = acc[h];
+    }
+    __syncwarp();
+  }
+}
+
 template <typename T, typename R>
 __global__ void __launch_bounds__(THREADS) lu_swap_trsm_kernel(T* __restrict__ a, long long batch_stride, int ld,
                                                                int m, int w, int j, int jb,
-                                                               const long long* __restrict__ perm, int left_tiles) {
+                                                               const long long* __restrict__ perm, int left_tiles,
+                                                               int tiles, int per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* count = reinterpret_cast<int*>(smem);
-  T* Ls = reinterpret_cast<T*>(smem + 16);  // L11, column-major, jb + 1 a column
-  const int lld = jb + 1;
-  const int rows = m - j;
-  const int cap = moved_cap(rows, jb);
-  T* stage = Ls + jb * lld;
-  int* moved = reinterpret_cast<int*>(stage + cap * SWAP_CHUNK);
+  const int rows = m - j, cap = moved_cap(rows, jb), sld = swap_ld(sizeof(T)), buffer = cap * sld;
+  int* counts = reinterpret_cast<int*>(smem);  // [1]: the moved rows above jb; [8 + v]: warp v's in a chunk
+  int* moved = counts + 16;                     // the moved rows, ascending
+  int* moved_src = moved + cap;                 // their sources P[moved[q]]
+  int* top_src = moved_src + cap;               // P[r] of the top rows r < jb
+  T* Lf = reinterpret_cast<T*>(smem + swap_int_bytes(cap));
+  T* stage = Lf + l_blocks(jb) * 64;  // two buffers of cap rows of a tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T* top = a + static_cast<long long>(blockIdx.y) * batch_stride + static_cast<long long>(j) * ld;  // row j
   const long long* P = perm + static_cast<long long>(blockIdx.y) * rows;
+  const int t_lo = blockIdx.x * per_cta, t_hi = min(tiles, t_lo + per_cta);
   DL_START
-  const bool right = static_cast<int>(blockIdx.x) >= left_tiles;
-  const int c_lo = right ? j + jb + (blockIdx.x - left_tiles) * SWAP_TILE : blockIdx.x * SWAP_TILE;
-  const int c_hi = min(right ? w : j, c_lo + SWAP_TILE);
-  if (tid == 0) *count = 0;
-  __syncthreads();
-  for (int r = tid; r < rows; r += THREADS) {
-    if (P[r] != r) {
-      const int q = atomicAdd(count, 1);
-      if (q < cap) moved[q] = r;
-    }
-  }
-  if (right) {
-    move<T>(
-        jb * jb, [&](int i) { return top[static_cast<long long>(i / jb) * ld + j + i % jb]; },
-        [&](int i, T v) { Ls[(i % jb) * lld + i / jb] = v; });
-  }
-  __syncthreads();
-  const int n_moved = min(*count, cap);
-  DL_MARK
-  for (int cs = c_lo; cs < c_hi; cs += SWAP_CHUNK) {
-    const int cn = min(SWAP_CHUNK, c_hi - cs);
-    move<T>(
-        n_moved * cn, [&](int i) { return top[P[moved[i / cn]] * ld + cs + i % cn]; },
-        [&](int i, T v) { stage[(i / cn) * SWAP_CHUNK + i % cn] = v; });
+
+  // the moved rows in ascending order, by a ballot a warp and chunk of THREADS rows (the same list at every call)
+  int n_moved = 0;
+  for (int base = 0; base < rows; base += THREADS) {
+    const int r = base + tid;
+    const long long src = r < rows ? P[r] : r;
+    const bool mv = src != r;
+    const unsigned ballot = __ballot_sync(0xffffffffu, mv);
+    if (lane == 0) counts[8 + warp] = __popc(ballot);
+    if (r < jb) top_src[r] = static_cast<int>(src);
     __syncthreads();
-    for (int i = tid; i < n_moved * cn; i += THREADS) {
-      const int q = i / cn, c = i - q * cn;
-      top[static_cast<long long>(moved[q]) * ld + cs + c] = stage[q * SWAP_CHUNK + c];
+    int q = n_moved + __popc(ballot & ((1u << lane) - 1));
+    for (int v = 0; v < WARPS; ++v) {
+      if (v < warp) q += counts[8 + v];
+      n_moved += counts[8 + v];
     }
+    if (mv && q < cap) {
+      moved[q] = r;
+      moved_src[q] = static_cast<int>(src);
+    }
+    if (r == jb) counts[1] = q;
     __syncthreads();
   }
-  if (!right) return;
+  n_moved = min(n_moved, cap);
+  const int n_top = jb < rows ? min(counts[1], n_moved) : n_moved;
   DL_MARK
 
-  // U12 = L11^-1 A12 on the tile: warp w owns columns c_lo + 8 w .. + 8, lane l rows l and l + 32 (jb <= 64)
-  const int cw = c_lo + warp * SWAP_COLS;
-  T x[SWAP_COLS][2];
+  // tile t: columns c_lo .. c_lo + wc left or right of the panel, and its n rows (a closed set): right of the panel
+  // the top jb rows, then the moved rows below them; left of it the moved rows
+  auto geometry = [&](int t, int& c_lo, int& wc, int& n) {
+    const bool right = t >= left_tiles;
+    c_lo = right ? j + jb + (t - left_tiles) * SWAP_TILE : t * SWAP_TILE;
+    wc = min(right ? w : j, c_lo + SWAP_TILE) - c_lo;
+    n = right ? min(cap, jb + n_moved - n_top) : n_moved;
+    return right;
+  };
+  // row q of a tile's set: its source row, returned, and its final row dst (both from row j)
+  auto row_of = [&](bool right, int q, int& dst) {
+    if (right && q < jb) {
+      dst = q;
+      return top_src[q];
+    }
+    const int p = right ? n_top + q - jb : q;
+    dst = moved[p];
+    return moved_src[p];
+  };
+  // tile t's rows from their sources into buf, or from buf to their places, by warps first .. first + nwarps (the
+  // calling warp among them), a warp a row and a lane a column (SWAP_TILE is 32)
+  auto load = [&](int t, T* buf, int first, int nwarps) {
+    int c_lo, wc, n, dst;
+    const bool right = geometry(t, c_lo, wc, n);
+    for (int q = warp - first; q < n; q += nwarps) {
+      const T* from = top + static_cast<long long>(row_of(right, q, dst)) * ld + c_lo;
+      if (lane < wc) copy_async<sizeof(T)>(buf + q * sld + lane, from + lane);
+    }
+  };
+  auto store = [&](int t, const T* buf, int first, int nwarps) {
+    int c_lo, wc, n, dst;
+    const bool right = geometry(t, c_lo, wc, n);
+    for (int q0 = warp - first; q0 < n; q0 += 4 * nwarps) {  // four rows' loads before their stores
+      T v[4];
 #pragma unroll
-  for (int g = 0; g < SWAP_COLS; ++g) {
+      for (int u = 0; u < 4; ++u) {
+        const int q = q0 + u * nwarps;
+        if (q < n && lane < wc) v[u] = buf[q * sld + lane];
+      }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = lane + 32 * h;
-      x[g][h] = r < jb && cw + g < c_hi ? top[static_cast<long long>(r) * ld + cw + g] : T{};
+      for (int u = 0; u < 4; ++u) {
+        const int q = q0 + u * nwarps;
+        if (q < n && lane < wc) {
+          row_of(right, q, dst);
+          top[static_cast<long long>(dst) * ld + c_lo + lane] = v[u];
+        }
+      }
+    }
+  };
+
+  // the first SOLVE_WARPS warps substitute tile t in one buffer while the others write tile t - 1 from the other
+  // buffer and load tile t + 1 into it
+  const bool mover = warp >= SOLVE_WARPS;
+  if (t_lo < t_hi) {
+    if (mover) {
+      load(t_lo, stage, SOLVE_WARPS, MOVE_WARPS);
+      wait_copies();
+    } else if (t_hi > left_tiles) {
+      load_l11(Lf, top, ld, j, jb);
     }
   }
-  // the first 32 rows' entries solve both halves, the others the second half only
-  for (int k = 0; k < min(jb - 1, 32); ++k) {
-    const bool below0 = lane > k && lane < jb, below1 = lane + 32 < jb;
-    const T l0 = below0 ? Ls[k * lld + lane] : T{};
-    const T l1 = below1 ? Ls[k * lld + lane + 32] : T{};
-#pragma unroll
-    for (int g = 0; g < SWAP_COLS; ++g) {
-      const T xk = shfl(x[g][0], k);
-      if (below0) x[g][0] = fms(x[g][0], l0, xk);
-      if (below1) x[g][1] = fms(x[g][1], l1, xk);
+  __syncthreads();
+  DL_MARK
+  for (int t = t_lo; t < t_hi; ++t) {
+    T* cur = stage + ((t - t_lo) & 1) * buffer;
+    T* other = stage + ((t - t_lo + 1) & 1) * buffer;
+    if (!mover) {
+      int c_lo, wc, n;
+      if (geometry(t, c_lo, wc, n) && 8 * warp < wc) {
+        if constexpr (sizeof(R) == sizeof(double)) {
+          solve_dmma(cur + 8 * warp, sld, Lf, jb);
+        } else {
+          solve_scalar(cur + 8 * warp, sld, Lf, jb);
+        }
+      }
+      DL_MARK
+    } else {
+      if (t > t_lo) store(t - 1, other, SOLVE_WARPS, MOVE_WARPS);
+      sync_movers();
+      if (t + 1 < t_hi) load(t + 1, other, SOLVE_WARPS, MOVE_WARPS);
+      wait_copies();
     }
+    __syncthreads();
+    DL_MARK
   }
-  for (int k = 32; k < jb - 1; ++k) {
-    const bool below1 = lane + 32 > k && lane + 32 < jb;
-    const T l1 = below1 ? Ls[k * lld + lane + 32] : T{};
-#pragma unroll
-    for (int g = 0; g < SWAP_COLS; ++g) {
-      const T xk = shfl(x[g][1], k - 32);
-      if (below1) x[g][1] = fms(x[g][1], l1, xk);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < SWAP_COLS; ++g) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = lane + 32 * h;
-      if (r < jb && cw + g < c_hi) top[static_cast<long long>(r) * ld + cw + g] = x[g][h];
-    }
-  }
+  if (t_lo < t_hi) store(t_hi - 1, stage + ((t_hi - 1 - t_lo) & 1) * buffer, 0, WARPS);
   DL_END
 }
 
@@ -615,16 +865,16 @@ int launch_panel(void* a, long long batch_stride, int ld, int m, int w, int ws, 
 }
 
 template <typename T, typename R>
-int launch_swap(void* a, long long batch_stride, int ld, int m, int w, int j, int jb, int batch, const void* perm,
-                cudaStream_t stream) {
-  const int left = (j + SWAP_TILE - 1) / SWAP_TILE, right = (w - j - jb + SWAP_TILE - 1) / SWAP_TILE;
-  if (left + right == 0) return 0;
+int launch_swap(void* a, long long batch_stride, int ld, int m, int w, int j, int jb, int batch, int per_cta,
+                const void* perm, cudaStream_t stream) {
+  const int left = (j + SWAP_TILE - 1) / SWAP_TILE, tiles = left + (w - j - jb + SWAP_TILE - 1) / SWAP_TILE;
+  if (tiles == 0) return 0;
   const size_t bytes = swap_smem_bytes(m - j, jb, sizeof(T));
   auto kernel = lu_swap_trsm_kernel<T, R>;
   const int err = opt_in(kernel, bytes);
   if (err != 0) return err;
-  kernel<<<dim3(left + right, batch), THREADS, bytes, stream>>>(static_cast<T*>(a), batch_stride, ld, m, w, j, jb,
-                                                                 static_cast<const long long*>(perm), left);
+  kernel<<<dim3((tiles + per_cta - 1) / per_cta, batch), THREADS, bytes, stream>>>(
+      static_cast<T*>(a), batch_stride, ld, m, w, j, jb, static_cast<const long long*>(perm), left, tiles, per_cta);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,19 +917,20 @@ int dense_lu_panel(int dtype, void* a, long long batch_stride, int ld, int m, in
 }
 
 // a: element (0, 0) of the first matrix, (batch, m, w) with row stride ld; perm: contiguous (batch, m - j) int64.
-// 0 <= j, 1 <= jb <= 64, j + jb <= min(m, w); batch < 65536.  Launches nothing when no column lies outside the panel.
+// 0 <= j, 1 <= jb <= 64, j + jb <= min(m, w); batch < 65536; per_cta >= 1 tiles of SWAP_TILE columns a CTA.  Launches
+// nothing when no column lies outside the panel.
 int dense_lu_swap_trsm(int dtype, void* a, long long batch_stride, int ld, int m, int w, int j, int jb, int batch,
-                       const void* perm, void* stream) {
+                       int per_cta, const void* perm, void* stream) {
   if (dtype < 0 || dtype > 3 || j < 0 || jb < 1 || jb > MAX_WIDTH || j + jb > m || j + jb > w || ld < w ||
-      batch < 1 || batch > 65535 || batch_stride < 0)
+      batch < 1 || batch > 65535 || batch_stride < 0 || per_cta < 1)
     return -1;
   if (swap_smem_bytes(m - j, jb, ITEMSIZE[dtype]) > MAX_SMEM_BYTES) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_swap<float, float>(a, batch_stride, ld, m, w, j, jb, batch, perm, s);
-    case 1: return launch_swap<double, double>(a, batch_stride, ld, m, w, j, jb, batch, perm, s);
-    case 2: return launch_swap<Cx<float>, float>(a, batch_stride, ld, m, w, j, jb, batch, perm, s);
-    default: return launch_swap<Cx<double>, double>(a, batch_stride, ld, m, w, j, jb, batch, perm, s);
+    case 0: return launch_swap<float, float>(a, batch_stride, ld, m, w, j, jb, batch, per_cta, perm, s);
+    case 1: return launch_swap<double, double>(a, batch_stride, ld, m, w, j, jb, batch, per_cta, perm, s);
+    case 2: return launch_swap<Cx<float>, float>(a, batch_stride, ld, m, w, j, jb, batch, per_cta, perm, s);
+    default: return launch_swap<Cx<double>, double>(a, batch_stride, ld, m, w, j, jb, batch, per_cta, perm, s);
   }
 }
 

@@ -20,6 +20,18 @@ permutation and the row map in :data:`SMEM_BUDGET` of shared memory
 12,263 in float64 and complex64 and 16,351 in float32; a taller panel on the
 card raises ``ValueError``.
 
+One CTA of :func:`lu_swap_trsm` owns a range of tiles of :data:`SWAP_TILE`
+columns of one matrix (:func:`swap_grid` sizes the range from the batch and the
+card's SMs).  It loads ``L11`` once, by blocks of 8 x 8 with its diagonal blocks
+inverted; then, for each tile, it copies the rows it must rewrite (right of the
+panel the top ``jb`` rows and the moved rows below them, left of it the moved
+rows: a closed set) straight from their source rows into shared memory, solves
+``U12`` there by blocks of 8 rows on the FP64 tensor cores (the CUDA cores for
+the float types), and writes each row once, while half of its warps write the
+tile before and load the next.  Its bound counts each byte once: those rows read
+and written, ``L11``'s strict lower triangle read once a matrix.  Shared memory:
+:func:`swap_smem_bytes`.
+
 A tensor on the CPU takes the plain versions, :func:`plain_panel` (LAPACK's
 ``getrf`` of the panel) and :func:`plain_swap_trsm` (a gather and
 ``torch.linalg.solve_triangular``); a CUDA tensor launches the kernel or
@@ -48,8 +60,13 @@ SCRATCH_BYTES = 384
 SMEM_BUDGET = 192 * 1024
 #: the widest panel one launch factors (the route's block), and the widest sub-panel
 MAX_WIDTH = 64
-#: columns a CTA of :func:`lu_swap_trsm` owns, and columns it stages at a time for the row interchanges
-SWAP_TILE, SWAP_CHUNK = 64, 16
+#: columns of a tile of :func:`lu_swap_trsm` (its warps that substitute take 8 each)
+SWAP_TILE = 32
+#: what sizes :func:`lu_swap_trsm`'s grid: threads a CTA, and an SM's threads and shared memory (an H100's 228 KiB,
+#: of which each CTA's reservation takes 1 KiB)
+THREADS, SM_THREADS, SM_SMEM_BYTES, CTA_RESERVED_BYTES = 256, 2048, 228 * 1024, 1024
+#: the most shared memory one CTA may take
+MAX_SMEM_BYTES = 232448
 
 
 def smem_bytes(m: int, ws: int, itemsize: int) -> int:
@@ -59,10 +76,27 @@ def smem_bytes(m: int, ws: int, itemsize: int) -> int:
 
 
 def swap_smem_bytes(rows: int, jb: int, itemsize: int) -> int:
-    """Shared memory of one CTA of :func:`lu_swap_trsm`: a counter, ``L11`` (column-major, ``jb + 1`` a column),
-    the moved rows (at most ``2 jb``) staged :data:`SWAP_CHUNK` columns at a time, and their list."""
-    cap = min(2 * jb, rows)
-    return 16 + jb * (jb + 1) * itemsize + cap * SWAP_CHUNK * itemsize + 4 * cap
+    """Shared memory of one CTA of :func:`lu_swap_trsm`: a header and the lists of moved rows and their sources
+    (ints), ``L11`` by blocks of 8 x 8 on and below the diagonal (64 entries each), and two buffers of a tile's rows
+    (at most ``2 jb``), each row :data:`SWAP_TILE` entries and 32 bytes of padding."""
+    cap, nb = min(2 * jb, rows), -(-jb // 8)
+    ints = -(-(16 + 2 * cap + MAX_WIDTH) * 4 // 16) * 16
+    return ints + nb * (nb + 1) // 2 * 64 * itemsize + 2 * cap * (SWAP_TILE + 32 // itemsize) * itemsize
+
+
+def swap_grid(m: int, w: int, j: int, jb: int, batch: int, itemsize: int, sms: int) -> tuple[int, int, int, int]:
+    """``(left, right, per_cta, ctas)`` of :func:`lu_swap_trsm` at block ``(j, jb)`` of a ``(batch, m, w)`` batch on a
+    card of ``sms`` SMs: the tiles left and right of the panel (tile ``t < left`` holds columns ``32 t ..``, tile
+    ``left + t`` columns ``j + jb + 32 t ..``, each up to the panel or ``w``), the tiles a CTA owns and the CTAs a
+    matrix takes: as few CTAs a matrix (each reads ``L11``) as fill the card's resident CTAs, one at least."""
+    left, right = -(-j // SWAP_TILE), -(-(w - j - jb) // SWAP_TILE)
+    tiles = left + right
+    if tiles == 0:
+        return left, right, 0, 0
+    per_sm = max(1, min(SM_THREADS // THREADS,
+                        SM_SMEM_BYTES // (swap_smem_bytes(m - j, jb, itemsize) + CTA_RESERVED_BYTES)))
+    per_cta = -(-tiles // min(tiles, -(-sms * per_sm // batch)))
+    return left, right, per_cta, -(-tiles // per_cta)
 
 
 def panel_width(m: int, itemsize: int) -> int:
@@ -84,8 +118,8 @@ def _library() -> SimpleNamespace:
     lib.dense_lu_panel.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.dense_lu_swap_trsm.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                       ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
     lib.dense_lu_panel.restype = lib.dense_lu_swap_trsm.restype = ctypes.c_int
     for name in ('dense_lu_smem_bytes', 'dense_lu_swap_smem_bytes'):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -94,8 +128,8 @@ def _library() -> SimpleNamespace:
         if lib.dense_lu_smem_bytes(m, w, itemsize) != smem_bytes(m, w, itemsize) \
                 or lib.dense_lu_swap_smem_bytes(m, w, itemsize) != swap_smem_bytes(m, w, itemsize):
             raise RuntimeError('dense LU: the library and ops/kernels/dense_lu.py disagree on the shared memory')
-    if lib.dense_lu_max_smem_bytes() < max(SMEM_BUDGET, swap_smem_bytes(2 * MAX_WIDTH, MAX_WIDTH, 16)) \
-            or lib.dense_lu_max_width() != MAX_WIDTH or lib.dense_lu_swap_tile() != SWAP_TILE:
+    if lib.dense_lu_max_smem_bytes() != MAX_SMEM_BYTES or lib.dense_lu_max_width() != MAX_WIDTH \
+            or lib.dense_lu_swap_tile() != SWAP_TILE or lib.dense_lu_threads() != THREADS:
         raise RuntimeError('dense LU: the library\'s limits are not those of ops/kernels/dense_lu.py')
     return SimpleNamespace(panel=lib.dense_lu_panel, swap_trsm=lib.dense_lu_swap_trsm)
 
@@ -199,12 +233,18 @@ def lu_swap_trsm(A: torch.Tensor, j: int, jb: int, rows: torch.Tensor) -> None:
     if rows.shape != (b, m - j) or rows.dtype != torch.int64 or rows.device != A.device or not rows.is_contiguous():
         raise ValueError(f'lu_swap_trsm: rows {tuple(rows.shape)} {rows.dtype} on {rows.device}, expected contiguous '
                          f'({b}, {m - j}) int64 on {A.device}')
-    if -(-j // SWAP_TILE) + -(-(w - j - jb) // SWAP_TILE) == 0:
+    _, _, per_cta, ctas = swap_grid(m, w, j, jb, b, A.element_size(), _sms(A.device))
+    if ctas == 0:
         return None
     _launch('lu_swap_trsm', _library().swap_trsm, A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), A.stride(0),
-            A.stride(1), m, w, j, jb, b, rows.data_ptr())
+            A.stride(1), m, w, j, jb, b, per_cta, rows.data_ptr())
     _counted(lu_swap_trsm)
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 lu_panel.launches = lu_swap_trsm.launches = 0

@@ -139,27 +139,54 @@ def test_panel_widths_fit_the_kernel():
     assert dense_lu.swap_smem_bytes(2 * linalg.BLOCK, linalg.BLOCK, 16) <= dense_lu.SMEM_BUDGET
 
 
+@pytest.mark.parametrize('m', [512, 600, 1024, 4096])
+def test_swap_grid_covers_every_tile_once(m):
+    """``lu_swap_trsm``'s host-side choices at every block of the route, for item sizes 4, 8 and 16 and batches 1, 12
+    and 256 on 132 SMs: its shared memory fits a CTA of sm_90, its tiles cover each column outside the panel once
+    (left of it ``0 .. j``, right of it ``j + jb .. m``), every CTA owns at least one tile, no tile is owned twice,
+    and the grid (CTAs a matrix by the batch) stays within CUDA's limits."""
+    for j in range(0, m, linalg.BLOCK):
+        jb = min(linalg.BLOCK, m - j)
+        for size in (4, 8, 16):
+            assert dense_lu.swap_smem_bytes(m - j, jb, size) <= dense_lu.MAX_SMEM_BYTES
+            for batch in (1, 12, 256):
+                left, right, per_cta, ctas = dense_lu.swap_grid(m, m, j, jb, batch, size, 132)
+                owned = [range(x * per_cta, min(left + right, (x + 1) * per_cta)) for x in range(ctas)]
+                assert all(len(r) for r in owned) and [t for r in owned for t in r] == list(range(left + right))
+                for first, tiles, end in ((0, left, j), (j + jb, right, m)):
+                    spans = [(first + 32 * t, min(end, first + 32 * t + 32)) for t in range(tiles)]
+                    assert [s for s, _ in spans] + [end] == [first] + [e for _, e in spans]  # each column once
+                    assert all(0 < e - s <= dense_lu.SWAP_TILE for s, e in spans)
+                assert 1 <= ctas < 2**31 and batch <= 65535
+    # the batches the port's routes launch: RayleighBenard 256x128's modes take one CTA a matrix at 512 rows
+    assert dense_lu.swap_grid(512, 512, 0, 64, 256, 16, 132)[2:] == (14, 1)
+
+
 def _swap_trsm_case(case, dtype):
-    """A (2, 192, 192) batch whose block ``j`` has been factored by the plain panel, with the permutation it gave."""
+    """A batch whose block ``j`` (``jb`` columns) has been factored by the plain panel, with the permutation it gave:
+    (2, 192, 192) unless the case says otherwise."""
+    batch, n, j, jb = {'left-and-right': (2, 192, 64, 64), 'last-block': (2, 192, 128, 64),
+                       'no-row-moves': (2, 192, 64, 64), 'ragged-last-block': (2, 216, 192, 24),
+                       'ragged-block': (2, 192, 64, 24), 'batch-of-one': (1, 192, 64, 64)}[case]
     rng = np.random.default_rng(11)
-    A = _random(rng, (2, 192, 192), complex_=dtype == torch.complex128).to(dtype)
+    A = _random(rng, (batch, n, n), complex_=dtype == torch.complex128).to(dtype)
     if case == 'no-row-moves':
-        A = A + 400 * torch.eye(192, dtype=dtype)
-    j = {'left-and-right': 64, 'last-block': 128, 'no-row-moves': 64}[case]
-    rows = dense_lu.plain_panel(A[:, j:, j:j + 64])
-    return A, j, rows
+        A = A + 400 * torch.eye(n, dtype=dtype)
+    rows = dense_lu.plain_panel(A[:, j:, j:j + jb])
+    return A, j, jb, rows
 
 
 @pytest.mark.parametrize('dtype', [torch.complex128, torch.float64])
-@pytest.mark.parametrize('case', ['left-and-right', 'last-block', 'no-row-moves'])
+@pytest.mark.parametrize('case', ['left-and-right', 'last-block', 'no-row-moves', 'ragged-last-block',
+                                  'ragged-block', 'batch-of-one'])
 def test_plain_swap_trsm_is_the_permutation_and_triangular_solve(case, dtype):
     """``lu_swap_trsm`` on a CPU tensor (its plain version): the panel's permutation as an explicit permutation
     matrix on the rows ``j..`` of each side, and ``U12`` by ``solve_triangular`` of the panel's unit lower top."""
-    A, j, rows = _swap_trsm_case(case, dtype)
-    jb, n = 64, A.shape[-1]
+    A, j, jb, rows = _swap_trsm_case(case, dtype)
+    b, n = A.shape[0], A.shape[-1]
     moved = int((rows != torch.arange(n - j)).sum(-1).max())  # rows a matrix
     assert (moved == 0) == (case == 'no-row-moves') and moved <= 2 * jb
-    P = torch.zeros((2, n - j, n - j), dtype=dtype).scatter_(2, rows.unsqueeze(-1), 1)  # P[r, rows[r]] = 1
+    P = torch.zeros((b, n - j, n - j), dtype=dtype).scatter_(2, rows.unsqueeze(-1), 1)  # P[r, rows[r]] = 1
     want = A.clone()
     want[:, j:, :j] = P @ A[:, j:, :j]
     want[:, j:, j + jb:] = P @ A[:, j:, j + jb:]
