@@ -30,6 +30,14 @@
 // Bound: none to speak of.  The set kernel is one thread reading one byte; the
 // loop's cost is its body's, plus the conditional node's evaluation per trip.
 //
+// The same library holds the stamps of the port's spans
+// (pysdc_tpu_torch/utils/trace.py): one-thread kernels that read the card's
+// global timer (%globaltimer, nanoseconds) on the stream they are launched on.
+// Captured into a graph they run at each replay, and in a WHILE body at every
+// trip.  A span's row is four int64 {start, total, count, end}: trace_open
+// writes start; trace_close adds the time since start to total and 1 to count,
+// and writes end.  They are launched only while tracing is on.
+//
 // C interface, loaded with ctypes; each function returns a cudaError_t code
 // (0 on success).
 
@@ -54,6 +62,40 @@ namespace {
 
 __global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, const bool* flag) {
   cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+__device__ __forceinline__ long long global_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void trace_open_kernel(long long* row) { row[0] = global_now(); }
+
+__global__ void trace_close_kernel(long long* row) {
+  const long long t = global_now();
+  row[1] += t - row[0];
+  row[2] += 1;
+  row[3] = t;
+}
+
+// The timer's steps: it is read until its value has changed `changes` times; out = {smallest step, largest step,
+// reads}.
+__global__ void trace_resolution_kernel(long long* out, int changes) {
+  long long last = global_now(), lo = -1, hi = 0, reads = 0;
+  for (int seen = 0; seen < changes; ++reads) {
+    const long long t = global_now();
+    if (t != last) {
+      const long long step = t - last;
+      lo = (lo < 0 || step < lo) ? step : lo;
+      hi = step > hi ? step : hi;
+      last = t;
+      ++seen;
+    }
+  }
+  out[0] = lo;
+  out[1] = hi;
+  out[2] = reads;
 }
 
 }  // namespace
@@ -121,6 +163,31 @@ int graph_loop_begin_while(void* outer_stream, void* body_stream, const void* fl
 int graph_loop_end_while(void* body_stream) {
   cudaGraph_t graph = nullptr;  // the node's body graph: the node owns it
   return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &graph));
+}
+
+// Loads the stamp kernels now, before a capture can meet them.
+int trace_load(void) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, trace_open_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncGetAttributes(&attr, trace_close_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncGetAttributes(&attr, trace_resolution_kernel));
+}
+
+int trace_open(void* row, void* stream) {
+  trace_open_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(row));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int trace_close(void* row, void* stream) {
+  trace_close_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(row));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int trace_resolution(void* out, int changes, void* stream) {
+  trace_resolution_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(out), changes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

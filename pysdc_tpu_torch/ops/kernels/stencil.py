@@ -31,7 +31,8 @@ view (not contiguous) raises.
 counts them by path, on the host.  ``cross_stencil_2d.device_count``, where a
 caller sets it to a 0-d int64 tensor on the card, gets one added at each
 launch, on the launch's stream: a CUDA graph that captured the launch counts
-it again at every replay.  ``path='general'`` (or ``'bands'``) forces a path, for
+it again at every replay.  Each apply is a device span ``stencil.apply`` while
+tracing is on (``utils/trace.py``).  ``path='general'`` (or ``'bands'``) forces a path, for
 checks and timings; forcing ``'bands'`` where it does not apply raises.
 
 Gradients (the counterpart of the JAX kernel's ``custom_vmap`` rule and of
@@ -55,6 +56,7 @@ from types import SimpleNamespace
 import torch
 
 from pysdc_tpu_torch.ops.kernels.build import current_stream, differentiated
+from pysdc_tpu_torch.utils import trace
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -335,9 +337,10 @@ def cross_stencil_2d(u: torch.Tensor, terms, path=None) -> torch.Tensor:
         launch = _launch
     else:
         raise ValueError(f'cross_stencil_2d runs on cuda or cpu tensors, got {u.device}')
-    if differentiated(u):
-        return _CrossStencil.apply(u, terms, path, launch)
-    return launch(u, terms, path)
+    with trace.device_span('stencil.apply'):
+        if differentiated(u):
+            return _CrossStencil.apply(u, terms, path, launch)
+        return launch(u, terms, path)
 
 
 cross_stencil_2d.launches = 0

@@ -53,6 +53,7 @@ import math
 import torch
 
 from pysdc_tpu_torch.ops.kernels.dense_lu import lu_panel, lu_swap_trsm
+from pysdc_tpu_torch.utils import trace
 
 #: from this many rows a solve on the card takes the pivoted blocked LU: torch would factor such a matrix with
 #: cuSOLVER's ``getrf``, which a conditional node's body does not hold
@@ -175,10 +176,12 @@ def _solve(A, B):
 
 
 def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``A^-1 B``, ``A (..., n, n)``, ``B (..., n, k)``, the batch axes broadcast; no error check on the host."""
-    if not A.is_cuda:
-        return torch.linalg.solve_ex(A, B)[0]
-    return _solve(A, B)
+    """``A^-1 B``, ``A (..., n, n)``, ``B (..., n, k)``, the batch axes broadcast; no error check on the host.  A
+    device span ``linalg.solve`` while tracing is on (``utils/trace.py``)."""
+    with trace.device_span('linalg.solve'):
+        if not A.is_cuda:
+            return torch.linalg.solve_ex(A, B)[0]
+        return _solve(A, B)
 
 
 def inv(A: torch.Tensor) -> torch.Tensor:

@@ -92,7 +92,7 @@ from pysdc_tpu_torch.convergence.spread_step_sizes import SpreadStepSizesBlockwi
 from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.ops import graph_loop
 from pysdc_tpu_torch.parallel.mesh import TimeShards
-
+from pysdc_tpu_torch.utils import trace
 
 
 class _Carry(NamedTuple):
@@ -297,7 +297,8 @@ def _build_parts(ctrl):
         P rounds, those past the window masked out whole."""
         states, uolds = restrict_all(states, t_arr, dts)
         craw = blocks[-1].raw
-        cst, cuend = craw.wavefront_active(states[-1], uends[-1], t_arr, dts[-1], window, P)
+        with trace.device_span('block.coarse'):
+            cst, cuend = craw.wavefront_active(states[-1], uends[-1], t_arr, dts[-1], window, P)
         states[-1] = cst
         uends = list(uends)
         uends[-1] = cuend
@@ -315,9 +316,10 @@ def _build_parts(ctrl):
         states, uolds = restrict_all(states, t_arr, dts)
         uends = list(uends)
         recv = window & (arange > 0)
-        states[-1], uends[-1] = coarse_raw(
-            states[-1], uends[-1], t_arr, dts[-1], recv, window, 0
-        )
+        with trace.device_span('block.coarse'):
+            states[-1], uends[-1] = coarse_raw(
+                states[-1], uends[-1], t_arr, dts[-1], recv, window, 0
+            )
         for l in range(nlevels - 1, 0, -1):
             states[l - 1] = transfers[l - 1].prolong_raw(
                 states[l - 1], states[l], uolds[l], t_arr, dts[l - 1]
@@ -332,50 +334,55 @@ def _build_parts(ctrl):
     def iteration_work(states, uends, t_arr, dts, active, prev_done):
         states = list(states)
         uends = list(uends)
-        if nlevels == 1:
-            if P == 1 or mssdc_jac:
-                states[0], uends[0] = sweep_rounds(
-                    0, states[0], uends[0], t_arr, dts, active, prev_done, nsweeps[0]
-                )
-            else:  # Gauss-Seidel MSSDC: serialized single-level chain
-                recv = active & (arange > 0) & ~prev_done
-                states[0], uends[0] = coarse_raw(
-                    states[0], uends[0], t_arr, dts[0], recv, active, 0
-                )
+        if nlevels == 1:  # the one level's iteration is its fine sweeps
+            with trace.device_span('block.fine'):
+                if P == 1 or mssdc_jac:
+                    states[0], uends[0] = sweep_rounds(
+                        0, states[0], uends[0], t_arr, dts, active, prev_done, nsweeps[0]
+                    )
+                else:  # Gauss-Seidel MSSDC: serialized single-level chain
+                    recv = active & (arange > 0) & ~prev_done
+                    states[0], uends[0] = coarse_raw(
+                        states[0], uends[0], t_arr, dts[0], recv, active, 0
+                    )
             return tuple(states), tuple(uends)
 
         # IT_DOWN: intermediate-level sweeps + restriction cascade
         uolds = [None] * nlevels
-        for l, tr in enumerate(transfers):
-            if l > 0:
-                states[l], uends[l] = sweep_rounds(
-                    l, states[l], uends[l], t_arr, dts, active, prev_done, nsweeps[l]
-                )
-            Gs, Guold, _ = tr.restrict_raw(states[l], t_arr, dts[l + 1], dts[l])
-            states[l + 1] = Gs
-            uolds[l + 1] = Guold
+        with trace.device_span('block.down'):
+            for l, tr in enumerate(transfers):
+                if l > 0:
+                    states[l], uends[l] = sweep_rounds(
+                        l, states[l], uends[l], t_arr, dts, active, prev_done, nsweeps[l]
+                    )
+                Gs, Guold, _ = tr.restrict_raw(states[l], t_arr, dts[l + 1], dts[l])
+                states[l + 1] = Gs
+                uolds[l + 1] = Guold
 
         # IT_COARSE: serialized Gauss-Seidel chain over the time axis
-        recv = active & (arange > 0) & ~prev_done
-        states[-1], uends[-1] = coarse_raw(
-            states[-1], uends[-1], t_arr, dts[-1], recv, active, 0
-        )
+        with trace.device_span('block.coarse'):
+            recv = active & (arange > 0) & ~prev_done
+            states[-1], uends[-1] = coarse_raw(
+                states[-1], uends[-1], t_arr, dts[-1], recv, active, 0
+            )
 
         # IT_UP: prolongation cascade (+ intermediate sweeps)
-        for l in range(nlevels - 1, 0, -1):
-            states[l - 1] = transfers[l - 1].prolong_raw(
-                states[l - 1], states[l], uolds[l], t_arr, dts[l - 1]
-            )
-            if l - 1 > 0:
-                states[l - 1], uends[l - 1] = sweep_rounds(
-                    l - 1, states[l - 1], uends[l - 1], t_arr, dts, active, prev_done,
-                    nsweeps[l - 1],
+        with trace.device_span('block.up'):
+            for l in range(nlevels - 1, 0, -1):
+                states[l - 1] = transfers[l - 1].prolong_raw(
+                    states[l - 1], states[l], uolds[l], t_arr, dts[l - 1]
                 )
+                if l - 1 > 0:
+                    states[l - 1], uends[l - 1] = sweep_rounds(
+                        l - 1, states[l - 1], uends[l - 1], t_arr, dts, active, prev_done,
+                        nsweeps[l - 1],
+                    )
 
         # IT_FINE
-        states[0], uends[0] = sweep_rounds(
-            0, states[0], uends[0], t_arr, dts, active, prev_done, nsweeps[0]
-        )
+        with trace.device_span('block.fine'):
+            states[0], uends[0] = sweep_rounds(
+                0, states[0], uends[0], t_arr, dts, active, prev_done, nsweeps[0]
+            )
         return tuple(states), tuple(uends)
 
     # the burn-in and FMG predictors restrict through every level themselves
@@ -443,7 +450,9 @@ class _BlockProgram:
     the plain functions on the CPU.  ``inputs`` are ``(u0, t_arr, window,
     dts)``: a piece named in ``pieces.from_inputs`` takes them all, the others
     the carry and all but ``u0``.  The caller writes the input buffers before
-    it runs a piece; a piece leaves its result in :attr:`carry`."""
+    it runs a piece; a piece leaves its result in :attr:`carry`.  A piece named
+    in ``pieces.traced`` is a device span of its name (``utils/trace.py``),
+    first node to last, while tracing is on."""
 
     def __init__(self, pieces, *inputs):
         self.pieces = pieces
@@ -452,7 +461,12 @@ class _BlockProgram:
         self.on_card = self.u0.device.type == 'cuda'
         self.carry = None
         if self.on_card:
-            self._capture()
+            trace.count('fused.captures')
+            with trace.span('march.capture'):
+                self._capture()
+
+    def _span(self, name):
+        return trace.device_span(name) if name in self.pieces.traced else contextlib.nullcontext()
 
     def write(self, *inputs):
         for buf, value in zip(self.inputs, inputs):
@@ -488,7 +502,7 @@ class _BlockProgram:
         self.graphs = {}
         for name in self.pieces.graphs:
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool), self._span(name):
                 new = self._call(name, self.carry)
                 # results that are views of a buffer are read before any buffer is written
                 pairs = [
@@ -504,12 +518,15 @@ class _BlockProgram:
         if self.on_card:
             self.graphs[piece].replay()
         else:
-            self.carry = self._call(piece, self.carry)
+            with self._span(piece):
+                self.carry = self._call(piece, self.carry)
 
 
 class _Programs:
-    """The block programs of one controller, one per state dtype, shape and
-    device: the step sizes are inputs, so nothing of ``dt`` is in the key."""
+    """The block programs of one controller, one per state dtype, shape,
+    device and tracing state (:func:`pysdc_tpu_torch.utils.trace.key`: a
+    program captured while tracing is on holds its stamps): the step sizes are
+    inputs, so nothing of ``dt`` is in the key."""
 
     def __init__(self, ctrl):
         self.ctrl = ctrl
@@ -518,9 +535,11 @@ class _Programs:
         self._programs = {}
 
     def _program(self, u0, t_arr, window, dts):
-        key = (u0.dtype, u0.device, tuple(u0.shape))
+        key = (u0.dtype, u0.device, tuple(u0.shape), trace.key())
         prog = self._programs.get(key)
         if prog is None:
+            # a program traced under an earlier trace.enable() stamps a table that is gone
+            self._programs = {k: p for k, p in self._programs.items() if k[-1] is None}
             prog = self._programs[key] = _BlockProgram(self._pieces(), u0, t_arr, window, dts)
         return prog
 
@@ -556,40 +575,42 @@ class _FusedBlock(_Programs):
         rows = torch.arange(maxiter + 2, device=ctrl.device).unsqueeze(1)
 
         def start(u0, t_arr, window, dts):
-            dts = dts.unbind(0)  # per level, 0-d views of the input buffer (the plain lane: one dt on every level)
-            states, uends = parts.spread(u0, t_arr, dts)
-            states, uends = parts.predict(states, uends, t_arr, dts, window)
-            return _Carry(
-                states=tuple(states),
-                uends=tuple(uends),
-                done=~window,
-                iters=torch.zeros((P,), dtype=torch.int32, device=u0.device),
-                res_hist=torch.zeros((maxiter + 2, P), dtype=u0.dtype, device=u0.device),
-                k=torch.zeros((), dtype=torch.int32, device=u0.device),
-                cont=torch.ones((), dtype=torch.bool, device=u0.device),
-            )
+            with trace.device_span('block.start'):
+                dts = dts.unbind(0)  # per level, 0-d views of the input buffer (the plain lane: one dt on every level)
+                states, uends = parts.spread(u0, t_arr, dts)
+                states, uends = parts.predict(states, uends, t_arr, dts, window)
+                return _Carry(
+                    states=tuple(states),
+                    uends=tuple(uends),
+                    done=~window,
+                    iters=torch.zeros((P,), dtype=torch.int32, device=u0.device),
+                    res_hist=torch.zeros((maxiter + 2, P), dtype=u0.dtype, device=u0.device),
+                    k=torch.zeros((), dtype=torch.int32, device=u0.device),
+                    cont=torch.ones((), dtype=torch.bool, device=u0.device),
+                )
 
         def check(c, t_arr, window, dts):
             # IT_CHECK: exchange + residual + convergence flags
-            dts = dts.unbind(0)
-            active = window & ~c.done
-            prev_done = parts.shifted(c.done)
-            states = list(c.states)
-            uends = list(c.uends)
-            states[0], uends[0] = parts.exchange(0, states[0], uends[0], t_arr, dts, active, prev_done)
-            res = blocks[0].raw.residual(states[0], dts[0])
-            # row k of the history, active steps only (k lives on the device)
-            res_hist = torch.where((rows == c.k) & active, res.to(c.res_hist.dtype), c.res_hist)
+            with trace.device_span('block.check'):
+                dts = dts.unbind(0)
+                active = window & ~c.done
+                prev_done = parts.shifted(c.done)
+                states = list(c.states)
+                uends = list(c.uends)
+                states[0], uends[0] = parts.exchange(0, states[0], uends[0], t_arr, dts, active, prev_done)
+                res = blocks[0].raw.residual(states[0], dts[0])
+                # row k of the history, active steps only (k lives on the device)
+                res_hist = torch.where((rows == c.k) & active, res.to(c.res_hist.dtype), c.res_hist)
 
-            raw_done = (res <= restol) | (c.iters >= maxiter)
-            done = c.done | (active & raw_done) | ~window
-            # Gauss-Seidel forwarding: done[j] requires done[j-1] (prefix AND)
-            done = torch.cumprod(done.to(torch.int32), dim=0).bool() | ~window
-            if all_to_done:
-                done = done.all() | ~window
-            iters = torch.where(window & ~done, c.iters + 1, c.iters)
-            cont = ~done.all()
-            return _Carry(tuple(states), tuple(uends), done, iters, res_hist, c.k + c.cont.to(torch.int32), cont)
+                raw_done = (res <= restol) | (c.iters >= maxiter)
+                done = c.done | (active & raw_done) | ~window
+                # Gauss-Seidel forwarding: done[j] requires done[j-1] (prefix AND)
+                done = torch.cumprod(done.to(torch.int32), dim=0).bool() | ~window
+                if all_to_done:
+                    done = done.all() | ~window
+                iters = torch.where(window & ~done, c.iters + 1, c.iters)
+                cont = ~done.all()
+                return _Carry(tuple(states), tuple(uends), done, iters, res_hist, c.k + c.cont.to(torch.int32), cont)
 
         def work(c, t_arr, window, dts):
             active = window & ~c.done
@@ -618,14 +639,15 @@ class _FusedBlock(_Programs):
             return check(work(c, t_arr, window, dts), t_arr, window, dts)
 
         return SimpleNamespace(start=start, check=check, work=work, block=block, warm=warm, graphs=('block',),
-                               from_inputs=('block',))
+                               from_inputs=('block',), traced=('block',))
 
     def replay(self, u0, t_arr, dt, window):
         """One block from ``u0``: the program's carry, valid until the next call (no copy, no host read)."""
         inputs = self._inputs(u0, t_arr, window, dt)
         prog = self._program(*inputs)
-        prog.write(*inputs)
-        prog.run('block')
+        with trace.replay():
+            prog.write(*inputs)
+            prog.run('block')
         return prog.carry
 
     def __call__(self, u0, t_arr, dt, window):
@@ -715,7 +737,7 @@ class _FusedAdaptiveBlock(_Programs):
             return work(check(start(u0, t_arr, window, dts), t_arr, window, dts), t_arr, window, dts)
 
         return SimpleNamespace(start=start, check=check, work=work, warm=warm, graphs=('start', 'check', 'work'),
-                               from_inputs=('start',))
+                               from_inputs=('start',), traced=())
 
     def __call__(self, u0, t_arr, dts, window):
         """One block of exactly ``maxiter`` iterations from ``u0``:
@@ -788,6 +810,18 @@ def build_fused_many(ctrl, fused):
     return fused_many
 
 
+def _fetch(tensors) -> list:
+    """The tensors on the host in one transfer (their bytes in one buffer), each back in its dtype and shape as a
+    numpy array."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(flat[at:at + n].view(np.dtype(str(t.dtype).removeprefix('torch.'))).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
 @contextlib.contextmanager
 def _no_sync(device):
     """On the card, a synchronizing call (a read on the host, a copy from pageable memory) raises inside: the
@@ -812,6 +846,9 @@ def run_fused(ctrl, u0, t0, Tend):
     residual histories fetched once at the end of the march.  On the card the
     block's graph is captured before the march, and from the first replay to
     the fetch the march runs under ``torch.cuda.set_sync_debug_mode('error')``.
+    While tracing is on (``utils/trace.py``) the spans ``march.enqueue``,
+    ``march.fetch`` and ``march.stats`` are kept, and the fetch brings the
+    blocks' stamps home with the counts.
     """
     from pysdc_tpu_torch.parallel.nonmpi import _horizon_slack
 
@@ -868,7 +905,7 @@ def run_fused(ctrl, u0, t0, Tend):
     uend = u0
     t = t0
     marched = []  # (block start, iters, res_hist, cont, active steps), the middle three on the device
-    with _no_sync(device):
+    with trace.enqueue(), _no_sync(device):
         if n_full > 0:
             starts = t0 + dt * P * torch.arange(n_full, dtype=torch.float64, device=device)
             uend, iters_all, res_all, cont_all = ctrl._fused_many_fn(uend, dt, starts, dts)
@@ -883,19 +920,19 @@ def run_fused(ctrl, u0, t0, Tend):
             uend = uend_block[n_active - 1]
             t += n_active * dt
 
-    if marched:  # the one fetch of the march: counts, histories and cap flags in one transfer
-        ctrl.host_reads['fetch'] += 1
-        iters = torch.stack([b[1] for b in marched])
-        res = torch.stack([b[2] for b in marched])
-        cont = torch.stack([b[3] for b in marched])
-        fetched = torch.cat([iters.flatten().to(res.dtype), res.flatten(), cont.to(res.dtype)]).cpu().numpy()
-        n_it, n_res = iters.numel(), res.numel()
-        iters_h = fetched[:n_it].reshape(tuple(iters.shape)).astype(np.int64)
-        res_h = fetched[n_it:n_it + n_res].reshape(tuple(res.shape))
-        if fetched[n_it + n_res:].any():
+    if marched:  # the one fetch of the march: counts, histories and cap flags (and the stamps) in one transfer
+        with trace.span('march.fetch'):
+            ctrl.host_reads['fetch'] += 1
+            iters = torch.stack([b[1] for b in marched])
+            res = torch.stack([b[2] for b in marched])
+            cont = torch.stack([b[3] for b in marched])
+            iters_h, res_h, cont_h, *stamps = _fetch([iters, res, cont] + trace.fetch_parts())
+            trace.fetched(stamps)
+        if cont_h.any():
             raise ControllerError('fused block did not terminate within maxiter + 1 checks')
-        for (t_block, _, _, _, n_active), it_b, res_b in zip(marched, iters_h, res_h):
-            emit_stats(t_block, it_b, res_b, n_active)
+        with trace.span('march.stats'):
+            for (t_block, _, _, _, n_active), it_b, res_b in zip(marched, iters_h.astype(np.int64), res_h):
+                emit_stats(t_block, it_b, res_b, n_active)
 
     ctrl._fused_converged = converged
     return uend, ctrl.return_stats()

@@ -70,6 +70,7 @@ from pysdc_tpu_torch.core.errors import ControllerError
 from pysdc_tpu_torch.core.state import LevelState, map_components
 from pysdc_tpu_torch.parallel.mesh import Mesh, PartitionSpec, TimeShards
 from pysdc_tpu_torch.parallel.nonmpi import ControllerNonMPI
+from pysdc_tpu_torch.utils import trace
 
 
 def _where_mask(mask, new, old, axis=0):
@@ -705,19 +706,20 @@ class ShardedController(ControllerNonMPI):
                 except ControllerError:
                     lane = 'stage'
 
-        if lane == 'fused':
-            uend, _ = fused.run_fused(self, u0, t0, Tend)
-        elif lane == 'fused_adaptive':
-            uend, _ = fused.run_fused_adaptive(self, u0, t0, Tend)
-        elif lane == 'stage':
-            uend, _ = super().run(u0, t0, Tend)
-        else:
-            raise ControllerError(f'unknown execution lane {lane!r}')
-        self.logger.info(f'execution lane: {lane}')
-        self.hooks[0].add_to_stats(
-            process=-1, time=t0, level=-1, iter=-1, sweep=-1, type='lane', value=lane
-        )
-        return uend, self.return_stats()
+        with trace.march(lane == 'fused'):  # the fused lane's host span (utils/trace.py), while tracing is on
+            if lane == 'fused':
+                uend, _ = fused.run_fused(self, u0, t0, Tend)
+            elif lane == 'fused_adaptive':
+                uend, _ = fused.run_fused_adaptive(self, u0, t0, Tend)
+            elif lane == 'stage':
+                uend, _ = super().run(u0, t0, Tend)
+            else:
+                raise ControllerError(f'unknown execution lane {lane!r}')
+            self.logger.info(f'execution lane: {lane}')
+            self.hooks[0].add_to_stats(
+                process=-1, time=t0, level=-1, iter=-1, sweep=-1, type='lane', value=lane
+            )
+            return uend, self.return_stats()
 
     def _advance(self, block):
         if getattr(self, '_fused_adaptive', False):

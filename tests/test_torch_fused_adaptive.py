@@ -246,7 +246,7 @@ def test_one_program_serves_every_step_size(name):
     (key,) = programs
     assert not any(isinstance(part, float) for part in key)
     prob = ctrl.MS[0].levels[0].prob
-    assert key == (prob.dtype, prob.device, prob.shape)
+    assert key == (prob.dtype, prob.device, prob.shape, None)  # the tracing state last: None while tracing is off
     steps = len(entries(got, 'niter'))  # every step a block ran, the rejected ones too
     assert ctrl.host_reads['cont'] == 0
     assert steps / RUNS[name][1] <= ctrl.host_reads['fetch'] <= steps  # one fetch a block
