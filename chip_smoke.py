@@ -6839,10 +6839,11 @@ def phase_dense_lu(card):
     circuit problems on the fused lane; ``RayleighBenard(256, 128)`` float64 (512 rows a mode: the pivoted route)
     through ``ShardedController(4).run``, 2 blocks: ``'auto'`` takes the fused lane, one graph a block, equal
     ``niter`` and ``uend`` bitwise equal to ``lane='stage'``'s (the same kernels and calls on both lanes), no ``cont``
-    read and one fetch, each kernel's launches (counted on the card) in the run and in a replayed block equal to the
-    stage lane's, one of each a block of 64 columns, ms a block on both lanes; ``RayleighBenard(8, 128)``, one block,
-    card against CPU.  Returns each kernel's launches on the main path (the fused run, counted on the card) and in a
-    replayed block, and its largest difference from its plain version."""
+    read and one fetch, each kernel's launches (counted on the card) in the run: one of each a block of 64 columns of
+    each node's LU, made once in the warm-up (``ops/spectral.py`` keeps a node's LU while its shift holds), none in a
+    replayed block and none in the stage lane's block; ms a block on both lanes; ``RayleighBenard(8, 128)``, one
+    block, card against CPU.  Returns each kernel's launches on the main path (the fused run, counted on the card)
+    and in a replayed block, and its largest difference from its plain version."""
     import torch
 
     from pysdc_tpu_torch import ShardedController
@@ -6883,9 +6884,10 @@ def phase_dense_lu(card):
             or len(niter) != BLOCKS_RBC_LU * P_RBC or not torch.equal(uend, uend_s) or not bool(uend.isfinite().all()):
         raise AssertionError(f'{label}: lanes {_lane(stats)} / {_lane(stats_s)}, niter {niter} against {niter_s}, '
                              f'|uend_fused - uend_stage| / max|uend_stage| {rel:.3e}')
-    if reads != {'cont': 0, 'fetch': 1} or min(card_count for card_count, _ in main.values()) < 1:
+    node_lus = 8 * 3  # 8 blocks of 64 columns in each of the 3 nodes' LUs
+    if reads != {'cont': 0, 'fetch': 1} or any(card_count != node_lus for card_count, _ in main.values()):
         raise AssertionError(f'{label}: host reads {reads}, kernel launches in the run (on the card, through the '
-                             f'wrapper) {main}')
+                             f'wrapper) {main}, expected {node_lus} on the card')
     _one_graph_a_block(fused, label)
     counted()
     fused_ms, (uend_r, _) = _events_ms(lambda: fused.run_fused(u0, 0.0, block))
@@ -6894,17 +6896,16 @@ def phase_dense_lu(card):
     stage_counts = counted()
     for name in kernels:
         (replayed, through_wrapper), (on_card, stage_wrapper) = replay[name], stage_counts[name]
-        if through_wrapper != 0 or replayed != on_card or on_card != stage_wrapper or replayed < 1 \
-                or replayed != replay['lu_panel'][0]:
+        if through_wrapper != 0 or replayed != 0 or on_card != 0 or stage_wrapper != 0:
             raise AssertionError(f'{label}: {name} in a replayed block {replayed} (counted on the card), through the '
                                  f'wrapper {through_wrapper}; the stage lane\'s block {on_card} (counted on the card) '
-                                 f'of {stage_wrapper} launches; lu_panel {replay["lu_panel"]}')
+                                 f'of {stage_wrapper} launches; expected none: each node\'s LU is kept')
     print(f'{label}: lane fused under \'auto\', one graph a block, niter {niter} = the stage lane\'s, '
           f'uend bitwise equal to the stage lane\'s; host reads {reads}; '
           + '; '.join(f'{name} {main[name][0]} launches in the run (counted on the card; {main[name][1]} through the '
-                      f'wrapper in warm-up and capture), {replay[name][0]} in a replayed block = the stage lane\'s '
+                      f'wrapper in warm-up and capture), {replay[name][0]} in a replayed block, the stage lane\'s '
                       f'{stage_counts[name][0]}' for name in kernels)
-          + f' (one of each a block of 64 columns, 8 a solve); peak device memory {peak:.0f} MiB; '
+          + f' (one of each a block of 64 columns of each node\'s LU, made once); peak device memory {peak:.0f} MiB; '
           f'wall {wall:.3f} s with the capture [{card}]')
     print(f'times: RayleighBenard {RBC_LU["nx"]}x{RBC_LU["nz"]} fp64 block of {P_RBC} steps: fused {fused_ms:.3f} ms '
           f'(a replay) against stage {stage_ms:.3f} ms (x{stage_ms / fused_ms:.2f}), CUDA events [{card}]')
@@ -7123,6 +7124,92 @@ def phase_dense_lu_times(card):
     return dict(panel_numbers, **route), swap_numbers
 
 
+# (phase 74) each node's LU of the spectral shifted solve kept on the card (ops/spectral.py): RayleighBenard 256x128
+# (512 rows a mode, the pivoted route) and 256x64 (cuBLAS's batched LU), float64, through ShardedController(4)'s fused
+# lane; a second dt makes each node's LU again inside the replayed block graph
+RBC_SLOTS = (dict(nx=256, nz=128, Rayleigh=2e6, Prandtl=1), dict(nx=256, nz=64, Rayleigh=2e6, Prandtl=1))
+DT_RBC_SLOTS = 1.5 * DT_RBC
+
+
+def _slot_marches(params, kept):
+    """Three marches of BLOCKS_RBC_LU blocks of RayleighBenard ``params`` through a fresh ``ShardedController(4)``
+    while tracing is on: at DT_RBC twice, then at DT_RBC_SLOTS.  ``kept`` False makes the problem's solves name no
+    node (the route that factors at every solve).  Returns ``(uends, niters, refreshes, slot solves, lu_panel launches
+    counted on the card)`` a march, the ms of a replayed block at DT_RBC_SLOTS without tracing (CUDA events) and the
+    peak device memory in MiB."""
+    import gc
+
+    import torch
+
+    from pysdc_tpu_torch import ShardedController
+    from pysdc_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctrl = ShardedController(P_RBC, {'logger_level': 30}, _rbc_lu_description(params, 'cuda'))
+    if not kept:
+        for step in ctrl.MS:
+            for lvl in step.levels:
+                lvl.prob.accepts_node_index = False
+    u0 = ctrl.MS[0].levels[0].prob.u_exact(0.0)
+    lu = _LAUNCH_COUNTS['lu']
+    out = []
+    trace.enable('cuda')
+    try:
+        for dt in (DT_RBC, DT_RBC, DT_RBC_SLOTS):
+            ctrl.MS[0].levels[0].params.dt = dt
+            before = dict(trace.record().counters)
+            lu.zero_()
+            uend, stats = ctrl.run(u0, 0.0, BLOCKS_RBC_LU * P_RBC * dt)
+            after = trace.record().counters
+            out.append((uend, _niter(stats), *(after.get(k, 0) - before.get(k, 0)
+                                               for k in ('spectral.refreshes', 'spectral.slot_solves')), int(lu)))
+    finally:
+        trace.disable()
+    ctrl.run_fused(u0, 0.0, P_RBC * DT_RBC_SLOTS)  # the untraced program captured
+    block_ms, _ = _events_ms(lambda: ctrl.run_fused(u0, 0.0, P_RBC * DT_RBC_SLOTS))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [tuple(m[i] for m in out) for i in range(5)], block_ms, peak
+
+
+@_counting_launches
+def phase_spectral_slots(card):
+    """Phase 74: RayleighBenard 256x128 and 256x64 float64 through ``ShardedController(4)``'s fused lane, the problem's
+    node solves keeping each node's LU (``ops/spectral.py``) against the same marches whose solves name no node:
+    ``niter`` equal and ``uend`` bitwise equal in each march; ``spectral.refreshes`` 3 in the first march (the warm-up
+    makes the 3 nodes' LUs), 0 in the next at the same dt and 3 at a new dt (made inside the replayed graph, in the
+    device ``while`` of each node's check); at 512 rows ``lu_panel`` launched 8 times a refresh (counted on the
+    card) and never otherwise; ms of a replayed block on both routes (CUDA events) and peak device memory."""
+    import torch
+
+    from pysdc_tpu_torch.ops import linalg
+
+    lines = []
+    for params in RBC_SLOTS:
+        label = (f'spectral slots: ShardedController({P_RBC}) RayleighBenard {params["nx"]}x{params["nz"]} fp64 IMEX M=3 '
+                 f'LU/PIC dt {DT_RBC:g}, {DT_RBC:g}, {DT_RBC_SLOTS:g}, {BLOCKS_RBC_LU} blocks a march')
+        (uends, niters, refreshes, solves, launches), kept_ms, kept_peak = _slot_marches(params, True)
+        (uends_f, niters_f, refreshes_f, _, launches_f), fresh_ms, fresh_peak = _slot_marches(params, False)
+        panel_blocks = 4 * params['nz'] // linalg.BLOCK if 4 * params['nz'] >= linalg.PIVOTED_FROM else 0
+        same = [bool(torch.equal(a, b)) for a, b in zip(uends, uends_f)]
+        if niters != niters_f or not all(same) or list(refreshes) != [3, 0, 3] or min(solves) < 1 \
+                or any(refreshes_f) or list(launches) != [3 * panel_blocks, 0, 3 * panel_blocks]:
+            raise AssertionError(f'{label}: niter {niters} against {niters_f}, uend bitwise equal {same}, refreshes '
+                                 f'{refreshes} (the route without nodes {refreshes_f}), slot solves {solves}, lu_panel '
+                                 f'launches on the card {launches}, expected [{3 * panel_blocks}, 0, '
+                                 f'{3 * panel_blocks}]')
+        lines.append(f'{params["nx"]}x{params["nz"]}: niter {niters[0]} in each march, uend bitwise equal, refreshes '
+                     f'{list(refreshes)}, slot solves {list(solves)}, lu_panel launches on the card {list(launches)} '
+                     f'(the route without nodes {list(launches_f)}); a replayed block {kept_ms:.3f} ms against '
+                     f'{fresh_ms:.3f} ms without nodes (x{fresh_ms / kept_ms:.2f}); peak device memory '
+                     f'{kept_peak:.0f} MiB against {fresh_peak:.0f} MiB')
+    print(f'spectral slots: each node\'s LU kept on the card, refreshed in the graph when dt changes: '
+          + '; '.join(lines) + f' [{card}]')
+
+
 def main():
     import torch
 
@@ -7147,6 +7234,7 @@ def main():
     # 4 right after them, where its parity once read 4.574e-10 against its 1e-11 gate (ROADMAP queue 3)
     lu_launches, lu_err = phase(phase_dense_lu, card)
     lu, swap = phase(phase_dense_lu_times, card)
+    phase(phase_spectral_slots, card)
     phase(phase_parity)
     main_err, pfasst_err = phase(phase_kernels)
     ctrl, launches = phase(phase_main, card)

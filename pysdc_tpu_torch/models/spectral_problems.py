@@ -12,6 +12,7 @@ rows and the pivoted blocked LU from 512 on).  The fused lanes capture them.
 
 from __future__ import annotations
 
+import inspect
 import math
 
 import numpy as np
@@ -24,8 +25,16 @@ from pysdc_tpu_torch.ops.spectral import TensorProductSpectral, UltrasphericalBa
 class _SpectralProblem(Problem):
     """What the problems on :class:`TensorProductSpectral` share."""
 
-    def solve_system(self, rhs, factor, u0, t):
-        return self.spec.solve_shifted(rhs, factor)
+    def solve_system(self, rhs, factor, u0, t, node=None):
+        """With ``node`` (a sweeper's node loop) the node's LU is kept and reused while its shift stays the same
+        (``TensorProductSpectral.solve_shifted``)."""
+        return self.spec.solve_shifted(rhs, factor, node=node)
+
+    def prepare_node_solvers(self, dt: float, qd_diag) -> None:
+        """Route the sweepers' node index to the solves: nothing is factored here, a node's first solve fills its
+        slot on the field's device."""
+        if 'node' in inspect.signature(self.solve_system).parameters:
+            self.accepts_node_index = True
 
     def eval_f_batched(self, u, t):
         """The nodes (and a block's steps behind them) in one evaluation: ``eval_f`` does not read ``t``."""

@@ -35,14 +35,25 @@ So on a CUDA tensor :func:`solve` and :func:`inv` take two routes:
   permutation's gather and triangular solves by blocks of :data:`BLOCK` rows.
   Nothing is read on the host.
 
+Each route is two halves, :func:`lu_factor` (``A`` to its factors) and
+:func:`lu_substitute` (the factors and ``B`` to ``x``), and :func:`solve` is
+the one after the other: the same kernels, launches and bits as a solve that
+never kept its factors.  This module keeps nothing between calls; a caller
+that solves with one matrix again and again keeps the factors itself
+(``ops/spectral.py``: one LU a collocation node, refreshed on the device only
+when its shift changes, as the reference's ``GenericSpectralLinear`` keeps its
+factorizations keyed by ``dt``, ``cached_direct``).
+
 Eager and captured take the same path, so the stage lane and the fused lanes
 compute alike.  On a CPU tensor :func:`solve` and :func:`inv` are LAPACK
-(``solve_ex``, ``inv_ex``); :func:`_pivoted_solve` on a CPU tensor runs the
-same blocked loop with the kernels' plain versions (LAPACK's ``getrf`` of each
-panel, a gather and ``solve_triangular``), which ``tests/test_torch_linalg.py``
-holds against LAPACK on matrices that need pivoting.  ``chip_smoke.py`` holds
-both routes inside a device ``while`` body, bit for bit against the eager call,
-and against LAPACK.
+(``solve_ex``, ``inv_ex``) and the halves ``lu_factor_ex`` and ``lu_solve``,
+which compute what ``solve_ex`` computes; :func:`_pivoted_solve` on a CPU
+tensor runs the same blocked loop with the kernels' plain versions (LAPACK's
+``getrf`` of each panel, a gather and ``solve_triangular``), which
+``tests/test_torch_linalg.py`` holds against LAPACK on matrices that need
+pivoting (patching :func:`_lapack` sends every call on the CPU down the card's
+routes).  ``chip_smoke.py`` holds both routes inside a device ``while`` body,
+bit for bit against the eager call, and against LAPACK.
 """
 
 from __future__ import annotations
@@ -93,24 +104,43 @@ def _padded(x: torch.Tensor, count: int, fill: torch.Tensor) -> torch.Tensor:
     return x if extra <= 0 else torch.cat([x, fill.expand((extra,) + tuple(fill.shape)).to(x.dtype)])
 
 
-def _batched_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``A^-1 B`` for fewer than :data:`PIVOTED_FROM` rows by cuBLAS's batched LU and substitution."""
-    n, k = A.shape[-1], B.shape[-1]
+def _lapack(x: torch.Tensor) -> bool:
+    """True where the calls of this module are torch's own LAPACK calls: a tensor on the CPU.  The CPU tests patch
+    it to run the card's routes there, with the kernels' plain versions."""
+    return not x.is_cuda
+
+
+def _batched_factor(A: torch.Tensor) -> tuple:
+    """``(LU, pivots)`` of ``A`` for fewer than :data:`PIVOTED_FROM` rows by cuBLAS's batched LU (one matrix padded
+    with an identity)."""
+    n = A.shape[-1]
     lead = tuple(A.shape[:-2])
-    batch = torch.broadcast_shapes(lead, B.shape[:-2])
     flat = A.reshape((-1, n, n))
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
     with _cusolver(A):
-        LU, pivots, _ = torch.linalg.lu_factor_ex(_padded(flat, 2, eye))
-        LU, pivots = LU[:flat.shape[0]].reshape(lead + (n, n)), pivots[:flat.shape[0]].reshape(lead + (n,))
-        systems = int(torch.Size(batch).numel())
+        LU, pivots, _ = torch.linalg.lu_factor_ex(_padded(flat, 2, torch.eye(n, dtype=A.dtype, device=A.device)))
+    return LU[:flat.shape[0]].reshape(lead + (n, n)), pivots[:flat.shape[0]].reshape(lead + (n,))
+
+
+def _batched_substitute(LU: torch.Tensor, pivots: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``x`` from :func:`_batched_factor`'s factors by cuBLAS's batched substitution (fewer than three systems
+    padded with copies)."""
+    n, k = LU.shape[-1], B.shape[-1]
+    batch = torch.broadcast_shapes(tuple(LU.shape[:-2]), B.shape[:-2])
+    systems = int(torch.Size(batch).numel())
+    with _cusolver(LU):
         if systems >= 3:
             return torch.linalg.lu_solve(LU, pivots, B)
+        eye = torch.eye(n, dtype=LU.dtype, device=LU.device)
         LU = LU.expand(batch + (n, n)).reshape((-1, n, n))
         pivots = pivots.expand(batch + (n,)).reshape((-1, n))
         rhs = B.expand(batch + (n, k)).reshape((-1, n, k))
         x = torch.linalg.lu_solve(_padded(LU, 3, eye), _padded(pivots, 3, pivots[0]), _padded(rhs, 3, rhs[0]))
     return x[:systems].reshape(batch + (n, k))
+
+
+def _batched_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A^-1 B`` for fewer than :data:`PIVOTED_FROM` rows by cuBLAS's batched LU and substitution."""
+    return _batched_substitute(*_batched_factor(A), B)
 
 
 def _getrf(A: torch.Tensor) -> torch.Tensor:
@@ -149,29 +179,70 @@ def _substitute(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor) -> torch.
     return x
 
 
-def _pivoted_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``A^-1 B`` by the blocked LU with partial pivoting over the whole matrix (:func:`_getrf`), for
-    :data:`PIVOTED_FROM` rows and more on the card.  Each matrix of ``A``'s own batch is factored once; the batch
-    axes over which ``A`` is broadcast ride along as columns of the right-hand side."""
-    n, k = A.shape[-1], B.shape[-1]
-    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
-    lead = (1,) * (len(batch) - (A.dim() - 2)) + tuple(A.shape[:-2])
+def _pivoted_factor(A: torch.Tensor, overwrite_a: bool = False) -> tuple:
+    """``(LU, perm)`` of ``A`` by the blocked LU with partial pivoting over the whole matrix (:func:`_getrf`), for
+    :data:`PIVOTED_FROM` rows and more on the card: ``LU`` shaped as ``A`` (``A`` itself, factored in place, where
+    ``overwrite_a`` and ``A`` is contiguous), ``perm`` as ``A`` less its last axis."""
+    n = A.shape[-1]
+    lead = tuple(A.shape[:-2])
+    LU = A.reshape((-1, n, n))
+    if not (overwrite_a and A.is_contiguous()):
+        LU = LU.clone(memory_format=torch.contiguous_format)
+    with _full_precision():
+        perm = _getrf(LU)
+    return LU.reshape(lead + (n, n)), perm.reshape(lead + (n,))
+
+
+def _pivoted_substitute(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``x`` from :func:`_pivoted_factor`'s factors (:func:`_substitute`).  Each matrix was factored once; the batch
+    axes over which the factors are broadcast ride along as columns of the right-hand side."""
+    n, k = LU.shape[-1], B.shape[-1]
+    batch = torch.broadcast_shapes(tuple(LU.shape[:-2]), B.shape[:-2])
+    lead = (1,) * (len(batch) - (LU.dim() - 2)) + tuple(LU.shape[:-2])
     moved = [i for i, (a, s) in enumerate(zip(lead, batch)) if a == 1 and s > 1]
     kept = [i for i in range(len(batch)) if i not in moved]
     kept_shape = tuple(batch[i] for i in kept)
     moved_shape = tuple(batch[i] for i in moved)
     order = kept + [len(batch)] + moved + [len(batch) + 1]
     rhs = B.expand(batch + (n, k)).permute(order).reshape((-1, n, math.prod(moved_shape) * k))
-    LU = A.reshape(lead + (n, n)).reshape((-1, n, n)).clone(memory_format=torch.contiguous_format)
     with _full_precision():
-        perm = _getrf(LU)
-        x = _substitute(LU, perm, rhs)
+        x = _substitute(LU.reshape((-1, n, n)), perm.reshape((-1, n)), rhs)
     x = x.reshape(kept_shape + (n,) + moved_shape + (k,))
     inverse = [order.index(i) for i in range(len(order))]
     return x.permute(inverse)
 
 
+def _pivoted_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A^-1 B`` by the blocked LU with partial pivoting over the whole matrix, for :data:`PIVOTED_FROM` rows and
+    more on the card."""
+    return _pivoted_substitute(*_pivoted_factor(A), B)
+
+
+def lu_factor(A: torch.Tensor, overwrite_a: bool = False) -> tuple:
+    """``(LU, pivots)`` of ``A (..., n, n)``: the first half of :func:`solve`, on its route (LAPACK's
+    ``lu_factor_ex`` on the CPU, cuBLAS's batched LU below :data:`PIVOTED_FROM` rows on the card, the pivoted
+    blocked LU from there on).  ``overwrite_a`` lets the pivoted route factor a contiguous ``A`` in place.  The
+    factors are for :func:`lu_substitute` only: what ``pivots`` holds differs between the routes."""
+    if _lapack(A):
+        LU, pivots, _ = torch.linalg.lu_factor_ex(A)
+        return LU, pivots
+    if A.shape[-1] >= PIVOTED_FROM:
+        return _pivoted_factor(A, overwrite_a)
+    return _batched_factor(A)
+
+
+def lu_substitute(LU: torch.Tensor, pivots: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A^-1 B`` from :func:`lu_factor`'s factors of ``A``, the batch axes broadcast: the second half of
+    :func:`solve`."""
+    if _lapack(LU):
+        return torch.linalg.lu_solve(LU, pivots, B)
+    if LU.shape[-1] >= PIVOTED_FROM:
+        return _pivoted_substitute(LU, pivots, B)
+    return _batched_substitute(LU, pivots, B)
+
+
 def _solve(A, B):
+    """The card's route for ``A``'s rows, on any device."""
     return _pivoted_solve(A, B) if A.shape[-1] >= PIVOTED_FROM else _batched_solve(A, B)
 
 
@@ -179,14 +250,15 @@ def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A^-1 B``, ``A (..., n, n)``, ``B (..., n, k)``, the batch axes broadcast; no error check on the host.  A
     device span ``linalg.solve`` while tracing is on (``utils/trace.py``)."""
     with trace.device_span('linalg.solve'):
-        if not A.is_cuda:
+        if _lapack(A):
             return torch.linalg.solve_ex(A, B)[0]
-        return _solve(A, B)
+        return lu_substitute(*lu_factor(A), B)
 
 
 def inv(A: torch.Tensor) -> torch.Tensor:
     """``A^-1`` over the leading batch axes; no error check on the host."""
-    if not A.is_cuda:
+    if _lapack(A):
         return torch.linalg.inv_ex(A)[0]
     n = A.shape[-1]
-    return _solve(A, torch.eye(n, dtype=A.dtype, device=A.device).expand(tuple(A.shape[:-2]) + (n, n)))
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(tuple(A.shape[:-2]) + (n, n))
+    return lu_substitute(*lu_factor(A), eye)

@@ -14,8 +14,22 @@ FFTHelper, SpectralHelper with ``add_axis``/``add_component``/``add_BC``/
     read on the host, a route that a CUDA graph capture takes: LAPACK's
     ``solve_ex`` on the CPU; on the card cuBLAS's batched LU below 512 rows
     a mode and the pivoted blocked LU with its panel kernel from 512 on);
-    ``dt`` may be a float or a device tensor, and no factorization is kept
-    between solves.
+    ``dt`` may be a float or a device tensor.
+  - **One LU a collocation node, kept.**  A solve that names its node
+    (``solve_shifted(rhs, factor, node=m)``, what a sweeper's node loop
+    passes) keeps the factors of ``M + factor L`` in that node's slot, on the
+    field's device, with the ``factor`` they were made from, and only
+    substitutes while ``factor`` stays the same: the reference's
+    ``GenericSpectralLinear`` keeps its LU factorizations keyed by ``dt``
+    (``cached_direct``).  The check is made where ``factor`` lives: a host
+    float on the host; a device tensor (the fused lanes' graphs read ``dt``,
+    they do not hold it) on the device, as a device ``while`` of at most one
+    trip that forms the operator into the slot, factors it in place and
+    writes the new shift, so that a replay at an unchanged ``dt`` runs no
+    trip.  The factors come from the same operator through the same
+    kernels, so a slot's solve equals a fresh one bit for bit.  A solve
+    without a node, with a factor that is not one real number, or under
+    autograd factors afresh and keeps nothing.
   - **Automatic ultraspherical basis conversion.**  Operator terms are
     declared as derivative orders per axis; the engine computes the row
     basis C^(lambda) per (equation, axis) as the highest derivative order
@@ -39,12 +53,15 @@ the steps of a block): the transforms and solves count their axes from the end.
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import cached_tensor
-from pysdc_tpu_torch.ops import linalg
+from pysdc_tpu_torch.ops import graph_loop, linalg, loops
+from pysdc_tpu_torch.ops.kernels.build import differentiated
+from pysdc_tpu_torch.utils import trace
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
             torch.complex64: torch.complex64, torch.complex128: torch.complex128}
@@ -236,6 +253,17 @@ class UltrasphericalBase1D:
         return row * self.L / 2.0
 
 
+class _FactorSlot:
+    """The LU factors of one collocation node's shifted operator, kept on the field's device: ``LU`` and ``pivots``
+    as :func:`pysdc_tpu_torch.ops.linalg.lu_factor` made them, and ``shift`` (a float64 0-d tensor beside them) the
+    factor they were made from.  While only host floats have met the slot, ``known`` is ``shift`` on the host; once
+    a tensor has (a graph may write ``shift`` at any replay), ``known`` is ``None`` for good and the host reads
+    ``shift``."""
+
+    def __init__(self, LU, pivots, shift, known):
+        self.LU, self.pivots, self.shift, self.known = LU, pivots, shift, known
+
+
 class TensorProductSpectral:
     """Generic ``M u_t + L u = rhs`` problems on arbitrary tensor products
     of Fourier and ultraspherical axes with several components.
@@ -272,6 +300,7 @@ class TensorProductSpectral:
         self._bcs: list[dict] = []
         self._ready = False
         self._consts: dict = {}
+        self._slots: dict = {}  # (node, complex dtype, device) -> _FactorSlot
 
     # -- declaration ------------------------------------------------------
     def add_axis(self, name, base):
@@ -571,18 +600,86 @@ class TensorProductSpectral:
         return _along(cached_tensor(self._consts, ('axis matrix', id(mat)), lambda: mat, u_hat), u_hat, self._dim(i))
 
     # -- the protocol used by Problem classes ------------------------------
-    def solve_shifted(self, rhs, factor):
+    def _shifted_operator(self, factor, like, out=None):
+        """``M + factor L`` a mode with the tau lines in place of the rows they replace, in ``like``'s complex dtype:
+        a new tensor, or written into ``out``."""
+        keep = cached_tensor(self._consts, 'keep_mask', lambda: self.keep_mask, like, torch.bool)[:, :, None]
+        M, L, bc = (self._dev(name, like) for name in ('M_all', 'L_all', 'bc_rows'))
+        if out is None:
+            return (M + factor * L) * keep + bc
+        torch.mul(L, factor, out=out)
+        torch.add(M, out, out=out)
+        return out.mul_(keep).add_(bc)
+
+    def _keeps_factors(self, node, factor, rhs_hat) -> bool:
+        """Whether this solve uses node ``node``'s slot: a node given, one real factor, nothing differentiated, and
+        the slot made already or made now, outside any capture (its tensors then keep their addresses for every
+        graph of the run)."""
+        if node is None or differentiated(rhs_hat):
+            return False
+        if isinstance(factor, torch.Tensor):
+            if factor.numel() != 1 or factor.is_complex() or differentiated(factor):
+                return False
+        elif not isinstance(factor, numbers.Real):
+            return False
+        return (node, rhs_hat.dtype, rhs_hat.device) in self._slots or not loops.capturing(rhs_hat)
+
+    def _refresh(self, slot, factor, like) -> None:
+        """Form the operator at ``factor`` into the slot's ``LU``, factor it there and keep ``factor`` as its
+        shift."""
+        trace.tally('spectral.refreshes', like)
+        LU, pivots = linalg.lu_factor(self._shifted_operator(factor, like, out=slot.LU), overwrite_a=True)
+        if LU.data_ptr() != slot.LU.data_ptr():
+            slot.LU.copy_(LU)
+        slot.pivots.copy_(pivots)
+        if isinstance(factor, torch.Tensor):
+            slot.shift.copy_(factor)
+        else:
+            slot.shift.fill_(factor)
+
+    def _slot(self, node, factor, rhs_hat) -> _FactorSlot:
+        """Node ``node``'s slot, its factors made at ``factor``: made at the node's first solve, refreshed where
+        its shift differs from ``factor`` (on the host for a host float, on the device for a tensor)."""
+        key = (node, rhs_hat.dtype, rhs_hat.device)
+        slot = self._slots.get(key)
+        if slot is None:
+            trace.tally('spectral.refreshes', rhs_hat)
+            LU, pivots = linalg.lu_factor(self._shifted_operator(factor, rhs_hat), overwrite_a=True)
+            shift = (factor.detach().to(torch.float64).reshape(()).clone() if isinstance(factor, torch.Tensor)
+                     else torch.full((), float(factor), dtype=torch.float64, device=rhs_hat.device))
+            known = None if isinstance(factor, torch.Tensor) else float(factor)
+            slot = self._slots[key] = _FactorSlot(LU.contiguous(), pivots.contiguous(), shift, known)
+            return slot
+        if not isinstance(factor, torch.Tensor):
+            if (slot.known if slot.known is not None else float(slot.shift)) != float(factor):
+                self._refresh(slot, factor, rhs_hat)
+            if slot.known is not None:
+                slot.known = float(factor)
+            return slot
+        slot.known = None
+        loop = graph_loop.device_while if loops.capturing(rhs_hat) else graph_loop.plain_while
+        loop(lambda c: slot.shift != c[0], lambda c: self._refresh(slot, c[0], rhs_hat) or c,
+             (factor.detach().to(torch.float64).reshape(()),))
+        return slot
+
+    def solve_shifted(self, rhs, factor, node=None):
         """Solve (M + factor*L) u = M rhs with BC tau lines, batched over
         Fourier modes (and any leading batch axes).  ``factor`` is a float or
-        a device tensor; rhs in real space."""
+        a device tensor; rhs in real space.  With ``node`` (a collocation
+        node's index) the factors are node ``node``'s slot's, refreshed only
+        where ``factor`` changed (the module's docstring)."""
         rhs_hat = self.transform(rhs)
         b = self._flatten_modes(self.apply_operator('M_all', rhs_hat))
         keep = cached_tensor(self._consts, 'keep_mask', lambda: self.keep_mask, rhs_hat, torch.bool)
-        b = torch.where(keep, b, self._dev('bc_rhs_vec', rhs_hat))
-        A = (self._dev('M_all', rhs_hat) + factor * self._dev('L_all', rhs_hat)) * keep[:, :, None] \
-            + self._dev('bc_rows', rhs_hat)
-        x = linalg.solve(A, b.unsqueeze(-1)).squeeze(-1)
-        return self.itransform(self._unflatten_modes(x))
+        b = torch.where(keep, b, self._dev('bc_rhs_vec', rhs_hat)).unsqueeze(-1)
+        if self._keeps_factors(node, factor, rhs_hat):
+            with trace.device_span('linalg.solve'):
+                slot = self._slot(node, factor, rhs_hat)
+                trace.tally('spectral.slot_solves', rhs_hat)
+                x = linalg.lu_substitute(slot.LU, slot.pivots, b)
+        else:
+            x = linalg.solve(self._shifted_operator(factor, rhs_hat), b)
+        return self.itransform(self._unflatten_modes(x.squeeze(-1)))
 
     def apply_L(self, u):
         """L @ u in real space with rows mapped back to the natural

@@ -24,6 +24,12 @@ to the count.  The table is zeroed as a march starts to enqueue and comes home i
 each block's own start and end are kept after its replay, as the march keeps its iteration counts.  On the CPU,
 where a block runs eagerly, a device span is the host clock around the same call.
 
+**Counters**: :func:`count` adds one to a host counter; :func:`tally` counts an event of the program where it
+happens: on the host, or, inside a CUDA graph being captured, on the card, in a row of a small int64 table that a
+replay adds to.  That table comes home inside the march's one fetch (and at :func:`record`), and its rows are added
+to the host counters of their names and set to 0.  ``spectral.slot_solves`` counts the solves that a node's kept LU
+served (``ops/spectral.py``), ``spectral.refreshes`` the LU made again for them because the node's shift changed.
+
 **One clock.** :func:`enable` calibrates the card's timer against the host's: the narrowest of several rounds of
 host clock, stamp, synchronize, host clock gives the offset, and half that round's width is the stated
 uncertainty.  :func:`record` calibrates again, and a stamp is placed on the host clock between the two.
@@ -147,12 +153,14 @@ class _Tracer:
         self.host_spans = []
         self.marches = []
         self.counters = {'fused.captures': 0}
+        self.tallies = {}  # name -> row of the card's tally table
         self.seq = 0
         self.march = None
         if self.on_card:
             self.index = device.index if device.index is not None else torch.cuda.current_device()
             self.lib = _library()
             self.table = torch.zeros((TABLE_ROWS, 4), dtype=torch.int64, device=device)
+            self.tally_table = torch.zeros((TABLE_ROWS,), dtype=torch.int64, device=device)
             self.points = [self._calibrate()]
             res = torch.zeros((3,), dtype=torch.int64, device=device)
             _check(self.lib.trace_resolution(res.data_ptr(), 64, current_stream(self.index)), 'trace_resolution')
@@ -267,24 +275,44 @@ class _Tracer:
             m.blocks.append(m.last_block)
             m.last_block = None
 
+    def tally(self, name: str, like: torch.Tensor) -> None:
+        if not (self.on_card and like.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.counters[name] = self.counters.get(name, 0) + 1
+            return
+        row = self.tallies.get(name)
+        if row is None:
+            if len(self.tallies) >= TABLE_ROWS:
+                raise RuntimeError(f'trace: more than {TABLE_ROWS} tallies (TABLE_ROWS); the next is {name}')
+            row = self.tallies[name] = len(self.tallies)
+        self.tally_table[row].add_(1)
+
+    def _add_tallies(self, counts) -> None:
+        """The tally table's rows as fetched added to the host counters; the table on the card set to 0."""
+        for name, row in self.tallies.items():
+            self.counters[name] = self.counters.get(name, 0) + int(counts[row])
+        self.tally_table.zero_()
+
     def fetch_parts(self) -> list:
         m = self.march
         if not self.on_card or m is None:
             return []
-        return [self.table] + ([torch.stack(m.blocks)] if m.blocks else [])
+        return [self.table, self.tally_table] + ([torch.stack(m.blocks)] if m.blocks else [])
 
     def fetched(self, arrays) -> None:
         m = self.march
         if not arrays or m is None:
             return
         m.table = np.array(arrays[0])
-        m.blocks = [tuple(int(v) for v in b) for b in arrays[1]] if len(arrays) > 1 else []
+        self._add_tallies(arrays[1])
+        m.blocks = [tuple(int(v) for v in b) for b in arrays[2]] if len(arrays) > 2 else []
 
     # -- what was traced ------------------------------------------------------------------------------------
     def record(self) -> Record:
         clock = SimpleNamespace(offset_ns=0, uncertainty_ns=0, resolution_ns=None, drift_ppm=0.0,
                                 device=str(self.device))
         if self.on_card:
+            if self.tallies:
+                self._add_tallies(self.tally_table.cpu())
             self.points = [self.points[0], self._calibrate()]
             (h0, d0, w0), (h1, d1, w1) = self.points
             clock = SimpleNamespace(offset_ns=d0 - h0, uncertainty_ns=max(w0, w1), resolution_ns=self.resolution[:2],
@@ -371,7 +399,8 @@ def replay():
 
 
 def fetch_parts() -> list:
-    """Tensors that the march's one fetch takes home with its own: the card's table and each block's stamps."""
+    """Tensors that the march's one fetch takes home with its own: the card's table, its tallies and each block's
+    stamps."""
     return [] if _tracer is None else _tracer.fetch_parts()
 
 
@@ -384,6 +413,13 @@ def fetched(arrays) -> None:
 def count(name: str) -> None:
     if _tracer is not None:
         _tracer.counters[name] = _tracer.counters.get(name, 0) + 1
+
+
+def tally(name: str, like: torch.Tensor) -> None:
+    """One event ``name`` of the program: on the host, or on ``like``'s card inside a CUDA graph being captured (each
+    replay that runs it counts it; the march's fetch brings it home)."""
+    if _tracer is not None:
+        _tracer.tally(name, like)
 
 
 # -- the operator's summary ---------------------------------------------------------------------------------

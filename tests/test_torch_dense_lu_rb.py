@@ -2,10 +2,12 @@
 (float64 / complex128, CPU).
 
 ``RayleighBenard(nx=8, nz=128)`` couples 4 x 128 = 512 rows a Fourier mode, the first size at which the port's solve
-takes the pivoted blocked LU on the card.  On the CPU ``ops.linalg.solve`` is LAPACK, so the port's solve is sent
-through ``_pivoted_solve`` here: the route's blocks run as on the card, each panel and each block's row
-interchanges and ``U12`` by the kernels' plain versions.  IMEX M=3 LU / PIC, 2 steps through ``ControllerNonMPI`` in
-both packages: equal ``niter``, ``uend`` to 1e-11 of ``max|uend|``.
+takes the pivoted blocked LU on the card.  On the CPU ``ops.linalg`` calls LAPACK, so ``linalg._lapack`` is patched
+here to send the port's factorizations and substitutions down the card's routes: the route's blocks run as on the
+card, each panel and each block's row interchanges and ``U12`` by the kernels' plain versions.  The sweeps' solves
+name their node, so each node's LU is made once at the run's one ``dt`` and kept (``ops/spectral.py``).  IMEX M=3
+LU / PIC, 2 steps through ``ControllerNonMPI`` in both packages: equal ``niter``, ``uend`` to 1e-11 of
+``max|uend|``.
 """
 
 import numpy as np
@@ -36,15 +38,22 @@ def _run(pkg, module, **params):
 
 
 def test_pivoted_route_in_a_rayleigh_benard_run_matches_jax(monkeypatch):
-    calls = []
+    factored, substituted = [], []
+    pivoted_factor, pivoted_substitute = linalg._pivoted_factor, linalg._pivoted_substitute
 
-    def pivoted(A, B):
-        calls.append(A.shape[-1])
-        return linalg._pivoted_solve(A, B)
+    def factor(A, overwrite_a=False):
+        factored.append(A.shape[-1])
+        return pivoted_factor(A, overwrite_a)
+
+    def substitute(LU, perm, B):
+        substituted.append(LU.shape[-1])
+        return pivoted_substitute(LU, perm, B)
 
     panels = []
     plain_panel = dense_lu.plain_panel
-    monkeypatch.setattr(linalg, 'solve', pivoted)
+    monkeypatch.setattr(linalg, '_lapack', lambda x: False)
+    monkeypatch.setattr(linalg, '_pivoted_factor', factor)
+    monkeypatch.setattr(linalg, '_pivoted_substitute', substitute)
     monkeypatch.setattr(dense_lu, 'plain_panel', lambda panel: panels.append(panel.shape) or plain_panel(panel))
     want_u0, want, want_niter = _run(pysdc_tpu, jrb)
     got_u0, got, niter = _run(pysdc_tpu_torch, trb, device='cpu')
@@ -52,6 +61,8 @@ def test_pivoted_route_in_a_rayleigh_benard_run_matches_jax(monkeypatch):
     assert niter == want_niter == [MAXITER] * STEPS
     close(got, want, rtol=1e-11)
     assert np.abs(got - got_u0).max() > 1e-8  # the run moved
-    # every solve of the run took the pivoted route, one 64-column panel a block of each 512-row operator
-    assert calls and set(calls) == {512} and all(rows >= 64 and width == 64 for _, rows, width in panels)
-    assert len(panels) == 8 * len(calls)
+    # every solve of the run took the pivoted route: one LU a node at the run's one dt, one 64-column panel a block
+    # of each 512-row operator, and a substitution for each of the sweeps' node solves
+    assert factored == [512] * 3 and all(rows >= 64 and width == 64 for _, rows, width in panels)
+    assert len(panels) == 8 * len(factored)
+    assert substituted == [512] * (STEPS * MAXITER * 3)
