@@ -62,6 +62,7 @@ from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
 from pysdc_tpu_torch.ops.krylov import cg, gmres
 from pysdc_tpu_torch.ops.loops import behind, masked_loop
 from pysdc_tpu_torch.ops.sparse import BSR, CSR, DIA, ELL
+from pysdc_tpu_torch.utils import trace
 
 
 class SparseOperator:
@@ -88,7 +89,11 @@ class SparseOperator:
     the iterations computed (the masked ones past a stop included);
     ``pcg_trace``, when set to a list, receives the iteration count of each
     PCG solve; ``host_reads`` counts the reads of the Krylov and refinement
-    loops.
+    loops.  With tracing on (:mod:`pysdc_tpu_torch.utils.trace`), each SpMV
+    is a device span ``spmv.apply``, each PCG solve a span ``pcg.solve`` with
+    a span ``precond.solve`` around each preconditioner solve in it, and the
+    tallies ``pcg.solves`` (one a call) and ``pcg.trips`` (one a trip of its
+    loop) count on the host or, inside a CUDA graph, on the card.
     """
 
     def __init__(self, A: CSR, grid_shape=None, bc_rhs=None, block=None, solver='auto', precond=None,
@@ -265,13 +270,14 @@ class SparseOperator:
         return self
 
     def _mv(self, flat):
-        """A @ flat over the trailing (flattened-grid) axis."""
+        """A @ flat over the trailing (flattened-grid) axis: the device span ``spmv.apply``."""
         self.spmv_count += 1
-        if self.dia is None:
-            return self.ell.spmv(flat)
-        if self._pallas_dia:
-            return dia_spmv(self.dia, flat.contiguous())
-        return self.dia.spmv(flat)
+        with trace.device_span('spmv.apply'):
+            if self.dia is None:
+                return self.ell.spmv(flat)
+            if self._pallas_dia:
+                return dia_spmv(self.dia, flat.contiguous())
+            return self.dia.spmv(flat)
 
     def apply(self, u):
         """A @ u; trailing axes are the grid, leading axes batch."""
@@ -365,17 +371,11 @@ class SparseOperator:
 
         def M(r):
             grid = r.reshape(r.shape[:-1] + self.grid_shape)
-            return self.precond.solve_shifted(grid, factor).reshape(r.shape)
-
-        if x0 is None:
-            x = torch.zeros_like(flat)
-            r = flat
-        else:
-            x = x0.reshape(flat.shape)
-            r = flat - mv(x)
-        bound = tol * _system_norm(flat, batch_ndim)
+            with trace.device_span('precond.solve'):
+                return self.precond.solve_shifted(grid, factor).reshape(r.shape)
 
         def body(carry, flags):
+            trace.tally('pcg.trips', flags)  # in the body, so that each trip of a device loop counts
             x, r, p, rz_prev, k = carry
             z = M(r)
             rz = (r * z).sum(dim=dims)
@@ -385,10 +385,19 @@ class SparseOperator:
             alpha = behind(rz / (p * Ap).sum(dim=dims), p)
             return x + alpha * p, r - alpha * Ap, p, rz, k + 1
 
-        counter = torch.zeros(lead, dtype=torch.int32, device=flat.device)
-        out = masked_loop(body, lambda c: _system_norm(c[1], batch_ndim) > bound,
-                          (x, r, torch.zeros_like(flat), torch.ones(lead, dtype=flat.dtype, device=flat.device),
-                           counter), maxiter)
+        trace.tally('pcg.solves', flat)
+        with trace.device_span('pcg.solve'):
+            if x0 is None:
+                x = torch.zeros_like(flat)
+                r = flat
+            else:
+                x = x0.reshape(flat.shape)
+                r = flat - mv(x)
+            bound = tol * _system_norm(flat, batch_ndim)
+            counter = torch.zeros(lead, dtype=torch.int32, device=flat.device)
+            out = masked_loop(body, lambda c: _system_norm(c[1], batch_ndim) > bound,
+                              (x, r, torch.zeros_like(flat), torch.ones(lead, dtype=flat.dtype, device=flat.device),
+                               counter), maxiter)
         self.host_reads += out.reads
         self.pcg_solves += counter.numel()
         if out.steps is not None:

@@ -14,7 +14,10 @@ and ``march.stats`` (the statistics made on the host).  Each carries the march's
 (spread and predictor), ``block.check`` (IT_CHECK), ``block.down`` and ``block.up`` (the restriction and prolongation
 cascades with their intermediate sweeps), ``block.coarse`` (IT_COARSE's serial chain; inside ``block.start`` the
 burn-in's or FMG's coarse wavefront) and ``block.fine`` (IT_FINE's sweeps at level 0, or a single level's
-iteration), and the layers ``linalg.solve`` (``ops/linalg.py:solve``) and ``stencil.apply`` (a launch of K1).  On
+iteration), and the layers ``linalg.solve`` (``ops/linalg.py:solve``), ``stencil.apply`` (a launch of K1),
+``spmv.apply`` (a sparse operator's SpMV, ``ops/sparse_op.py``: a launch of K2 on the card), ``pcg.solve`` (one
+preconditioned CG solve, from its first residual to the end of its loop) and ``precond.solve`` (its preconditioner's
+solve, at every trip of the PCG loop: inside the block's device ``while``, a ``while`` nested in it).  On
 the card a span is a pair of one-thread kernels that read the card's global timer on the current stream
 (``csrc/graph_loop.cu``), captured with the block: inside the block's device ``while`` they run at every trip.  A
 *site* is a span's name under the names of the spans it lies in (``('block', 'block.start', 'block.coarse')`` is
@@ -28,7 +31,10 @@ where a block runs eagerly, a device span is the host clock around the same call
 happens: on the host, or, inside a CUDA graph being captured, on the card, in a row of a small int64 table that a
 replay adds to.  That table comes home inside the march's one fetch (and at :func:`record`), and its rows are added
 to the host counters of their names and set to 0.  ``spectral.slot_solves`` counts the solves that a node's kept LU
-served (``ops/spectral.py``), ``spectral.refreshes`` the LU made again for them because the node's shift changed.
+served (``ops/spectral.py``), ``spectral.refreshes`` the LU made again for them because the node's shift changed;
+``pcg.solves`` counts the PCG solves of ``ops/sparse_op.py`` (one a call, which holds a block's steps as its
+systems) and ``pcg.trips`` the trips of their loops (tallied inside the loop's body, so that a replay counts every
+trip the card runs).  The benchmark's cell ``sparse.n1024`` reads the last two.
 
 **One clock.** :func:`enable` calibrates the card's timer against the host's: the narrowest of several rounds of
 host clock, stamp, synchronize, host clock gives the offset, and half that round's width is the stated
@@ -56,7 +62,7 @@ import torch.autograd.profiler as _autograd_profiler
 from pysdc_tpu_torch.ops.kernels.build import current_stream, load
 
 #: spans of a layer rather than a phase of the block: a phase's self time keeps the time of these inside it
-LAYER_SPANS = ('linalg.solve', 'stencil.apply')
+LAYER_SPANS = ('linalg.solve', 'stencil.apply', 'spmv.apply', 'pcg.solve', 'precond.solve')
 #: rows of the card's table: one a site
 TABLE_ROWS = 64
 #: rounds of a calibration of the card's timer against the host's
