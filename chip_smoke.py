@@ -1162,20 +1162,107 @@ def phase_sparse_kernels():
     return errs
 
 
-def phase_sparse_main(card):
-    """The sparse lane's main path.  Returns the controller and the K2 launch count."""
+def phase_sine_kernels(card):
+    """The sine kernels (``csrc/sine_solve.cu``) against their plain version and against a float64 solve by the
+    sine-transform chain, through ``SeparableFDOperator.solve_shifted`` on the card: several shapes, both dtypes, a
+    number and a tensor of shifts; the transform alone (``dst_rows``, the chain's) against its plain version; then
+    their time at the PCG preconditioner's shape (4, 1024, 1024) float32 from a CUDA graph, beside the chain's and the
+    bound.  Returns the largest error at that shape and the times."""
     import torch
 
+    from pysdc_tpu_torch.ops.kernels.sine import (dst_coefficients, dst_rows, fft_rows, odd_extension, plain_solve,
+                                                  sine_solve_2d)
+    from pysdc_tpu_torch.ops.linop import SeparableFDOperator
+
+    def operator(nx, ny):
+        return SeparableFDOperator([dict(size=nx, dx=1.0 / (nx + 1) / math.sqrt(0.1), derivative=2, order=2,
+                                         bc='dirichlet'),
+                                    dict(size=ny, dx=1.3 / (ny + 1) / math.sqrt(0.1), derivative=2, order=2,
+                                         bc='dirichlet-zero')], scale=0.9)
+
+    def chain(op, u, factor):
+        denom = 1.0 - factor * op.scale * op._mat('lam_nd', op._lam_nd, u)
+        return op._backward(op._forward(u) / denom).contiguous()
+
+    gen = torch.Generator(device='cuda').manual_seed(2024)
+    for shape, dtype in (((4, 1024, 1024), torch.float32), ((3, 7, 1), torch.float64), ((5, 33), torch.float32),
+                         ((2, 9, 1024), torch.float64), ((65,), torch.float32)):
+        n = shape[-1]
+        x = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+        angle = math.pi * torch.arange(1, n + 1, device='cuda', dtype=torch.float64) / (n + 1)
+        cs, sn = torch.cos(angle).to(dtype), torch.sin(angle).to(dtype)
+        before = dst_rows.launches
+        got = dst_rows(x, cs, sn, 0.5)
+        want = 0.5 * dst_coefficients(fft_rows(odd_extension(x)), cs, sn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        tol = 8 * torch.finfo(dtype).eps
+        if dst_rows.launches != before + 1 or not err <= tol:
+            raise AssertionError(f'sine transform {shape} {dtype}: launches {dst_rows.launches - before}, rel err '
+                                 f'{err:.3e} against its plain version > {tol:.3e}')
+        print(f'kernels: sine transform {shape} {str(dtype):13s}: rel err {err:.3e} against its plain version '
+              f'<= {tol:.3e}')
+    out = {}
+    for B, nx, ny, dtype, tensor in ((4, 1024, 1024, torch.float32, False), (4, 1024, 1024, torch.float64, True),
+                                     (3, 33, 20, torch.float64, True), (2, 70, 45, torch.float32, False),
+                                     (5, 17, 64, torch.float32, True), (2, 31, 3, torch.float64, False)):
+        op = operator(nx, ny)
+        rhs = torch.randn((B, nx, ny), generator=gen, device='cuda', dtype=dtype)
+        f = torch.linspace(0.0, 3e-4, B, device='cuda', dtype=dtype) if tensor else 2e-4
+        before = sine_solve_2d.launches
+        got = op.solve_shifted(rhs, f.reshape(B, 1, 1) if tensor else f)
+        torch.cuda.synchronize()
+        if sine_solve_2d.launches != before + 1:
+            raise AssertionError(f'sine kernels: {B}x{nx}x{ny} did not launch')
+        tables = [op._const(f'sine {k}', op._sine_2d[k], dtype, rhs.device) for k in ('lam', 'cs', 'sn')]
+        plain = plain_solve(rhs, f, op.scale, op._sine_2d['cx'], *tables)
+        ref = chain(op, rhs.double(), f.double().reshape(B, 1, 1) if tensor else f)
+        scale = ref.abs().max().item()
+        err, err_plain = ((got.double() - ref).abs().max().item() / scale,
+                          (got - plain).abs().max().item() / scale)
+        tol = 2e-5 if dtype == torch.float32 else 1e-11  # the sweep's rounding grows with the modes' condition
+        if not (math.isfinite(err) and err <= tol and err_plain <= tol):
+            raise AssertionError(f'sine kernels {B}x{nx}x{ny} {dtype}: rel err {err:.3e} (plain {err_plain:.3e}) '
+                                 f'> {tol:.3e}')
+        print(f'kernels: sine {B}x{nx}x{ny} {str(dtype):13s} {"tensor" if tensor else "number"} shift: rel err '
+              f'{err:.3e} against float64, {err_plain:.3e} against the plain version <= {tol:.3e}')
+        if (B, nx, dtype) == (4, 1024, torch.float32):
+            out['max_rel_err'] = err
+    op = operator(1024, 1024)
+    rhs = [torch.rand((4, 1024, 1024), generator=gen, device='cuda') for _ in range(8)]
+    ms = _graph_ms(lambda i: op.solve_shifted(rhs[i % 8], 2e-4), 16)
+    chain_ms = _graph_ms(lambda i: chain(op, rhs[i % 8], 2e-4), 16)
+    bound_ms, bound_by = _bound(2 * 4 * rhs[0].numel(), 0)
+    print(f'kernels: sine solve at (4, 1024, 1024) float32 {ms:.4f} ms from a graph ({100 * bound_ms / ms:.1f}% of '
+          f'its bound {bound_ms:.4f} ms, {bound_by}); the sine-transform chain {chain_ms:.4f} ms [{card}]')
+    out.update(graph_ms=ms, bound_ms=bound_ms, chain_ms=chain_ms)
+    return out
+
+
+def phase_sparse_main(card):
+    """The sparse lane's main path.  Returns the controller, the K2 launch count and the sine kernels' (one solve a
+    PCG trip: the preconditioner's)."""
+    import torch
+
+    from pysdc_tpu_torch.ops import loops
     from pysdc_tpu_torch.ops.kernels.dia import dia_spmv
+    from pysdc_tpu_torch.ops.kernels.sine import sine_solve_2d
 
     desc = _sparse_description(N_SPARSE, torch.float32, 'cuda', restol=-1.0, maxiter=SWEEPS)
     trace = []
     dia_spmv.launches = 0
+    sine_solve_2d.launches = 0
     start = time.perf_counter()
     ctrl, prob, uend, niter = _sparse_run(desc, trace=trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = dia_spmv.launches
+    sine_launches = sine_solve_2d.launches
+    # READ_EVERY 1: the loop stops at the trip that converged, so the trips computed are the trips counted
+    if loops.READ_EVERY != 1 or sine_launches != prob.A.pcg_steps or sine_launches != sum(trace):
+        raise AssertionError(f'sparse main: sine kernel launches {sine_launches}, PCG trips computed '
+                             f'{prob.A.pcg_steps}, counted {sum(trace)} (READ_EVERY {loops.READ_EVERY}): the '
+                             f'preconditioner solve of each trip has to take the sine kernels')
     # per step: f(u0) and one batched f over the M spread nodes, then M per sweep
     floor = sum(2 + M_MAIN * k for k in niter)
     if len(niter) != N_STEPS or launches != prob.A.spmv_count or launches < floor:
@@ -1195,12 +1282,13 @@ def phase_sparse_main(card):
                              f'K2 launches {dia_spmv.launches}')
     print(f'sparse main: VarCoeffDiffusion2D {N_SPARSE}^2 fp32 M={M_MAIN} LU dt={DT_SPARSE}, {N_STEPS} steps, '
           f'niter {niter}, solver {prob.A.solver_kind}, K2 launches {launches} (= operator SpMVs; '
-          f'sum(2 + {M_MAIN}*niter) = {floor} of them are eval_f), wall {wall:.3f} s incl. first calls, '
+          f'sum(2 + {M_MAIN}*niter) = {floor} of them are eval_f), sine kernel launches {sine_launches} (= PCG '
+          f'trips), wall {wall:.3f} s incl. first calls, '
           f'max|uend| {uend.abs().max().item():.6f}, |uend - uend_plain_rolls| {diff:.3e} <= {SPARSE_PLAIN_BOUND} '
           f'[{card}]')
     print(f'sparse main: PCG iterations per solve, in order: {trace}')
     print(f'sparse main: through the plain rolls: {trace_plain}')
-    return ctrl, launches
+    return ctrl, launches, sine_launches
 
 
 def phase_bsr_path(card):
@@ -7240,7 +7328,8 @@ def main():
     ctrl, launches = phase(phase_main, card)
     k1 = phase(phase_times, ctrl, card)
     sparse_errs = phase(phase_sparse_kernels)
-    sparse_ctrl, k2_launches = phase(phase_sparse_main, card)
+    sine = phase(phase_sine_kernels, card)
+    sparse_ctrl, k2_launches, sine_launches = phase(phase_sparse_main, card)
     k3_launches = phase(phase_bsr_path, card)
     phase(phase_sparse_parity)
     k2, k3 = phase(phase_sparse_times, sparse_ctrl, card)
@@ -7337,6 +7426,9 @@ def main():
         dict(name='bsr_spmm', route='cuda', source='pysdc_tpu_torch/csrc/bsr_spmm.cu',
              replaces='pysdc_tpu/ops/pallas/spmv.py:29', launches=k3_launches,
              max_abs_err=sparse_errs['bsr_spmm'], **k3),
+        dict(name='sine_solve', route='cuda', source='pysdc_tpu_torch/csrc/sine_solve.cu',
+             replaces='none: the JAX package solves by dense eigen products (pysdc_tpu/ops/linop.py)', tpu_twin=False,
+             launches=sine_launches, **sine),
         dict(name='lu_panel', route='cuda', source='pysdc_tpu_torch/csrc/dense_lu.cu',
              replaces='none: no TPU kernel (XLA computes the LU of jnp.linalg.solve, pysdc_tpu/ops/spectral.py:565)',
              tpu_twin=False, launches=lu_launches['lu_panel']['main'],

@@ -2,8 +2,9 @@
 
 The counterpart of ``pysdc_tpu/models/heat.py`` (reference ``heatNd_unforced``
 and ``heatNd_forced``, ``pySDC/implementations/problem_classes/HeatEquation_ND_FD.py``):
-the Laplacian is a separable stencil operator with FFT (periodic) or
-eigen-product (Dirichlet/Neumann) direct shifted solves.  On the card a 2D
+the Laplacian is a separable stencil operator with FFT (periodic), sine
+transform (order-2 Dirichlet) or eigen-product (other Dirichlet/Neumann)
+direct shifted solves.  On the card a 2D
 periodic Laplacian applies through kernel K1.  ``backend='sparse'`` assembles
 the Laplacian as a CSR matrix instead (:mod:`pysdc_tpu_torch.ops.sparse_op`):
 its apply is the DIA SpMV (kernel K2 on the card), its solves are structured

@@ -73,7 +73,7 @@ class VarCoeffDiffusion2D(Problem):
     Face-centered diffusivities from ``coeff_fn(x, y)``; the operator is a
     five-point stencil with spatially varying weights.  By default the shifted
     solves take the PCG lane, preconditioned by the nearest separable
-    surrogate ``mean(a_x) d_xx + mean(a_y) d_yy`` (exact eigen-product solves);
+    surrogate ``mean(a_x) d_xx + mean(a_y) d_yy`` (exact solves by sine transforms);
     ``solver='block_tridiag'`` selects block cyclic reduction.  Params follow
     the JAX package, plus ``device`` (default ``'cuda'``).
     """

@@ -27,7 +27,8 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 
 #: every kernel library of the port: name -> source file under csrc/
 SOURCES = {'cross_stencil': 'cross_stencil.cu', 'dia_spmv': 'dia_spmv.cu', 'bsr_spmm': 'bsr_spmm.cu',
-           'graph_loop': 'graph_loop.cu', 'dense_lu': 'dense_lu.cu'}
+           'graph_loop': 'graph_loop.cu', 'dense_lu': 'dense_lu.cu',
+           'sine_solve': 'sine_solve.cu'}
 
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

@@ -12,8 +12,17 @@ structure is used directly:
     all-periodic operator applies through kernel K1
     (:func:`pysdc_tpu_torch.ops.kernels.stencil.cross_stencil_2d`), complex
     fields too (on their interleaved real view).
-  - general dims (Dirichlet/Neumann): A_d = V_d L_d V_d^{-1} eigen-factorized
-    once on the host; applies and solves become dense per-axis products.
+  - the order-2 Dirichlet second difference on a uniform grid,
+    ``c tridiag(1, -2, 1)``: its orthonormal eigenvectors are the DST-I basis
+    ``sqrt(2/(n+1)) sin(pi j k/(n+1))`` and its eigenvalues
+    ``-4c sin^2(pi k/(2(n+1)))``, so solves transform by an FFT of length
+    ``n+1`` of the axis's odd extension and keep no eigen tables.  On the card
+    a 2D operator of two such axes solves by the sine kernels
+    (:func:`pysdc_tpu_torch.ops.kernels.sine.sine_solve_2d`): the DST-I along
+    y by cuFFT, a tridiagonal sweep along x for each sine mode.
+  - other general dims (Dirichlet/Neumann): A_d = V_d L_d V_d^{-1}
+    eigen-factorized once on the host; applies and solves become dense
+    per-axis products.
 
 ``(I - factor*A) x = rhs`` for any scalar ``factor`` (including 0) is thus
 one transform, one elementwise divide, one inverse transform.  Constant
@@ -28,13 +37,60 @@ exchange of :mod:`pysdc_tpu_torch.ops.halo` (one K1 launch per slab).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from pysdc_tpu_torch.core.device import complex_dtype
 from pysdc_tpu_torch.core.errors import ProblemError
 from pysdc_tpu_torch.ops.fd import fd_matrix_1d, get_finite_difference_stencil, stencil_symbol
+from pysdc_tpu_torch.ops.kernels.build import differentiated
+from pysdc_tpu_torch.ops.kernels.sine import dst_rows
 from pysdc_tpu_torch.ops.krylov import cg, gmres
+from pysdc_tpu_torch.utils import trace
+
+
+def second_difference_scale(A1: np.ndarray):
+    """``c`` where ``A1`` is ``c tridiag(1, -2, 1)`` to 1e-14 of ``max |A1|`` (the order-2 Dirichlet second
+    difference on a uniform grid), else ``None``."""
+    n = A1.shape[0]
+    c = -0.5 * A1[0, 0]
+    T = c * (np.eye(n, k=-1) - 2.0 * np.eye(n) + np.eye(n, k=1))
+    if c == 0 or np.max(np.abs(A1 - T)) > 1e-14 * np.max(np.abs(A1)):
+        return None
+    return c
+
+
+def sine_transform(x: torch.Tensor, axis: int, cs: torch.Tensor, sn: torch.Tensor) -> torch.Tensor:
+    """The orthonormal DST-I along ``axis`` (its own inverse), in ``x``'s precision:
+    ``sqrt(2/(n+1)) sum_j x_j sin(pi j k/(n+1))`` for ``j, k = 1..n``, by the sine kernels' transform
+    (:func:`pysdc_tpu_torch.ops.kernels.sine.dst_rows`: a complex FFT of length ``n+1`` of the odd extension, then
+    its split); ``(cs, sn)`` ``(n,)`` hold the cosine and sine of ``pi k/(n+1)`` in ``x``'s real precision."""
+    if x.is_complex():
+        return torch.complex(sine_transform(x.real, axis, cs, sn), sine_transform(x.imag, axis, cs, sn))
+    n = x.shape[axis]
+    return dst_rows(x.movedim(axis, -1), cs, sn, math.sqrt(2.0 / (n + 1))).movedim(-1, axis)
+
+
+def _eigen_tables(A1: np.ndarray, axis: int) -> dict:
+    """``lam``, ``V`` and ``Vinv`` with ``A1 = V diag(lam) Vinv``, made once on the host."""
+    if np.allclose(A1, A1.T, atol=1e-14 * np.max(np.abs(A1))):
+        # symmetric: orthogonal eigenbasis, V^{-1} = V^T exactly — no
+        # conditioning loss
+        lam, V = np.linalg.eigh(A1)
+        return dict(lam=lam, V=V, Vinv=V.T)
+    lam, V = np.linalg.eig(A1)
+    cond = np.linalg.cond(V)
+    if cond > 1e10:
+        raise ProblemError(
+            f'1D FD matrix along axis {axis} is too ill-conditioned for the eigen '
+            f'direct solver (cond(V)={cond:.1e}); use an iterative solver_type'
+        )
+    Vinv = np.linalg.inv(V)
+    if np.max(np.abs(lam.imag)) < 1e-12 * max(np.max(np.abs(lam.real)), 1.0):
+        lam, V, Vinv = lam.real, V.real, Vinv.real
+    return dict(lam=lam, V=V, Vinv=Vinv)
 
 
 class SeparableFDOperator:
@@ -52,7 +108,14 @@ class SeparableFDOperator:
     Constant tensors follow the device and dtype of the fields they meet.
     ``krylov_trace``, when set to a list, receives ``(kind, iterations,
     Arnoldi steps per restart)`` of each CG / GMRES solve; ``host_reads``
-    counts their loops' reads.
+    counts their loops' reads.  A non-periodic axis whose matrix is the
+    order-2 Dirichlet second difference (:func:`second_difference_scale`)
+    takes the sine transform; every other one the dense eigen product.  With
+    tracing on (:mod:`pysdc_tpu_torch.utils.trace`), each solve off the rfft
+    path of an operator with a non-periodic axis tallies
+    ``separable.eigen_solves``, ``separable.sine_solves`` where every such
+    axis is a sine axis, and ``separable.sine_kernel_solves`` where the sine
+    kernels served it.
     """
 
     def __init__(self, per_dim: list[dict], scale: float = 1.0):
@@ -87,23 +150,14 @@ class SeparableFDOperator:
                     derivative, order, size, dx, bc=bc, stencil_type=stencil_type, steps=steps,
                     bc_params=d.get('bc_params'),
                 )
-                if np.allclose(A1, A1.T, atol=1e-14 * np.max(np.abs(A1))):
-                    # symmetric (e.g. 2nd-order Dirichlet Laplacian): orthogonal
-                    # eigenbasis, V^{-1} = V^T exactly — no conditioning loss
-                    lam, V = np.linalg.eigh(A1)
-                    Vinv = V.T
+                c = second_difference_scale(A1)
+                if c is not None:
+                    # the DST-I's mode order k = 1..n; no eigen tables
+                    angle = np.pi * np.arange(1, size + 1) / (size + 1)
+                    self._dims.append(dict(kind='sine', axis=axis, A=A1, lam=-4.0 * c * np.sin(angle / 2) ** 2, c=c,
+                                           cs=np.cos(angle), sn=np.sin(angle)))
                 else:
-                    lam, V = np.linalg.eig(A1)
-                    cond = np.linalg.cond(V)
-                    if cond > 1e10:
-                        raise ProblemError(
-                            f'1D FD matrix along axis {axis} is too ill-conditioned for the eigen '
-                            f'direct solver (cond(V)={cond:.1e}); use an iterative solver_type'
-                        )
-                    Vinv = np.linalg.inv(V)
-                    if np.max(np.abs(lam.imag)) < 1e-12 * max(np.max(np.abs(lam.real)), 1.0):
-                        lam, V, Vinv = lam.real, V.real, Vinv.real
-                self._dims.append(dict(kind='dense', axis=axis, A=A1, lam=lam, V=V, Vinv=Vinv))
+                    self._dims.append(dict(kind='dense', axis=axis, A=A1, **_eigen_tables(A1, axis)))
                 nnz += int(np.mean(np.count_nonzero(A1, axis=1)))
                 # broadcast the 1D boundary vector into the ND grid
                 shape_b = [1] * self.ndim
@@ -125,6 +179,14 @@ class SeparableFDOperator:
             lam_nd = lam_nd.real
         self._lam_nd = lam_nd
         self.all_periodic = all(d['kind'] == 'circulant' for d in self._dims)
+        self._all_sine = not self.all_periodic and all(d['kind'] in ('circulant', 'sine') for d in self._dims)
+        # 2D with both axes sine and scale A negative definite (so that each mode's system is positive definite for
+        # a shift >= 0, which the sweep needs: it does not pivot): the sine kernels' solve on the card (the x axis's
+        # scale, the y axis's tables)
+        self._sine_2d = None
+        if self.ndim == 2 and all(d['kind'] == 'sine' and self.scale * d['c'] > 0 for d in self._dims):
+            x_dim, y_dim = self._dims
+            self._sine_2d = dict(cx=x_dim['c'], **{k: y_dim[k] for k in ('lam', 'cs', 'sn')})
         # real-symbol all-periodic operators get a cheaper rfft solve path
         self._rfft_ok = self.all_periodic and not np.iscomplexobj(lam_nd)
         if self._rfft_ok:
@@ -224,6 +286,11 @@ class SeparableFDOperator:
             x = x.to(M.dtype)
         return torch.movedim(torch.tensordot(M, x, dims=([1], [ax])), 0, ax)
 
+    def _sine(self, i: int, d: dict, x: torch.Tensor, ax: int) -> torch.Tensor:
+        real = x.real.dtype
+        cs, sn = (self._const(f'{k}{i}', d[k], real, x.device) for k in ('cs', 'sn'))
+        return sine_transform(x, ax, cs, sn)
+
     def _forward(self, x):
         """Transform to the operator's diagonal basis."""
         offset = x.dim() - self.ndim
@@ -231,6 +298,8 @@ class SeparableFDOperator:
             ax = d['axis'] + offset
             if d['kind'] == 'circulant':
                 x = torch.fft.fft(x, dim=ax)
+            elif d['kind'] == 'sine':
+                x = self._sine(i, d, x, ax)
             else:
                 x = self._contract(f'Vinv{i}', d['Vinv'], x, ax)
         return x
@@ -241,6 +310,8 @@ class SeparableFDOperator:
             ax = d['axis'] + offset
             if d['kind'] == 'circulant':
                 x = torch.fft.ifft(x, dim=ax)
+            elif d['kind'] == 'sine':
+                x = self._sine(i, d, x, ax)
             else:
                 x = self._contract(f'V{i}', d['V'], x, ax)
         return x
@@ -251,20 +322,60 @@ class SeparableFDOperator:
         ``factor`` is a float, or a tensor that broadcasts against the
         spectral grid (one shift per leading batch entry).  Real input on a
         real-symbol periodic operator takes the rfft path (half the spectral
-        traffic)."""
+        traffic); a real 2D field on the card of an operator whose two axes
+        take the sine transform, with one real shift for each leading batch
+        entry, takes the sine kernels (:meth:`_sine_kernel_solve`).  There a
+        tensor ``factor`` has to be ``>= 0``, as the sweepers' and the PCG
+        preconditioner's ``dt * qdelta`` shifts are: its sign is not read on
+        the host, and the kernels' sweep does not pivot."""
         if self._rfft_ok and not rhs.is_complex():
             axes = tuple(range(rhs.dim() - self.ndim, rhs.dim()))
             rhat = torch.fft.rfftn(rhs, dim=axes)
             lam = self._const('lam_rfft', self._lam_rfft, rhs.dtype, rhs.device)
             denom = 1.0 - factor * self.scale * lam
             return torch.fft.irfftn(rhat / denom, s=self.shape, dim=axes)
+        if not self.all_periodic:
+            trace.tally('separable.eigen_solves', rhs)
+            if self._all_sine:
+                trace.tally('separable.sine_solves', rhs)
+        if self._sine_2d is not None and rhs.is_cuda:
+            x = self._sine_kernel_solve(rhs, factor)
+            if x is not None:
+                return x
         lam = self._mat('lam_nd', self._lam_nd, rhs)
-        xhat = self._forward(rhs)
-        xhat = xhat / (1.0 - factor * self.scale * lam)
-        x = self._backward(xhat)
+        x = self._backward(self._forward(rhs) / (1.0 - factor * self.scale * lam))
         if not rhs.is_complex() and x.is_complex():
             x = x.real
         return x.to(rhs.dtype).contiguous()
+
+    def _sine_kernel_solve(self, rhs, factor):
+        """The solve by the sine kernels, or ``None`` where they do not apply: a complex or differentiated field, a
+        complex shift, a shift that varies over the grid or widens the field's batch, an array, or a negative number
+        (the sweep does not pivot, so a shift has to leave each mode's system positive definite; a tensor's sign is
+        not read on the host, see :meth:`solve_shifted`).  Each solve it serves tallies
+        ``separable.sine_kernel_solves``."""
+        from pysdc_tpu_torch.ops.kernels.sine import sine_solve_2d
+
+        if rhs.is_complex() or rhs.dtype not in (torch.float32, torch.float64) or differentiated(rhs):
+            return None
+        lead = rhs.shape[:-2]
+        if torch.is_tensor(factor):
+            if factor.is_complex() or factor.dim() > rhs.dim() or differentiated(factor):
+                return None
+            shape = (1,) * (rhs.dim() - factor.dim()) + tuple(factor.shape)
+            # compared by hand: torch.broadcast_shapes imports sympy (seconds) on its first call
+            if shape[-2:] != (1, 1) or any(f not in (1, n) for f, n in zip(shape[:-2], lead)):
+                return None
+            shifts = factor.reshape(shape[:-2]).expand(lead).reshape(-1)
+        else:
+            if np.ndim(factor) or np.iscomplexobj(factor) or factor < 0:
+                return None
+            shifts = float(factor)
+        t = self._sine_2d
+        lam, cs, sn = (self._const(f'{k}1', t[k], rhs.dtype, rhs.device) for k in ('lam', 'cs', 'sn'))  # y's
+        x = sine_solve_2d(rhs.reshape((-1,) + self.shape), shifts, self.scale, t['cx'], lam, cs, sn)
+        trace.tally('separable.sine_kernel_solves', rhs)
+        return x.reshape(rhs.shape)
 
     def _krylov(self, kind, solve, rhs, factor, x0, tol, maxiter):
         x, info = solve(lambda x: x - factor * self.apply(x), rhs, x0, tol=tol, maxiter=maxiter)

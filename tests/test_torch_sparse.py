@@ -275,20 +275,21 @@ def test_cpu_path_launches_nothing_and_other_devices_raise():
 
 def test_kernel_modules_import_without_a_card():
     """Importing the wrappers compiles nothing and needs no nvcc; the build
-    registry names the three kernel sources, the dense LU panel's and the graph loop's."""
+    registry names the three kernel sources, the dense LU panel's, the graph loop's and the sine solve's."""
     code = (
         'import pysdc_tpu_torch.ops.kernels.dia as d, pysdc_tpu_torch.ops.kernels.bsr as s\n'
         'import pysdc_tpu_torch.ops.kernels.dense_lu as lu, pysdc_tpu_torch.ops.linalg\n'
-        'import pysdc_tpu_torch.ops.graph_loop as g\n'
+        'import pysdc_tpu_torch.ops.graph_loop as g, pysdc_tpu_torch.ops.kernels.sine as sine\n'
         'import pysdc_tpu_torch.ops.kernels.build as b\n'
         'assert not b._loaded and d._library.cache_info().currsize == 0 and s._library.cache_info().currsize == 0\n'
         'assert g._library.cache_info().currsize == 0 and lu._library.cache_info().currsize == 0\n'
+        'assert sine._library.cache_info().currsize == 0\n'
         'print(sorted(b.SOURCES))\n'
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "['bsr_spmm', 'cross_stencil', 'dense_lu', 'dia_spmv', 'graph_loop']"
+    assert out.stdout.strip() == "['bsr_spmm', 'cross_stencil', 'dense_lu', 'dia_spmv', 'graph_loop', 'sine_solve']"
 
 
 # ----------------------------------------------------------------------
